@@ -3,30 +3,47 @@
 
   python3 chip_smoke.py
 
-Phases, one flushed line each with its seconds:
-  1. build     nvcc builds every CUDA kernel of the main path (csrc/*.cu).
+Phases, one flushed line each with its seconds (TF32 off throughout):
+  1. build     nvcc builds every CUDA kernel of the main paths (csrc/*.cu),
+               one process per source, all started together.
   2. device    the card's name, and its name and power limit from nvidia-smi.
   3. kernels   each kernel against its plain PyTorch version on the card, at
-               the main path's shapes plus odd ones, TF32 off; fails on a miss.
-  4. eval      the main path: per-image eval of the flagship mshyper model at
-               full width (ELIC 192/192/192/320, synthesis (12, 3)), seeded
-               random weights, three 512x768 images, f32; then one batch
-               decode (hyper_synthesize + synthesize) at B=8 in bf16. Kernel
-               launch counts are zeroed before and read after.
+               the main paths' shapes plus odd ones, f32 and bf16, and its
+               gradients through its autograd.Function; fails on a miss.
+  4. eval      per-image eval of the flagship mshyper model at full width
+               (ELIC 192/192/192/320, synthesis (12, 3)), seeded random
+               weights, three 512x768 images, f32; one batch decode at B=8 in
+               bf16; then image 0 three ways: cuDNN residual blocks,
+               SNTC_FUSED_RB_CHAIN=1 and SNTC_FUSED_RESBLOCK=1. Launch counts
+               are zeroed before each run and read after it.
   5. reference the GPU eval against the port's CPU eval (plain versions) on a
                192x256 crop with the same weights: latents and prior logits
                to float tolerance, then the rest of the path from the same
                latents (latent rate, PSNR, reconstruction).
-  6. timing    the B=8 bf16 decode in Mpx/s; each kernel, its plain version and
-               one PyTorch library call computing the same function, by CUDA events.
+  6. train     the train entry point (train_lib.train_and_eval, as the CLI
+               calls it) on the flagship config: B=8 256x256 f32, synthetic
+               crops, SNTC_FUSED_RB_CHAIN=1, a few steps and the final eval;
+               losses finite, params moved, the chain kernel 7 times per
+               forward, a checkpoint restored equal to the live state.
+  7. train-reference  one full-width train step on the card (kernels)
+               against the port's CPU step (plain versions), B=2 64x64, same
+               params, batch and noise: loss, metrics and every gradient.
+  8. timing    the train step with the chain kernel on and off; the B=8 bf16
+               decode in Mpx/s; each kernel, its plain version and (where one
+               exists) one PyTorch library call computing the same function,
+               by CUDA events, beside its bound.
 Then one JSON line of kernels, the nvidia-smi line, and the last line
 {"ok": true, "device": {...}}. Any failed phase exits non-zero before that
 line. Without CUDA, or without the port beside this script, it exits 1.
 """
 
+import concurrent.futures
+import copy
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -36,6 +53,9 @@ H100_BYTES_PER_S = 3.35e12  # HBM3, NVIDIA data sheet (SXM)
 H100_PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense; f32 off the tensor cores
 EVAL_HW = (512, 768)
 DECODE_BATCH = 8
+TRAIN_BATCH, TRAIN_HW, TRAIN_STEPS = 8, 256, 4
+# The residual-block chains the flagship runs per forward, and their blocks.
+CHAINS_PER_FORWARD, BLOCKS_PER_FORWARD = 7, 21
 
 
 def log(phase, msg):
@@ -85,16 +105,53 @@ def final_deconv_bound_ms(mid_p, out, kernel, dtype_name):
   return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def rb_chain_bound_ms(x, n_blocks, dtype_name):
+  """Least time for n_blocks residual blocks on x: bytes or operations.
+
+  Bytes: x read once, the output written once, the float32 weights and
+  biases once. Operations: per block and pixel 2 C Ch for each 1x1 conv,
+  and 2 Ch^2 per 3x3 tap that lands inside the image ((3H-2)(3W-2) taps per
+  image: SAME padding multiplies zeros at the edge, which is no work).
+  """
+  b, h, w, c = x.shape
+  ch = c // 2
+  n_weights = n_blocks * (c * ch + ch + 9 * ch * ch + ch + ch * c + c)
+  n_bytes = 2 * x.numel() * x.element_size() + 4 * n_weights
+  flops = n_blocks * b * (4 * c * ch * h * w + 2 * ch * ch * (3 * h - 2) * (3 * w - 2))
+  t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
+  t_ops = flops / H100_PEAK_FLOPS[dtype_name] * 1e3
+  return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+class switch_on:
+  """Set an SNTC_* switch to "1" for a with-block; restore it after."""
+
+  def __init__(self, name):
+    self.name = name
+
+  def __enter__(self):
+    self.old = os.environ.get(self.name)
+    os.environ[self.name] = "1"
+
+  def __exit__(self, *exc):
+    if self.old is None:
+      os.environ.pop(self.name, None)
+    else:
+      os.environ[self.name] = self.old
+
+
 def main():
   import torch
   if not torch.cuda.is_available():
     print("chip_smoke: CUDA is not available", file=sys.stderr)
     return 1
   try:
-    from shallow_ntc_tpu_torch import configs, eval_lib
+    from shallow_ntc_tpu_torch import configs, eval_lib, train_lib
     from shallow_ntc_tpu_torch.latents import LatentRVCollection, UQLatentRV
     from shallow_ntc_tpu_torch.ops import cuda_build
     from shallow_ntc_tpu_torch.ops import fast_deconv as fd
+    from shallow_ntc_tpu_torch.ops import rb_chain as rb
+    from shallow_ntc_tpu_torch.ops import resblock
     from shallow_ntc_tpu_torch.ops import twolayer_final as tl
   except ImportError as e:
     print(f"chip_smoke: the port is not beside this script ({e})", file=sys.stderr)
@@ -103,8 +160,22 @@ def main():
 
   # --- 1. build ------------------------------------------------------------
   t = time.time()
-  so = cuda_build.build(tl.SOURCE)
-  log("build", f"{tl.SOURCE} -> {so} in {time.time() - t:.1f}s")
+  sources = sorted({tl.SOURCE, rb.SOURCE, resblock.SOURCE})
+  with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+    built = list(pool.map(cuda_build.build, sources))
+  for source, so in zip(sources, built):
+    log("build", f"{source} -> {so}")
+  log("build", f"{len(sources)} sources built in parallel in {time.time() - t:.1f}s")
+  stats = (tl.STATS, rb.STATS, resblock.STATS)
+
+  def zero_counts():
+    torch.cuda.synchronize()
+    for st in stats:
+      st.launches = 0
+
+  def read_counts():
+    torch.cuda.synchronize()
+    return {st.name: st.launches for st in stats}
 
   # --- 2. device -----------------------------------------------------------
   dev = torch.device("cuda")
@@ -153,6 +224,61 @@ def main():
   log("kernels", f"final_deconv_phase backward vs plain: max|err| {g_err:.3e} (tol 1e-4)")
   check(g_err <= 1e-4, "final_deconv_phase gradients disagree")
 
+  def rb_params(n, c, seed):
+    """Seeded block weights at the scale of a glorot init (fan-in normalized)."""
+    r = np.random.default_rng(seed)
+    ch = c // 2
+
+    def mk(*shape):
+      fan_in = int(np.prod(shape[:-1])) if len(shape) > 1 else 1
+      return torch.from_numpy((r.standard_normal(shape) / np.sqrt(fan_in)).astype(np.float32))
+
+    return [tuple(t.to(dev) for t in (mk(c, ch), mk(ch) * 0.1, mk(3, 3, ch, ch), mk(ch) * 0.1,
+                                      mk(ch, c), mk(c) * 0.1)) for _ in range(n)]
+
+  # (B, H, W, C, N): train stage 1, eval stage 1, the C=320 stage, odd shapes; N=1
+  # goes through fused_resblock's own entry.
+  rb_train, rb_eval = (TRAIN_BATCH, TRAIN_HW // 2, TRAIN_HW // 2, 192, 3), (1, 256, 384, 192, 3)
+  rb_cases = [rb_train, rb_eval, (TRAIN_BATCH, 16, 16, 320, 3), (3, 7, 5, 16, 2),
+              (TRAIN_BATCH, TRAIN_HW // 2, TRAIN_HW // 2, 192, 1), (3, 7, 5, 16, 1)]
+  for case in rb_cases:
+    b, h, w, c, n = case
+    params = rb_params(n, c, seed=sum(case))
+    x32 = torch.from_numpy(rng.standard_normal((b, h, w, c), np.float32)).to(dev)
+    for dtype in (torch.float32, torch.bfloat16):
+      x = x32.to(dtype)
+      name = "fused_resblock" if n == 1 else "fused_rb_chain"
+      out = (resblock.fused_resblock_cuda(x, *params[0]) if n == 1
+             else rb.rb_chain_cuda(x, params))
+      ref = rb.dense_rb_chain(x, params)
+      torch.cuda.synchronize()
+      err = (out.float() - ref.float()).abs().max().item()
+      scale = ref.float().abs().max().item()
+      tol = (1e-4 if dtype == torch.float32 else 2e-2) * scale
+      log("kernels", f"{name} B={b} {h}x{w} C={c} N={n} {dtype}: max|err| {err:.3e} "
+          f"(tol {tol:.3e}, max|y| {scale:.3f})")
+      check(out.shape == ref.shape and err <= tol, f"{name} disagrees: {err} > {tol}")
+      errs[(name, case, dtype)] = err
+  for name, n in (("fused_rb_chain", 3), ("fused_resblock", 1)):
+    params = rb_params(n, 192, seed=99)
+    x = torch.randn(2, 9, 11, 192, device=dev)
+    cot = torch.randn_like(x)
+    fused = ((lambda xx, pp: resblock.fused_resblock(xx, *pp[0])) if n == 1
+             else rb.fused_rb_chain)
+    grads = []
+    for fn in (fused, rb.dense_rb_chain):
+      x_l = x.clone().requires_grad_(True)
+      p_l = [tuple(t.clone().requires_grad_(True) for t in blk) for blk in params]
+      (fn(x_l, p_l) * cot).sum().backward()
+      grads.append([x_l.grad] + [t.grad for blk in p_l for t in blk])
+    # Both sides run the plain version's backward; cuDNN's weight gradients
+    # may sum in another order from call to call.
+    g_err = max(((a - b_).abs().max() / max(1.0, b_.abs().max().item())).item()
+                for a, b_ in zip(*grads))
+    log("kernels", f"{name} N={n} backward vs plain (x and {6 * n} weights): "
+        f"max|err| / max(1, max|g|) {g_err:.3e} (tol 1e-5)")
+    check(g_err <= 1e-5, f"{name} gradients disagree")
+
   # --- 4. the main path -----------------------------------------------------
   t = time.time()
   model = eval_lib.build_model(configs.TWO_LAYER_SYN_RD, init_seed=0, device="cuda")
@@ -198,6 +324,35 @@ def main():
   check(rec.shape == (DECODE_BATCH,) + EVAL_HW + (3,) and torch.isfinite(rec).all().item()
         and mu.shape == y_hat.shape and torch.isfinite(idx).all().item(),
         "decode output has the wrong shape or is not finite")
+
+  # Image 0 three ways: the residual blocks as cuDNN convs, as 7 chain
+  # kernels, as 21 block kernels.
+  ways = {}
+  for way, env in (("cudnn", None), ("chain", "SNTC_FUSED_RB_CHAIN"),
+                   ("resblock", "SNTC_FUSED_RESBLOCK")):
+    zero_counts()
+    if env is None:
+      r = next(eval_lib.evaluate_images(model, images[:1]))
+    else:
+      with switch_on(env):
+        r = next(eval_lib.evaluate_images(model, images[:1]))
+    ways[way] = (r, read_counts())
+    log("eval", f"image 0 with the residual blocks as {way}: bpp {r['bpp']:.6f} "
+        f"psnr {r['psnr']:.6f}; launches {ways[way][1]}")
+  base = ways["cudnn"][0]
+  for way in ("chain", "resblock"):
+    for key in ("bpp", "psnr"):
+      rel = abs(ways[way][0][key] - base[key]) / abs(base[key])
+      log("eval", f"image 0 {key}: {way} vs cudnn rel {rel:.2e} (tol 1e-4)")
+      check(rel <= 1e-4, f"eval with the {way} kernels disagrees on {key}: {rel}")
+  check(ways["cudnn"][1][rb.STATS.name] == 0 and ways["cudnn"][1][resblock.STATS.name] == 0,
+        "the default eval launched a residual-block kernel")
+  check(ways["chain"][1][rb.STATS.name] == CHAINS_PER_FORWARD
+        and ways["chain"][1][resblock.STATS.name] == 0,
+        f"SNTC_FUSED_RB_CHAIN=1 eval: {ways['chain'][1]}, not {CHAINS_PER_FORWARD} chains")
+  check(ways["resblock"][1][resblock.STATS.name] == BLOCKS_PER_FORWARD
+        and ways["resblock"][1][rb.STATS.name] == 0,
+        f"SNTC_FUSED_RESBLOCK=1 eval: {ways['resblock'][1]}, not {BLOCKS_PER_FORWARD} blocks")
 
   # --- 5. reference: the GPU path against the port's CPU path -------------
   # Continuous tensors are held to float tolerance, and the rest of the path
@@ -246,7 +401,164 @@ def main():
       f"(tol 0.99); done in {time.time() - t:.1f}s")
   check(same_px >= 0.99 and not failures, f"GPU eval disagrees with the CPU eval: {failures}")
 
-  # --- 6. timing ------------------------------------------------------------
+  # --- 6. train: the flagship's training through its entry point ---------
+  del model, model_cpu
+  train_cfg = copy.deepcopy(configs.TRAIN_CONFIGS["two_layer_syn_rd"])
+  train_cfg["train_eval_config"]["log_metrics_every_steps"] = 1
+  val_forwards = train_cfg["train_eval_config"]["max_validation_steps"]
+  with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as workdir:
+    zero_counts()
+    t = time.time()
+    with switch_on("SNTC_FUSED_RB_CHAIN"):
+      state = train_lib.train_and_eval(train_cfg, workdir, device="cuda", init_seed=0,
+                                       num_steps=TRAIN_STEPS)
+    train_counts = read_counts()
+    train_s = time.time() - t
+    with open(os.path.join(workdir, "train", "record.jsonl")) as f:
+      train_records = [json.loads(line) for line in f]
+    with open(os.path.join(workdir, "val", "record.jsonl")) as f:
+      val_records = [json.loads(line) for line in f]
+    for r in train_records:
+      log("train", f"step {r['step']}: rd_loss {r['rd_loss']:.5f} bpp {r['bpp']:.5f} "
+          f"psnr {r['psnr']:.4f} scheduled_lr {r['scheduled_lr']:.4e} "
+          f"steps/s {r['steps_per_sec']:.3f}")
+    log("train", f"val at step {val_records[-1]['step']}: rd_loss {val_records[-1]['rd_loss']:.5f}"
+        f" msssim {val_records[-1]['msssim']:.5f}; {TRAIN_STEPS} steps of B={TRAIN_BATCH} "
+        f"{TRAIN_HW}x{TRAIN_HW} f32 + {val_forwards} val images in {train_s:.1f}s; "
+        f"launches {train_counts}")
+    check([r["step"] for r in train_records] == list(range(1, TRAIN_STEPS + 1))
+          and all(np.isfinite(v) for r in train_records + val_records for v in r.values()),
+          "a train step's metrics are missing or not finite")
+    forwards = TRAIN_STEPS + val_forwards
+    check(train_counts[rb.STATS.name] == CHAINS_PER_FORWARD * forwards,
+          f"the chain kernel ran {train_counts[rb.STATS.name]} times in {forwards} forwards")
+    check(train_counts[tl.STATS.name] >= forwards,
+          f"final_deconv_phase ran {train_counts[tl.STATS.name]} times in {forwards} forwards")
+    init_model, opt_cfg = train_lib.build_model(train_cfg["model_config"], init_seed=0,
+                                                device="cuda")
+    unmoved = [k for k, v in init_model.state_dict().items()
+               if torch.equal(v, state.model.state_dict()[k])]
+    log("train", f"{len(unmoved)} of {len(init_model.state_dict())} parameter tensors "
+        f"unchanged after {TRAIN_STEPS} steps")
+    check(not unmoved, f"parameters did not move: {unmoved[:5]}")
+    restored, _ = train_lib.create_train_state(init_model, opt_cfg, seed=1)
+    train_lib.restore_checkpoint(workdir, restored)
+    same = (restored.step == state.step == TRAIN_STEPS
+            and restored.optimizer.count == state.optimizer.count
+            and all(torch.equal(a, b) for a, b in zip(init_model.state_dict().values(),
+                                                      state.model.state_dict().values()))
+            and all(torch.equal(a, b) for a, b in zip(
+                restored.optimizer.mu + restored.optimizer.nu,
+                state.optimizer.mu + state.optimizer.nu))
+            and torch.equal(restored.generator.get_state(), state.generator.get_state()))
+    log("train", f"checkpoint at step {restored.step} restored equal to the live state: {same}")
+    check(same, "the restored checkpoint differs from the live state")
+  del state, restored, init_model
+
+  # --- 7. train-reference: the GPU train step against the CPU one ----------
+  t = time.time()
+  ref_models = {d: train_lib.build_model(train_cfg["model_config"], init_seed=0, device=d)[0]
+                for d in ("cuda", "cpu")}
+  batch = (rng.integers(0, 256, (2, 64, 64, 3)) / 255.0 - 0.5).astype(np.float32)
+  noise = [rng.uniform(-0.5, 0.5, shape).astype(np.float32)
+           for shape in ((2, 1, 1, 320), (2, 4, 4, 320))]
+  ref_metrics = {}
+  zero_counts()
+  with switch_on("SNTC_FUSED_RB_CHAIN"):
+    for d, m in ref_models.items():
+      ref_state, lr_fn = train_lib.create_train_state(m, opt_cfg)
+      ref_metrics[d] = train_lib.make_train_step(m, ref_state.optimizer, lr_fn)(
+          ref_state, torch.from_numpy(batch).to(d),
+          noise=tuple(torch.from_numpy(u).to(d) for u in noise))
+  ref_counts = read_counts()
+  failures = []
+  for key, cpu_v in ref_metrics["cpu"].items():
+    gpu_v, cpu_v = float(ref_metrics["cuda"][key]), float(cpu_v)
+    rel = abs(gpu_v - cpu_v) / max(abs(cpu_v), 1e-30)
+    log("train-reference", f"B=2 64x64 {key}: gpu {gpu_v:.6f} cpu {cpu_v:.6f} rel {rel:.2e} "
+        "(tol 1e-4)")
+    if rel > 1e-4:
+      failures.append(key)
+  # Each gradient tensor within 1e-3 max|g| + 1e-6 elementwise. A relu whose
+  # input lies within float32 rounding of 0 (|a| ~ 1e-8 at this seeded init)
+  # can take the other side on the other device, in either path; the flip
+  # moves the gradients it feeds by one pixel's term (up to ~1% of max|g|,
+  # ~0.2% in L2, at 64x64). Such a tensor passes only if its L2 error is
+  # within 1e-2 of its L2 norm, and is listed; the kernels phase holds each
+  # kernel elementwise, so this allowance covers flips only.
+  worst, flipped = (0.0, ""), []
+  for (name, p_gpu), p_cpu in zip(ref_models["cuda"].named_parameters(),
+                                  ref_models["cpu"].parameters()):
+    g_cpu = p_cpu.grad
+    diff = (p_gpu.grad.cpu() - g_cpu).abs()
+    tol = 1e-3 * g_cpu.abs().max().item() + 1e-6
+    worst = max(worst, (diff.max().item() / tol, name))
+    if diff.max().item() <= tol:
+      continue
+    l2_rel = (diff.norm() / (g_cpu.norm() + 1e-30)).item()
+    flipped.append(f"{name} (L2 rel {l2_rel:.2e})")
+    if l2_rel > 1e-2:
+      failures.append(name)
+  log("train-reference", f"gradients of {len(list(ref_models['cpu'].parameters()))} tensors: "
+      f"worst max|gpu-cpu| / (1e-3 max|g| + 1e-6) = {worst[0]:.3e} ({worst[1]}); "
+      f"{len(flipped)} tensors pass by the relu-flip allowance only: {flipped}; "
+      f"GPU launches {ref_counts}; done in {time.time() - t:.1f}s")
+  check(ref_counts[rb.STATS.name] == CHAINS_PER_FORWARD,
+        "the GPU reference step did not run the chain kernel")
+  check(not failures, f"the GPU train step disagrees with the CPU one: {failures[:8]}")
+  del ref_models
+
+  # --- 8. timing ------------------------------------------------------------
+  # The full-width train step, chain kernel off and on, in turns (off, on,
+  # on, off), each the mean of 3 steps by CUDA events after a warm-up step.
+  t_model, _ = train_lib.build_model(train_cfg["model_config"], init_seed=0, device="cuda")
+  t_state, lr_fn = train_lib.create_train_state(t_model, opt_cfg)
+  t_step = train_lib.make_train_step(t_model, t_state.optimizer, lr_fn)
+  t_batch = torch.from_numpy((rng.integers(0, 256, (TRAIN_BATCH, TRAIN_HW, TRAIN_HW, 3))
+                              / 255.0 - 0.5).astype(np.float32)).to(dev)
+  step_ms = {"off": [], "on": []}
+  for way in ("off", "on", "on", "off"):
+    if way == "on":
+      with switch_on("SNTC_FUSED_RB_CHAIN"):
+        step_ms[way].append(cuda_ms(torch, lambda: t_step(t_state, t_batch), iters=3, warmup=1))
+    else:
+      step_ms[way].append(cuda_ms(torch, lambda: t_step(t_state, t_batch), iters=3, warmup=1))
+  zero_counts()
+  with switch_on("SNTC_FUSED_RB_CHAIN"):
+    t_step(t_state, t_batch)
+  step_counts = read_counts()
+  check(step_counts[rb.STATS.name] == CHAINS_PER_FORWARD and step_counts[tl.STATS.name] >= 1,
+        f"one train step launched {step_counts}")
+  train_step_ms = {k: float(np.mean(v)) for k, v in step_ms.items()}
+  log("timing", f"train step B={TRAIN_BATCH} {TRAIN_HW}x{TRAIN_HW} f32: chain kernel off "
+      + " / ".join(f"{x:.3f}" for x in step_ms["off"]) + " ms, on "
+      + " / ".join(f"{x:.3f}" for x in step_ms["on"]) + f" ms; one step launches "
+      f"{step_counts}  [{smi}]")
+  del t_model, t_state, t_step, t_batch
+
+  def time_rb(case, dtype):
+    b, h, w, c, n = case
+    params = rb_params(n, c, seed=sum(case))
+    x = torch.from_numpy(rng.standard_normal((b, h, w, c), np.float32)).to(dev, dtype)
+    fn = ((lambda: resblock.fused_resblock_cuda(x, *params[0])) if n == 1
+          else (lambda: rb.rb_chain_cuda(x, params)))
+    ms = cuda_ms(torch, fn, iters=10, warmup=2)
+    plain = cuda_ms(torch, lambda: rb.dense_rb_chain(x, params), iters=10, warmup=2)
+    bound, by = rb_chain_bound_ms(x, n, str(dtype).split(".")[-1])
+    name = "fused_resblock" if n == 1 else "fused_rb_chain"
+    log("timing", f"{name} B={b} {h}x{w} C={c} N={n} {dtype}: kernel {ms:.5f} ms, plain "
+        f"(cuDNN) {plain:.5f} ms, bound {bound:.5f} ms ({by})  [{smi}]")
+    return dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=None,
+                shape=f"B={b} {h}x{w} C={c} N={n} {str(dtype).split('.')[-1]}",
+                max_abs_err=errs[(name, case, dtype)])
+
+  rb_block = rb_train[:4] + (1,)
+  chain_t = {k: time_rb(case, dtype) for k, case, dtype in (
+      ("train f32", rb_train, torch.float32), ("train bf16", rb_train, torch.bfloat16),
+      ("eval f32", rb_eval, torch.float32))}
+  block_t = {k: time_rb(rb_block, dtype) for k, dtype in (
+      ("train f32", torch.float32), ("train bf16", torch.bfloat16))}
+
   pixels = DECODE_BATCH * EVAL_HW[0] * EVAL_HW[1]
   decode_ms = cuda_ms(torch, decode, iters=20, warmup=3)
   log("timing", f"decode B={DECODE_BATCH} {EVAL_HW[0]}x{EVAL_HW[1]} bf16: {decode_ms:.4f} ms, "
@@ -276,11 +588,28 @@ def main():
       name=tl.STATS.name, route="cuda",
       source="shallow_ntc_tpu_torch/csrc/final_deconv.cu",
       replaces="shallow_ntc_tpu/ops/pallas/twolayer_final.py:273",
-      launches=launches, max_abs_err=errs[(DECODE_BATCH, torch.bfloat16)], **decode_t,
+      launches=train_counts[tl.STATS.name], max_abs_err=errs[(DECODE_BATCH, torch.bfloat16)],
+      **decode_t,
       shape=f"B={DECODE_BATCH} mid {mh}x{mw}x768 bf16 (decode)",
       eval_shape=dict(shape=f"B=1 mid {mh}x{mw}x768 f32 (eval)",
                       max_abs_err=errs[(1, torch.float32)], **eval_t),
       decode_mpx_per_s=pixels / decode_ms / 1e3)]
+  # Launches: this slice's main path is the training run of phase 6 (4 steps
+  # and the final eval); fused_resblock's own path is the eval of image 0
+  # with SNTC_FUSED_RESBLOCK=1 (phase 4). Times are at train stage 1 in f32.
+  kernels[0]["launches_by_path"] = {"eval+decode": launches,
+                                    "train": train_counts[tl.STATS.name]}
+  kernels.append(dict(
+      name=rb.STATS.name, route="cuda", source="shallow_ntc_tpu_torch/csrc/rb_chain.cu",
+      replaces="shallow_ntc_tpu/ops/pallas/rb_chain.py:263",
+      launches=train_counts[rb.STATS.name], path="train",
+      **chain_t["train f32"], other_shapes={k: chain_t[k] for k in ("train bf16", "eval f32")}))
+  kernels.append(dict(
+      name=resblock.STATS.name, route="cuda", source="shallow_ntc_tpu_torch/csrc/rb_chain.cu",
+      replaces="shallow_ntc_tpu/ops/pallas/resblock.py:202",
+      launches=ways["resblock"][1][resblock.STATS.name], path="eval image 0, SNTC_FUSED_RESBLOCK=1",
+      **block_t["train f32"], other_shapes={"train bf16": block_t["train bf16"]}))
+  kernels[1]["train_step_ms"] = train_step_ms
   print(json.dumps({"kernels": kernels}), flush=True)
   print(smi, flush=True)
   print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -5,6 +5,16 @@ two_layer_syn.py (the paper's flagship: ELIC analysis + two-layer residual
 synthesis), without the optimizer settings that only training reads.
 TWO_LAYER_SYN_RD is the same model as two_layer_syn_rd.py trained it
 (rd_lambda 0.01, 30k scheduled steps): the committed checkpoint's config.
+
+TRAIN_CONFIGS hold what the train CLI reads (model_config with its
+optimizer_config, the data configs and train_eval_config):
+  two_layer_syn_rd  mshyper/configs/two_layer_syn_rd.py; the dead-leaves set
+                    is not in the repository, so the data are the synthetic
+                    source (or a .npy glob given to the CLI); validation on
+                    4 synthetic 256x256 images.
+  smoke             mshyper/configs/smoke.py's schedule (20 steps, lr 1e-3,
+                    no warmup, B=2 64x64) with the flagship transforms at
+                    narrow ELIC widths: for tests and CPU runs.
 """
 
 import copy
@@ -32,3 +42,30 @@ TWO_LAYER_SYN_RD.update(scheduled_num_steps=30_000, rd_lambda=0.01)
 # The hparams that the JAX eval parses back from the run name
 # (mshyper-lmbda=0.01-num_steps=30000) into every result record.
 TWO_LAYER_SYN_RD_RUNNAME = "mshyper-lmbda=0.01-num_steps=30000"
+
+_FLAGSHIP_OPTIMIZER = dict(learning_rate=1e-4, reduce_lr_after=0.8, reduce_lr_factor=0.1,
+                           global_clipnorm=1.0)
+
+TRAIN_CONFIGS = {
+    "two_layer_syn_rd": dict(
+        model_config=dict(copy.deepcopy(TWO_LAYER_SYN_RD),
+                          optimizer_config=dict(_FLAGSHIP_OPTIMIZER)),
+        train_data_config=dict(dataset="synthetic", batchsize=8, patchsize=256),
+        val_data_config=dict(dataset="synthetic", batchsize=1, patchsize=256),
+        train_eval_config=dict(num_steps=30_000, log_metrics_every_steps=250,
+                               checkpoint_every_steps=5_000, eval_every_steps=5_000,
+                               max_validation_steps=4),
+    ),
+    "smoke": dict(
+        model_config=dict(copy.deepcopy(TWO_LAYER_SYN_RD), scheduled_num_steps=20,
+                          optimizer_config=dict(learning_rate=1e-3, warmup_until=0.0,
+                                                global_clipnorm=1.0)),
+        train_data_config=dict(dataset="synthetic", batchsize=2, patchsize=64),
+        val_data_config=dict(dataset="synthetic", batchsize=2, patchsize=64),
+        train_eval_config=dict(num_steps=20, log_metrics_every_steps=5,
+                               checkpoint_every_steps=10, eval_every_steps=10,
+                               max_validation_steps=2),
+    ),
+}
+TRAIN_CONFIGS["smoke"]["model_config"]["transform_config"]["analysis"]["channels"] = (
+    8, 8, 8, 16)

@@ -1,4 +1,4 @@
-"""Mean-scale hyperprior model (Minnen 2018), eval path.
+"""Mean-scale hyperprior model (Minnen 2018).
 
 Mirrors shallow_ntc_tpu/models/mshyper.py:
   x -> pad -> analysis -> y -> hyper-analysis -> z
@@ -7,7 +7,9 @@ Mirrors shallow_ntc_tpu/models/mshyper.py:
   y -> [64-scale indexed noisy Gaussian, loc=mu] -> y_hat, bits(y)
   y_hat -> synthesis -> x_hat -> unpad
   rd_loss = bpp + scheduled_lambda * mse (255 scale)
-Only the 'unoise' branch at training=False is ported; training and SGA come later.
+Only the 'unoise' branch is ported (training and eval); mixedq and SGA come
+later. In training, z and y get additive U(-.5, .5) noise: given as
+noise=(u_z, u_y), or drawn from a torch.Generator, z's first.
 """
 
 from typing import Any, Mapping, Optional, Tuple
@@ -68,15 +70,22 @@ class Model(nn.Module):
 
   def frame_loss_given_latent_rvs(self, image_batch: torch.Tensor,
                                   latent_rvs: LatentRVCollection, training: bool = False,
-                                  step: int = 0):
-    """Returns (rd_loss, metrics, reconstruction on the 255 scale)."""
-    if training:
-      raise NotImplementedError("training-mode losses are not ported yet")
+                                  step: int = 0,
+                                  noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                                  generator: Optional[torch.Generator] = None):
+    """Returns (rd_loss, metrics, reconstruction on the 255 scale).
+
+    In training the offset-heuristic bisection is skipped: the noisy sample
+    does not read it, and JAX's values and gradients do not depend on it.
+    """
     z_rv, y_rv = latent_rvs.uq
+    u_z, u_y = noise if noise is not None else (None, None)
+    offset = None if training else self.prior_quantization_offset()
     z_hat, z_bits = entropy.batched_em_call(
-        self._prior, z_rv.loc, self.prior_quantization_offset())
+        self._prior, z_rv.loc, offset, training=training, noise=u_z, generator=generator)
     mu, indexes = self.hyper_synthesize(z_hat)
-    y_hat, y_bits = entropy.indexed_em_call(y_rv.loc, indexes, mu)
+    y_hat, y_bits = entropy.indexed_em_call(
+        y_rv.loc, indexes, mu, training=training, noise=u_y, generator=generator)
     reconstruction = metrics_ops.unpad_images(self.synthesize(y_hat), image_batch.shape)
 
     num_pixels = float(image_batch.shape[1] * image_batch.shape[2])
@@ -90,6 +99,9 @@ class Model(nn.Module):
     return rd_loss, metrics, rec255
 
   def end_to_end_frame_loss(self, image_batch: torch.Tensor, training: bool = False,
-                            step: int = 0):
+                            step: int = 0,
+                            noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                            generator: Optional[torch.Generator] = None):
     latent_rvs = self.infer_latent_rvs(image_batch)
-    return self.frame_loss_given_latent_rvs(image_batch, latent_rvs, training, step)
+    return self.frame_loss_given_latent_rvs(image_batch, latent_rvs, training, step,
+                                            noise, generator)

@@ -21,6 +21,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
+
+
+class KernelStats:
+  """Launch count of one CUDA kernel wrapper: a plain integer, reset by the caller."""
+
+  def __init__(self, name: str):
+    self.name = name
+    self.launches = 0
+
 _loaded = {}
 
 

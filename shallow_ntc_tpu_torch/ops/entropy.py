@@ -1,7 +1,7 @@
-"""Entropy models of the eval path (mirrors shallow_ntc_tpu/ops/entropy.py).
+"""Entropy models (mirrors shallow_ntc_tpu/ops/entropy.py).
 
-Only the training=False calls are ported; the training-mode noise comes
-with training.
+The entropy-model calls take the training-mode uniform noise explicitly
+(`noise`) or draw it from a torch.Generator (`generator`).
 
 DeepFactorizedPrior is the side prior (tfc.NoisyDeepFactorized); the main
 latent is coded under a 64-scale indexed noisy Gaussian. Parameter names
@@ -16,7 +16,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from shallow_ntc_tpu_torch.ops.math import lower_bound, upper_bound
-from shallow_ntc_tpu_torch.ops.rounding import round_st
+from shallow_ntc_tpu_torch.ops.rounding import round_st, sample_unoise
 
 NUM_SCALES = 64
 SCALE_MIN = 0.11
@@ -124,13 +124,19 @@ class DeepFactorizedPrior(nn.Module):
 
 
 def batched_em_call(prior: DeepFactorizedPrior, y: torch.Tensor,
-                    offset: Optional[torch.Tensor], coding_rank: int = CODING_RANK):
-  """tfc ContinuousBatchedEntropyModel.__call__ at eval (training=False).
+                    offset: Optional[torch.Tensor], coding_rank: int = CODING_RANK,
+                    training: bool = False, noise: Optional[torch.Tensor] = None,
+                    generator: Optional[torch.Generator] = None):
+  """tfc ContinuousBatchedEntropyModel.__call__ (entropy.py:210-233).
 
-  Straight-through round about `offset`; bits from the noisy likelihood of
-  the rounded values. Returns (sample, bits[batch...]).
+  Training: y plus uniform noise (`offset` unused). Eval: straight-through
+  round about `offset`. Bits from the noisy likelihood of the sample.
+  Returns (sample, bits[batch...]).
   """
-  sample = round_st(y, offset)
+  if training:
+    sample = sample_unoise(y, noise, generator)
+  else:
+    sample = round_st(y, offset)
   return sample, bits_from_log_prob(prior.log_prob_noisy(sample), coding_rank)
 
 
@@ -140,13 +146,20 @@ def normalize_indexes(indexes: torch.Tensor) -> torch.Tensor:
 
 
 def indexed_em_call(y: torch.Tensor, indexes: torch.Tensor, loc: torch.Tensor,
-                    coding_rank: int = CODING_RANK):
-  """tfc LocationScaleIndexedEntropyModel.__call__ at eval (training=False).
+                    coding_rank: int = CODING_RANK, training: bool = False,
+                    noise: Optional[torch.Tensor] = None,
+                    generator: Optional[torch.Generator] = None):
+  """tfc LocationScaleIndexedEntropyModel.__call__ (entropy.py:247-276).
 
   `indexes` are continuous scale indexes, clipped to [0, 63] and mapped
-  through the log-spaced scale table; `loc` shifts the coding grid.
+  through the log-spaced scale table; `loc` shifts the coding grid. The
+  training noise is added to the centered y - loc, and loc added back.
   """
   scales = scale_fn(normalize_indexes(indexes))
-  sample_c = round_st(y - loc)
+  centered = y - loc
+  if training:
+    sample_c = sample_unoise(centered, noise, generator)
+  else:
+    sample_c = round_st(centered)
   bits = bits_from_log_prob(noisy_normal_log_prob(sample_c, scales), coding_rank)
   return sample_c + loc, bits

@@ -1,4 +1,5 @@
-"""Quantization ops of the eval path (mirrors shallow_ntc_tpu/ops/rounding.py)."""
+"""Quantization ops (mirrors shallow_ntc_tpu/ops/rounding.py): rounding and
+the additive uniform noise of training."""
 
 from typing import Optional
 
@@ -12,6 +13,20 @@ def round_st(x: torch.Tensor, offset: Optional[torch.Tensor] = None) -> torch.Te
   else:
     rounded = torch.round(x - offset) + offset
   return x + (rounded - x).detach()
+
+
+def sample_unoise(loc: torch.Tensor, noise: Optional[torch.Tensor] = None,
+                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
+  """Additive uniform noise U(-.5, .5): the Balle-2017 proxy for quantization.
+
+  `noise` is given explicitly (tests feed JAX's draws) or drawn from
+  `generator` on loc's device.
+  """
+  if noise is None:
+    noise = torch.rand(loc.shape, generator=generator, dtype=loc.dtype, device=loc.device) - 0.5
+  elif noise.shape != loc.shape:
+    raise ValueError(f"noise of shape {tuple(noise.shape)} for a loc of {tuple(loc.shape)}")
+  return loc + noise
 
 
 def quantize_eval(loc: torch.Tensor, offset: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -25,15 +25,7 @@ SP = S1 * S2  # 16
 SOURCE = "final_deconv.cu"
 
 
-class KernelStats:
-  """Launch count of one CUDA kernel: a plain integer, reset by the caller."""
-
-  def __init__(self, name: str):
-    self.name = name
-    self.launches = 0
-
-
-STATS = KernelStats("final_deconv_phase")
+STATS = cuda_build.KernelStats("final_deconv_phase")
 _SYMBOLS = {torch.float32: "final_deconv_f32", torch.bfloat16: "final_deconv_bf16"}
 
 

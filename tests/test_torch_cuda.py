@@ -1,4 +1,5 @@
-"""The port's CUDA kernels on the card, against their plain versions.
+"""The port's CUDA kernels on the card, against their plain versions
+(final_deconv_phase; fused_rb_chain and fused_resblock).
 
 Tests marked gpu skip without an NVIDIA GPU. This file imports no JAX, so on
 a machine with a GPU it runs as
@@ -11,6 +12,8 @@ import pytest
 import torch
 
 from shallow_ntc_tpu_torch.ops import cuda_build
+from shallow_ntc_tpu_torch.ops import rb_chain
+from shallow_ntc_tpu_torch.ops import resblock
 from shallow_ntc_tpu_torch.ops import twolayer_final as tl
 
 
@@ -78,3 +81,76 @@ def test_final_deconv_kernel_refuses_what_it_does_not_take(cuda_device):
     tl.final_deconv_cuda(mid.transpose(1, 2), kernel, bias, 12)
   with pytest.raises(ValueError, match="kernel"):
     tl.final_deconv_cuda(mid, kernel[:, :, :6], bias, 12)
+
+
+def _rb_params(seed, n, c, device):
+  rng = np.random.default_rng(seed)
+  ch = c // 2
+  mk = lambda *shape: torch.from_numpy(  # noqa: E731
+      (rng.standard_normal(shape) * 0.3 / np.sqrt(shape[-2] if len(shape) > 1 else 1))
+      .astype(np.float32)).to(device)
+  return [(mk(c, ch), mk(ch), mk(3, 3, ch, ch), mk(ch), mk(ch, c), mk(c)) for _ in range(n)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,w,c,n,dtype", [
+    (2, 32, 32, 192, 3, torch.float32), (2, 32, 32, 192, 3, torch.bfloat16),
+    (2, 8, 8, 320, 3, torch.float32), (2, 8, 8, 320, 3, torch.bfloat16),
+    (3, 7, 5, 16, 2, torch.float32), (2, 9, 17, 10, 1, torch.float32)])
+def test_rb_chain_kernel_matches_plain(cuda_device, b, h, w, c, n, dtype):
+  """f32 within 1e-4 of max|y|; bf16 within 2e-2 of max|y| (the plain version
+  rounds each conv to bf16, the kernel keeps h1 and h2 in f32)."""
+  params = _rb_params(c + n, n, c, cuda_device)
+  x = torch.randn(b, h, w, c, device=cuda_device).to(dtype)
+  launches = rb_chain.STATS.launches
+  out = rb_chain.rb_chain_cuda(x, params)
+  torch.cuda.synchronize()
+  assert rb_chain.STATS.launches == launches + 1
+  ref = rb_chain.dense_rb_chain(x, params)
+  err = (out.float() - ref.float()).abs().max().item()
+  scale = ref.float().abs().max().item()
+  assert err <= (1e-4 if dtype == torch.float32 else 2e-2) * scale, (err, scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 3])
+def test_rb_chain_kernel_gradients_match_plain(cuda_device, n):
+  params = _rb_params(n, n, 32, cuda_device)
+  x = torch.randn(2, 9, 11, 32, device=cuda_device)
+  cot = torch.randn_like(x)
+  grads = []
+  for fn in (rb_chain.fused_rb_chain, rb_chain.dense_rb_chain):
+    x_l = x.clone().requires_grad_(True)
+    p_l = [tuple(t.clone().requires_grad_(True) for t in block) for block in params]
+    (fn(x_l, p_l) * cot).sum().backward()
+    grads.append([x_l.grad] + [t.grad for block in p_l for t in block])
+  for a, b_ in zip(*grads):
+    torch.testing.assert_close(a, b_, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_resblock_kernel_matches_plain_and_counts(cuda_device):
+  (block,) = _rb_params(1, 1, 192, cuda_device)
+  x = torch.randn(1, 20, 12, 192, device=cuda_device)
+  chain, single = rb_chain.STATS.launches, resblock.STATS.launches
+  out = resblock.fused_resblock(x, *block)
+  torch.cuda.synchronize()
+  assert (rb_chain.STATS.launches, resblock.STATS.launches) == (chain, single + 1)
+  ref = rb_chain.dense_resblock(x, *block)
+  assert (out - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
+@pytest.mark.gpu
+def test_rb_chain_kernel_refuses_what_it_does_not_take(cuda_device):
+  (block,) = _rb_params(0, 1, 16, cuda_device)
+  x = torch.randn(1, 4, 4, 16, device=cuda_device)
+  with pytest.raises(TypeError):
+    rb_chain.block_cuda(x.half(), *block)
+  with pytest.raises(ValueError, match="contiguous"):
+    rb_chain.block_cuda(x.transpose(1, 2), *block)
+  with pytest.raises(ValueError, match="expected"):
+    rb_chain.block_cuda(x, block[0][:, :4], *block[1:])
+  (wide,) = _rb_params(0, 1, 2 * (rb_chain.MAX_HIDDEN + 1), cuda_device)
+  with pytest.raises(ValueError, match="C/2"):
+    rb_chain.block_cuda(torch.zeros(1, 2, 2, 2 * (rb_chain.MAX_HIDDEN + 1),
+                                    device=cuda_device), *wide)

@@ -135,7 +135,11 @@ def test_port_imports_no_jax():
       "bad = sorted(n for n in sys.modules if n.split('.')[0] in\n"
       "  ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'ml_collections', 'absl',\n"
       "   'PIL', 'tensorflow', 'shallow_ntc_tpu'))\n"
-      "print(len(list(pkgutil.walk_packages(p.__path__))), bad)\n"
+      "names = {m.name for m in pkgutil.walk_packages(p.__path__, 'shallow_ntc_tpu_torch.')}\n"
+      "need = {'shallow_ntc_tpu_torch.' + n for n in ('train_lib', 'train', 'ops.rb_chain',\n"
+      "        'ops.resblock', 'eval', 'models.mshyper')}\n"
+      "assert need <= names, need - names\n"
+      "print(len(names), bad)\n"
       "assert not bad, bad\n")
   proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                         text=True, timeout=120)
