@@ -9,7 +9,8 @@ Phases, one flushed line each with its seconds (TF32 off throughout):
   2. device    the card's name, and its name and power limit from nvidia-smi.
   3. kernels   each kernel against its plain PyTorch version on the card, at
                the main paths' shapes plus odd ones, f32 and bf16, and its
-               gradients through its autograd.Function; fails on a miss.
+               gradients through its autograd.Function (jpegl_synthesize has
+               none: its backward must raise); fails on a miss.
   4. eval      per-image eval of the flagship mshyper model at full width
                (ELIC 192/192/192/320, synthesis (12, 3)), seeded random
                weights, three 512x768 images, f32; one batch decode at B=8 in
@@ -28,10 +29,19 @@ Phases, one flushed line each with its seconds (TF32 off throughout):
   7. train-reference  one full-width train step on the card (kernels)
                against the port's CPU step (plain versions), B=2 64x64, same
                params, batch and noise: loss, metrics and every gradient.
-  8. timing    the train step with the chain kernel on and off; the B=8 bf16
-               decode in Mpx/s; each kernel, its plain version and (where one
-               exists) one PyTorch library call computing the same function,
-               by CUDA events, beside its bound.
+  8. eval-jpegl  the JPEG-like model at full width (ELIC 192/192/192/320),
+               seeded weights, three 512x768 f32 images each: jpegl_rd (k18,
+               the paper's decoder, a cuDNN transposed conv) and JPEGL_K16
+               (k16, through jpegl_synthesize); then K16 on the card against
+               the port's CPU eval on a 192x256 crop, as in phase 5.
+  9. train-jpegl  2 steps of jpegl_rd through train_lib.train_and_eval at
+               B=8 256x256 f32 with SNTC_FUSED_RB_CHAIN=1: losses finite,
+               params moved, no jpegl_synthesize launch (k18).
+ 10. timing    the train step with the chain kernel on and off; the B=8 bf16
+               decode in Mpx/s of the flagship, jpegl_rd and JPEGL_K16; each
+               kernel, its plain version and (where one exists) one PyTorch
+               library call computing the same function, by CUDA events,
+               beside its bound.
 Then one JSON line of kernels, the nvidia-smi line, and the last line
 {"ok": true, "device": {...}}. Any failed phase exits non-zero before that
 line. Without CUDA, or without the port beside this script, it exits 1.
@@ -56,6 +66,7 @@ DECODE_BATCH = 8
 TRAIN_BATCH, TRAIN_HW, TRAIN_STEPS = 8, 256, 4
 # The residual-block chains the flagship runs per forward, and their blocks.
 CHAINS_PER_FORWARD, BLOCKS_PER_FORWARD = 7, 21
+JPEGL_TRAIN_STEPS = 2
 
 
 def log(phase, msg):
@@ -67,13 +78,26 @@ def check(ok, msg):
     raise RuntimeError(msg)
 
 
-def cuda_ms(torch, fn, iters=50, warmup=5):
-  """Mean device time of fn() over `iters` back-to-back calls, by CUDA events."""
+def cuda_ms(torch, fn, iters=50, warmup=5, host_ahead=False):
+  """Mean time of fn() over `iters` back-to-back calls, by CUDA events.
+
+  As called, the events measure what a caller waits per call: where the
+  host takes longer to dispatch a call than the device to run it, that is
+  the host's time. With host_ahead, the device is first held busy
+  (torch.cuda._sleep) for longer than the host takes to enqueue all the
+  calls, so they run back to back: the device time of the calls' kernels.
+  """
   for _ in range(warmup):
     fn()
   torch.cuda.synchronize()
   start = torch.cuda.Event(enable_timing=True)
   end = torch.cuda.Event(enable_timing=True)
+  if host_ahead:
+    t = time.time()
+    fn()
+    torch.cuda.synchronize()
+    # One synchronized call bounds its dispatch time; 2e9 cycles/s bounds the SM clock.
+    torch.cuda._sleep(int(((time.time() - t) * iters * 1.5 + 2e-3) * 2e9))
   start.record()
   for _ in range(iters):
     fn()
@@ -100,6 +124,21 @@ def final_deconv_bound_ms(mid_p, out, kernel, dtype_name):
   n_bytes = (mid_p.numel() * mid_p.element_size() + out.numel() * out.element_size()
              + 4 * (kernel.numel() + c_out))
   flops = 2 * c_in * c_out * b * taps(8 * h) * taps(8 * w)
+  t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
+  t_ops = flops / H100_PEAK_FLOPS[dtype_name] * 1e3
+  return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def jpegl_bound_ms(z, out, kernel, dtype_name):
+  """Least time for jpegl_synthesize on these inputs: bytes or operations.
+
+  Bytes: z read once, the image written once, the weights (in z's dtype)
+  and the float32 bias once. Operations: 2 C per output element.
+  """
+  k, _, c_in, c_out = kernel.shape
+  n_bytes = (z.numel() * z.element_size() + out.numel() * out.element_size()
+             + kernel.numel() * z.element_size() + 4 * c_out)
+  flops = 2 * c_in * out.numel()
   t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
   t_ops = flops / H100_PEAK_FLOPS[dtype_name] * 1e3
   return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -150,6 +189,7 @@ def main():
     from shallow_ntc_tpu_torch.latents import LatentRVCollection, UQLatentRV
     from shallow_ntc_tpu_torch.ops import cuda_build
     from shallow_ntc_tpu_torch.ops import fast_deconv as fd
+    from shallow_ntc_tpu_torch.ops import jpegl_decode as jd
     from shallow_ntc_tpu_torch.ops import rb_chain as rb
     from shallow_ntc_tpu_torch.ops import resblock
     from shallow_ntc_tpu_torch.ops import twolayer_final as tl
@@ -160,13 +200,13 @@ def main():
 
   # --- 1. build ------------------------------------------------------------
   t = time.time()
-  sources = sorted({tl.SOURCE, rb.SOURCE, resblock.SOURCE})
+  sources = sorted({tl.SOURCE, rb.SOURCE, resblock.SOURCE, jd.SOURCE})
   with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
     built = list(pool.map(cuda_build.build, sources))
   for source, so in zip(sources, built):
     log("build", f"{source} -> {so}")
   log("build", f"{len(sources)} sources built in parallel in {time.time() - t:.1f}s")
-  stats = (tl.STATS, rb.STATS, resblock.STATS)
+  stats = (tl.STATS, rb.STATS, resblock.STATS, jd.STATS)
 
   def zero_counts():
     torch.cuda.synchronize()
@@ -279,6 +319,46 @@ def main():
         f"max|err| / max(1, max|g|) {g_err:.3e} (tol 1e-5)")
     check(g_err <= 1e-5, f"{name} gradients disagree")
 
+  # jpegl_synthesize (B, H_l, W_l, C, k, dtype): JPEGL_K16's decode and eval
+  # shapes, the offset channel (C odd, with no bias) and k=8. Weights at the
+  # scale of a glorot init, asymmetric (a missed flip shows). A generator of
+  # its own, so that the phases before this slice draw their data as before.
+  jl_rng = np.random.default_rng(6)
+
+  def jpegl_inputs(b, hl, wl, c, k, dtype):
+    z = torch.from_numpy(jl_rng.normal(0, 3, (b, hl, wl, c)).astype(np.float32))
+    kern = torch.from_numpy((jl_rng.normal(0, 0.1, (k, k, c, 3)) / np.sqrt(c / 32))
+                            .astype(np.float32)).to(dev)
+    bias = (torch.from_numpy(jl_rng.normal(0, 0.1, (3,)).astype(np.float32)).to(dev)
+            if c % 2 == 0 else None)
+    return z.to(dev, dtype), kern, bias
+
+  jl_decode = (DECODE_BATCH, mh, mw, 320, 16, torch.bfloat16)
+  jl_eval = (1, mh, mw, 320, 16, torch.float32)
+  for case in (jl_decode, jl_eval, (3, 5, 7, 321, 16, torch.float32),
+               (3, 5, 7, 321, 16, torch.bfloat16), (2, 3, 5, 16, 8, torch.float32)):
+    z, kern, bias = jpegl_inputs(*case)
+    out = jd.jpegl_synthesize_cuda(z, kern, bias)
+    ref = jd.jpegl_synthesize_plain(z, kern, bias)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    tol = 1e-4 * max(1.0, scale) if case[-1] == torch.float32 else 1e-2 * scale
+    log("kernels", f"jpegl_synthesize B={case[0]} {case[1]}x{case[2]} C={case[3]} k={case[4]} "
+        f"{case[5]}{'' if bias is not None else ' no bias'}: max|err| {err:.3e} "
+        f"(tol {tol:.3e}, max|y| {scale:.3f})")
+    check(out.shape == ref.shape and err <= tol, f"jpegl_synthesize disagrees: {err} > {tol}")
+    errs[("jpegl_synthesize", case)] = err
+  z, kern, bias = jpegl_inputs(1, 2, 3, 16, 8, torch.float32)
+  try:
+    jd.jpegl_synthesize(z.requires_grad_(True), kern, bias).sum().backward()
+    raised = False
+  except NotImplementedError:
+    raised = True
+  log("kernels", f"jpegl_synthesize backward raises NotImplementedError (JAX has none "
+      f"either): {raised}")
+  check(raised, "jpegl_synthesize's backward did not raise")
+
   # --- 4. the main path -----------------------------------------------------
   t = time.time()
   model = eval_lib.build_model(configs.TWO_LAYER_SYN_RD, init_seed=0, device="cuda")
@@ -337,8 +417,9 @@ def main():
       with switch_on(env):
         r = next(eval_lib.evaluate_images(model, images[:1]))
     ways[way] = (r, read_counts())
-    log("eval", f"image 0 with the residual blocks as {way}: bpp {r['bpp']:.6f} "
-        f"psnr {r['psnr']:.6f}; launches {ways[way][1]}")
+    log("eval", f"image 0 with the residual blocks as {way}: bpp {r['bpp']:.6f} (latent "
+        f"{r['latent_bpp']:.6f}, hyper-latent {r['hyper_latent_bpp']:.6f}) psnr {r['psnr']:.6f}; "
+        f"launches {ways[way][1]}")
   base = ways["cudnn"][0]
   for way in ("chain", "resblock"):
     for key in ("bpp", "psnr"):
@@ -362,44 +443,53 @@ def main():
   # the reference's sign trick (shallow_ntc_tpu/ops/entropy.py:164) takes
   # p = 0 and the 1e-9 floor, so which of those elements hit the floor
   # depends on the last bit of each device's arithmetic.
-  t = time.time()
-  model_cpu = eval_lib.build_model(configs.TWO_LAYER_SYN_RD, init_seed=0, device="cpu")
   small = torch.from_numpy(images[:1, :192, :256])
-  failures = []
 
-  def compare(name, gpu_t, cpu_t):
-    err = (gpu_t.cpu() - cpu_t).abs().max().item()
-    scale = cpu_t.abs().max().item()
-    log("reference", f"192x256 {name}: max|gpu-cpu| {err:.3e}, max|cpu| {scale:.3f} "
-        f"(tol 1e-4 * max(1, max|cpu|))")
-    if err > 1e-4 * max(1.0, scale):
-      failures.append(name)
+  def reference(phase, model_gpu, model_cpu):
+    """GPU eval of the 192x256 crop against the CPU eval; return the GPU
+    launch counts of the part from the same latents on."""
+    t = time.time()
+    failures = []
 
-  with torch.no_grad():
-    rv_cpu = model_cpu.infer_latent_rvs(small)
-    rv_gpu = model.infer_latent_rvs(small.to(dev))
-    for name, a, b in zip(("z", "y"), rv_gpu.uq, rv_cpu.uq):
-      compare(name, a.loc, b.loc)
-    z_off = model_cpu.prior_quantization_offset()
-    z_q = torch.round(rv_cpu.uq[0].loc - z_off) + z_off
-    for name, shift in (("prior logits at z_hat-.5", -0.5), ("prior logits at z_hat+.5", 0.5)):
-      compare(name, model._prior.logits_cdf(z_q.to(dev) + shift),
-              model_cpu._prior.logits_cdf(z_q + shift))
-    same = LatentRVCollection(uq=tuple(UQLatentRV(loc=r.loc.to(dev)) for r in rv_cpu.uq))
-    _, m_gpu, rec_gpu = model.frame_loss_given_latent_rvs(small.to(dev), same)
-    _, m_cpu, rec_cpu = model_cpu.frame_loss_given_latent_rvs(small, rv_cpu)
-  for key in ("latent_bpp", "psnr", "hyper_latent_bpp", "bpp"):
-    gpu_v, cpu_v = float(m_gpu[key]), float(m_cpu[key])
-    rel = abs(gpu_v - cpu_v) / abs(cpu_v)
-    held = key in ("latent_bpp", "psnr")
-    log("reference", f"192x256 {key}: gpu {gpu_v:.6f} cpu {cpu_v:.6f} rel {rel:.2e} "
-        + ("(tol 1e-3)" if held else "(reported: includes the floored elements)"))
-    if held and rel > 1e-3:
-      failures.append(key)
-  same_px = (rec_gpu.cpu() == rec_cpu).float().mean().item()
-  log("reference", f"192x256 reconstruction: {same_px:.6f} of pixels equal on the 255 grid "
-      f"(tol 0.99); done in {time.time() - t:.1f}s")
-  check(same_px >= 0.99 and not failures, f"GPU eval disagrees with the CPU eval: {failures}")
+    def compare(name, gpu_t, cpu_t):
+      err = (gpu_t.cpu() - cpu_t).abs().max().item()
+      scale = cpu_t.abs().max().item()
+      log(phase, f"192x256 {name}: max|gpu-cpu| {err:.3e}, max|cpu| {scale:.3f} "
+          f"(tol 1e-4 * max(1, max|cpu|))")
+      if err > 1e-4 * max(1.0, scale):
+        failures.append(name)
+
+    with torch.no_grad():
+      rv_cpu = model_cpu.infer_latent_rvs(small)
+      rv_gpu = model_gpu.infer_latent_rvs(small.to(dev))
+      for name, a, b in zip(("z", "y"), rv_gpu.uq, rv_cpu.uq):
+        compare(name, a.loc, b.loc)
+      z_off = model_cpu.prior_quantization_offset()
+      z_q = torch.round(rv_cpu.uq[0].loc - z_off) + z_off
+      for name, shift in (("prior logits at z_hat-.5", -0.5), ("prior logits at z_hat+.5", 0.5)):
+        compare(name, model_gpu._prior.logits_cdf(z_q.to(dev) + shift),
+                model_cpu._prior.logits_cdf(z_q + shift))
+      same = LatentRVCollection(uq=tuple(UQLatentRV(loc=r.loc.to(dev)) for r in rv_cpu.uq))
+      zero_counts()
+      _, m_gpu, rec_gpu = model_gpu.frame_loss_given_latent_rvs(small.to(dev), same)
+      counts = read_counts()
+      _, m_cpu, rec_cpu = model_cpu.frame_loss_given_latent_rvs(small, rv_cpu)
+    for key in ("latent_bpp", "psnr", "hyper_latent_bpp", "bpp"):
+      gpu_v, cpu_v = float(m_gpu[key]), float(m_cpu[key])
+      rel = abs(gpu_v - cpu_v) / abs(cpu_v)
+      held = key in ("latent_bpp", "psnr")
+      log(phase, f"192x256 {key}: gpu {gpu_v:.6f} cpu {cpu_v:.6f} rel {rel:.2e} "
+          + ("(tol 1e-3)" if held else "(reported: includes the floored elements)"))
+      if held and rel > 1e-3:
+        failures.append(key)
+    same_px = (rec_gpu.cpu() == rec_cpu).float().mean().item()
+    log(phase, f"192x256 reconstruction: {same_px:.6f} of pixels equal on the 255 grid "
+        f"(tol 0.99); GPU launches from the latents on {counts}; done in {time.time() - t:.1f}s")
+    check(same_px >= 0.99 and not failures, f"GPU eval disagrees with the CPU eval: {failures}")
+    return counts
+
+  model_cpu = eval_lib.build_model(configs.TWO_LAYER_SYN_RD, init_seed=0, device="cpu")
+  reference("reference", model, model_cpu)
 
   # --- 6. train: the flagship's training through its entry point ---------
   del model, model_cpu
@@ -508,7 +598,65 @@ def main():
   check(not failures, f"the GPU train step disagrees with the CPU one: {failures[:8]}")
   del ref_models
 
-  # --- 8. timing ------------------------------------------------------------
+  # --- 8. eval-jpegl: the JPEG-like model, k18 (cuDNN) and K16 (the kernel) --
+  jpegl = {}
+  for name, cfg in (("jpegl_rd", configs.JPEGL_RD), ("JPEGL_K16", configs.JPEGL_K16)):
+    m = eval_lib.build_model(cfg, init_seed=0, device="cuda")
+    zero_counts()
+    t = time.time()
+    recs = list(eval_lib.evaluate_images(m, images))
+    counts = read_counts()
+    jpegl[name] = (m, recs, counts)
+    for i, r in enumerate(recs):
+      log("eval-jpegl", f"{name} image {i} {EVAL_HW[0]}x{EVAL_HW[1]}: bpp {r['bpp']:.5f} "
+          f"psnr {r['psnr']:.4f} msssim {r['msssim']:.5f} rd_loss {r['rd_loss']:.5f}")
+    log("eval-jpegl", f"{name}: {len(recs)} images in {time.time() - t:.2f}s; launches {counts}")
+    check(all(np.isfinite(r[k]) for r in recs for k in ("bpp", "psnr", "msssim", "rd_loss")),
+          f"{name} eval metrics not finite")
+  check(jpegl["JPEGL_K16"][2][jd.STATS.name] >= len(images),
+        f"the K16 eval launched jpegl_synthesize {jpegl['JPEGL_K16'][2][jd.STATS.name]} times")
+  check(jpegl["jpegl_rd"][2][jd.STATS.name] == 0, "the k18 eval launched jpegl_synthesize")
+  k16_cpu = eval_lib.build_model(configs.JPEGL_K16, init_seed=0, device="cpu")
+  ref_counts = reference("eval-jpegl", jpegl["JPEGL_K16"][0], k16_cpu)
+  check(ref_counts[jd.STATS.name] == 1, "the K16 GPU reference did not launch jpegl_synthesize")
+  jpegl_eval_launches = jpegl["JPEGL_K16"][2][jd.STATS.name]
+  del jpegl, k16_cpu
+
+  # --- 9. train-jpegl: jpegl_rd's training through its entry point -------
+  jl_cfg = copy.deepcopy(configs.TRAIN_CONFIGS["jpegl_rd"])
+  jl_cfg["train_eval_config"]["log_metrics_every_steps"] = 1
+  with tempfile.TemporaryDirectory(prefix="chip_smoke_train_jpegl_") as workdir:
+    zero_counts()
+    t = time.time()
+    with switch_on("SNTC_FUSED_RB_CHAIN"):
+      state = train_lib.train_and_eval(jl_cfg, workdir, device="cuda", init_seed=0,
+                                       num_steps=JPEGL_TRAIN_STEPS)
+    jl_counts = read_counts()
+    with open(os.path.join(workdir, "train", "record.jsonl")) as f:
+      jl_records = [json.loads(line) for line in f]
+    with open(os.path.join(workdir, "val", "record.jsonl")) as f:
+      jl_val = [json.loads(line) for line in f]
+  for r in jl_records:
+    log("train-jpegl", f"step {r['step']}: rd_loss {r['rd_loss']:.5f} bpp {r['bpp']:.5f} "
+        f"psnr {r['psnr']:.4f} steps/s {r['steps_per_sec']:.3f}")
+  jl_forwards = JPEGL_TRAIN_STEPS + jl_cfg["train_eval_config"]["max_validation_steps"]
+  log("train-jpegl", f"val rd_loss {jl_val[-1]['rd_loss']:.5f}; {JPEGL_TRAIN_STEPS} steps of "
+      f"B={TRAIN_BATCH} {TRAIN_HW}x{TRAIN_HW} f32 + val in {time.time() - t:.1f}s; "
+      f"launches {jl_counts}")
+  check([r["step"] for r in jl_records] == list(range(1, JPEGL_TRAIN_STEPS + 1))
+        and all(np.isfinite(v) for r in jl_records + jl_val for v in r.values()),
+        "a jpegl_rd train step's metrics are missing or not finite")
+  check(jl_counts[rb.STATS.name] == CHAINS_PER_FORWARD * jl_forwards
+        and jl_counts[jd.STATS.name] == 0, f"jpegl_rd training launched {jl_counts}")
+  jl_init, _ = train_lib.build_model(jl_cfg["model_config"], init_seed=0, device="cuda")
+  unmoved = [k for k, v in jl_init.state_dict().items()
+             if torch.equal(v, state.model.state_dict()[k])]
+  log("train-jpegl", f"{len(unmoved)} of {len(jl_init.state_dict())} parameter tensors "
+      f"unchanged after {JPEGL_TRAIN_STEPS} steps")
+  check(not unmoved, f"jpegl_rd parameters did not move: {unmoved[:5]}")
+  del state, jl_init
+
+  # --- 10. timing -----------------------------------------------------------
   # The full-width train step, chain kernel off and on, in turns (off, on,
   # on, off), each the mean of 3 steps by CUDA events after a warm-up step.
   t_model, _ = train_lib.build_model(train_cfg["model_config"], init_seed=0, device="cuda")
@@ -542,8 +690,9 @@ def main():
     x = torch.from_numpy(rng.standard_normal((b, h, w, c), np.float32)).to(dev, dtype)
     fn = ((lambda: resblock.fused_resblock_cuda(x, *params[0])) if n == 1
           else (lambda: rb.rb_chain_cuda(x, params)))
-    ms = cuda_ms(torch, fn, iters=10, warmup=2)
-    plain = cuda_ms(torch, lambda: rb.dense_rb_chain(x, params), iters=10, warmup=2)
+    ms = cuda_ms(torch, fn, iters=10, warmup=2, host_ahead=True)
+    plain = cuda_ms(torch, lambda: rb.dense_rb_chain(x, params), iters=10, warmup=2,
+                    host_ahead=True)
     bound, by = rb_chain_bound_ms(x, n, str(dtype).split(".")[-1])
     name = "fused_resblock" if n == 1 else "fused_rb_chain"
     log("timing", f"{name} B={b} {h}x{w} C={c} N={n} {dtype}: kernel {ms:.5f} ms, plain "
@@ -572,18 +721,74 @@ def main():
     lib = F.conv_transpose2d(x_d2s, weight, bias.to(dtype), stride=2, padding=1)
     lib_err = (lib[:, :, : 16 * mh, : 16 * mw].permute(0, 2, 3, 1).float()
                - out.float()).abs().max().item()
-    ms = cuda_ms(torch, lambda: tl.final_deconv_cuda(mid, kern, bias, 12))
-    plain = cuda_ms(torch, lambda: tl.final_deconv_plain(mid, kern, bias, 12), iters=20)
-    lib_ms = cuda_ms(torch, lambda: F.conv_transpose2d(x_d2s, weight, bias.to(dtype),
-                                                       stride=2, padding=1))
+    ms = cuda_ms(torch, lambda: tl.final_deconv_cuda(mid, kern, bias, 12), host_ahead=True)
+    call = cuda_ms(torch, lambda: tl.final_deconv_cuda(mid, kern, bias, 12))
+    plain = cuda_ms(torch, lambda: tl.final_deconv_plain(mid, kern, bias, 12), iters=20,
+                    host_ahead=True)
+    lib_bias = bias.to(dtype)
+    lib_ms = cuda_ms(torch, lambda: F.conv_transpose2d(x_d2s, weight, lib_bias, stride=2,
+                                                       padding=1), host_ahead=True)
     bound, by = final_deconv_bound_ms(mid, out, kern, str(dtype).split(".")[-1])
-    log("timing", f"final_deconv_phase B={b} {mh}x{mw} {dtype}: kernel {ms:.5f} ms, "
-        f"plain {plain:.5f} ms, conv_transpose2d {lib_ms:.5f} ms (vs kernel max|diff| "
-        f"{lib_err:.2e}), bound {bound:.5f} ms ({by})  [{smi}]")
-    return dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=lib_ms)
+    log("timing", f"final_deconv_phase B={b} {mh}x{mw} {dtype}: kernel {ms:.5f} ms (a call "
+        f"{call:.5f} ms), plain {plain:.5f} ms, conv_transpose2d {lib_ms:.5f} ms (vs kernel "
+        f"max|diff| {lib_err:.2e}), bound {bound:.5f} ms ({by})  [{smi}]")
+    return dict(ms=ms, call_ms=call, plain_ms=plain, bound_ms=bound, bound_by=by,
+                library_ms=lib_ms)
 
   decode_t = time_final(DECODE_BATCH, torch.bfloat16)
   eval_t = time_final(1, torch.float32)
+  del model_bf16
+
+  # The JPEG-like decode at the same shape: k18 (cuDNN) and K16 (the kernel).
+  jl_decode_ms, jl_decode_launches = {}, {}
+  for name, cfg in (("jpegl_rd", configs.JPEGL_RD), ("JPEGL_K16", configs.JPEGL_K16)):
+    m = eval_lib.build_model(cfg, init_seed=0, device="cuda").to(torch.bfloat16)
+
+    def decode_jpegl():
+      with torch.no_grad():
+        mu, idx = m.hyper_synthesize(z_hat)
+        return mu, idx, m.synthesize(y_hat)
+
+    zero_counts()
+    mu, idx, rec = decode_jpegl()
+    jl_decode_launches[name] = read_counts()[jd.STATS.name]
+    check(rec.shape == (DECODE_BATCH,) + EVAL_HW + (3,) and torch.isfinite(rec).all().item()
+          and mu.shape == y_hat.shape and torch.isfinite(idx).all().item(),
+          f"the {name} decode output has the wrong shape or is not finite")
+    jl_decode_ms[name] = cuda_ms(torch, decode_jpegl, iters=20, warmup=3)
+    log("timing", f"decode {name} B={DECODE_BATCH} {EVAL_HW[0]}x{EVAL_HW[1]} bf16: "
+        f"{jl_decode_ms[name]:.4f} ms, {pixels / jl_decode_ms[name] / 1e3:.2f} Mpx/s; "
+        f"jpegl_synthesize launches in one decode: {jl_decode_launches[name]}  [{smi}]")
+    del m
+  check(jl_decode_launches["JPEGL_K16"] == 1 and jl_decode_launches["jpegl_rd"] == 0,
+        f"jpegl_synthesize launches per decode: {jl_decode_launches}")
+
+  def time_jpegl(case):
+    b, hl, wl, c, k, dtype = case
+    z, kern, bias = jpegl_inputs(*case)
+    out = jd.jpegl_synthesize_cuda(z, kern, bias)
+    zn = z.permute(0, 3, 1, 2)  # NCHW view of the NHWC latents
+    weight = kern.flip(0, 1).permute(2, 3, 0, 1).to(dtype).contiguous()
+    lib_bias = bias.to(dtype)
+
+    def lib():
+      return F.conv_transpose2d(zn, weight, lib_bias, stride=k)
+
+    lib_err = (lib().permute(0, 2, 3, 1).float() - out.float()).abs().max().item()
+    ms = cuda_ms(torch, lambda: jd.jpegl_synthesize_cuda(z, kern, bias), host_ahead=True)
+    call = cuda_ms(torch, lambda: jd.jpegl_synthesize_cuda(z, kern, bias))
+    plain = cuda_ms(torch, lambda: jd.jpegl_synthesize_plain(z, kern, bias), iters=20,
+                    host_ahead=True)
+    lib_ms = cuda_ms(torch, lib, host_ahead=True)
+    bound, by = jpegl_bound_ms(z, out, kern, str(dtype).split(".")[-1])
+    log("timing", f"jpegl_synthesize B={b} {hl}x{wl} C={c} {dtype}: kernel {ms:.5f} ms (a call "
+        f"{call:.5f} ms), plain {plain:.5f} ms, conv_transpose2d {lib_ms:.5f} ms (vs kernel "
+        f"max|diff| {lib_err:.2e}), bound {bound:.5f} ms ({by})  [{smi}]")
+    return dict(ms=ms, call_ms=call, plain_ms=plain, bound_ms=bound, bound_by=by,
+                library_ms=lib_ms)
+
+  jl_decode_t = time_jpegl(jl_decode)
+  jl_eval_t = time_jpegl(jl_eval)
   kernels = [dict(
       name=tl.STATS.name, route="cuda",
       source="shallow_ntc_tpu_torch/csrc/final_deconv.cu",
@@ -610,6 +815,20 @@ def main():
       launches=ways["resblock"][1][resblock.STATS.name], path="eval image 0, SNTC_FUSED_RESBLOCK=1",
       **block_t["train f32"], other_shapes={"train bf16": block_t["train bf16"]}))
   kernels[1]["train_step_ms"] = train_step_ms
+  # Launches: this slice's main path is the K16 eval of phase 8 (3 images);
+  # times at the decode shape (B=8 bf16), the eval shape beside them. ms is
+  # the device time of the wrapper's launches (the weight copy and the kernel).
+  kernels.append(dict(
+      name=jd.STATS.name, route="cuda", source="shallow_ntc_tpu_torch/csrc/jpegl_decode.cu",
+      replaces="shallow_ntc_tpu/ops/pallas/jpegl_decode.py:75",
+      launches=jpegl_eval_launches, path="eval JPEGL_K16",
+      max_abs_err=errs[("jpegl_synthesize", jl_decode)], **jl_decode_t,
+      shape=f"B={DECODE_BATCH} z {mh}x{mw}x320 bf16 (decode)",
+      eval_shape=dict(shape=f"B=1 z {mh}x{mw}x320 f32 (eval)",
+                      max_abs_err=errs[("jpegl_synthesize", jl_eval)], **jl_eval_t),
+      launches_by_path={"eval K16": jpegl_eval_launches,
+                        "decode K16": jl_decode_launches["JPEGL_K16"]},
+      decode_mpx_per_s={k: pixels / v / 1e3 for k, v in jl_decode_ms.items()}))
   print(json.dumps({"kernels": kernels}), flush=True)
   print(smi, flush=True)
   print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -11,7 +11,12 @@
 // Layouts (NHWC, C innermost):
 //   x, out [B, H, W, C]     float32 or bfloat16
 //   w1 [C, Ch], w2 [3, 3, Ch, Ch], w3 [Ch, C], b1 [Ch], b2 [Ch], b3 [C]
-//                           float32 (the wrapper rounds them to x's type first)
+//                           float32 (the wrapper rounds the weights, not the
+//                           biases, to x's type first)
+//
+// Rounding, as the Pallas kernels: float32 products and sums, float32 biases;
+// in the bfloat16 instantiation h1 and h2 are rounded to bfloat16 after bias
+// and relu (stored as float), and h3 after its bias, before the residual add.
 //
 // Design: one CTA per 8x8 output tile, 256 threads (8 warps). The three
 // convolutions are GEMMs on the tensor cores:
@@ -33,8 +38,8 @@
 // Bound on the H100: operations. A block does 2 (C Ch + 9 Ch^2 + Ch C) FLOP
 // per pixel (239,616 at C=192) against 2 C element moves. 3xTF32 issues
 // three TF32 MMAs per product, so its ceiling is a third of the 495 TFLOP/s
-// TF32 peak. bfloat16 x and its weights are exact in TF32, so for bf16 the
-// first GEMM takes one MMA per product and the others two. The whole-chain
+// TF32 peak. bfloat16 x, its weights and the rounded h1 and h2 are exact in
+// TF32, so for bf16 every GEMM takes one MMA per product. The whole-chain
 // single-launch kernel on wgmma is later work.
 
 #include <cuda_runtime.h>
@@ -58,6 +63,11 @@ __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+// v rounded to T and back: the identity for float, one bfloat16 rounding for bfloat16.
+template <typename T> __device__ __forceinline__ float round_to(float v) { return v; }
+template <> __device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
 
 // Row stride of h1 and h2: Ch rounded up to 8 (a k-step), plus 4 (banks).
 __host__ __device__ inline int h_ld(int ch) { return ((ch + 7) & ~7) + 4; }
@@ -153,9 +163,9 @@ __device__ __forceinline__ void init_bias(float (&acc)[NT][4], const float* __re
   }
 }
 
-// Write relu(acc) of rows m0 + gid (+ 8) to dst[row * ld + n] for n < n_pad:
-// 0 at columns n >= n_end and at rows where keep(row) is false.
-template <int NT, typename Keep>
+// Write relu(acc), rounded to T, of rows m0 + gid (+ 8) to dst[row * ld + n]
+// for n < n_pad: 0 at columns n >= n_end and at rows where keep(row) is false.
+template <typename T, int NT, typename Keep>
 __device__ __forceinline__ void store_relu(const float (&acc)[NT][4], float* dst, int ld,
                                            int m0, int n0, int n_end, int n_pad, int lane,
                                            Keep keep) {
@@ -171,7 +181,8 @@ __device__ __forceinline__ void store_relu(const float (&acc)[NT][4], float* dst
       for (int j = 0; j < 2; ++j) {
         const int n = n0 + 8 * t + 2 * tig + j;
         if (n < n_pad)
-          dst[row * ld + n] = (inside && n < n_end) ? fmaxf(acc[t][2 * half + j], 0.f) : 0.f;
+          dst[row * ld + n] =
+              (inside && n < n_end) ? round_to<T>(fmaxf(acc[t][2 * half + j], 0.f)) : 0.f;
       }
     }
   }
@@ -199,7 +210,7 @@ resblock_kernel(const T* __restrict__ x, const float* __restrict__ w1,
                 const float* __restrict__ b3, T* __restrict__ out, int H, int W,
                 int C, int Ch, int tiles_w, int tiles_h) {
   constexpr int NT = 2 * RN;  // n-tiles of 8 per warp: half of Ch <= 32 RN
-  constexpr bool kF32 = sizeof(T) == sizeof(float);  // else bfloat16: x and w exact in TF32
+  constexpr bool kF32 = sizeof(T) == sizeof(float);  // else bf16: x, w, h1, h2 exact in TF32
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int ld = h_ld(Ch);
@@ -254,9 +265,9 @@ resblock_kernel(const T* __restrict__ x, const float* __restrict__ w1,
     }
     __syncthreads();  // staging (aliasing h2) is done
     const HaloRows rows{y0, x0, H, W};
-    store_relu<NT>(acc0, h1, ld, (u0 >> 1) * 16, (u0 & 1) * n_half, Ch, ch8, lane, rows);
+    store_relu<T, NT>(acc0, h1, ld, (u0 >> 1) * 16, (u0 & 1) * n_half, Ch, ch8, lane, rows);
     if (two)
-      store_relu<NT>(acc1, h1, ld, (u1 >> 1) * 16, (u1 & 1) * n_half, Ch, ch8, lane, rows);
+      store_relu<T, NT>(acc1, h1, ld, (u1 >> 1) * 16, (u1 & 1) * n_half, Ch, ch8, lane, rows);
   }
   __syncthreads();
 
@@ -273,9 +284,9 @@ resblock_kernel(const T* __restrict__ x, const float* __restrict__ w1,
       const float* a8 = h1 + ((p8 / kTile + dy) * kHalo + p8 % kTile + dx) * ld;
       const float* wt = w2 + (long long)tap * Ch * Ch;
       for (int c0 = 0; c0 < ch8; c0 += 8)
-        mma_k8<NT, true, kF32>(acc, a0 + c0, a8 + c0, wt, Ch, c0, Ch, n0, Ch, lane);
+        mma_k8<NT, kF32, kF32>(acc, a0 + c0, a8 + c0, wt, Ch, c0, Ch, n0, Ch, lane);
     }
-    store_relu<NT>(acc, h2, ld, m0, n0, Ch, ch8, lane, TileRows{});
+    store_relu<T, NT>(acc, h2, ld, m0, n0, Ch, ch8, lane, TileRows{});
   }
   __syncthreads();
 
@@ -289,7 +300,7 @@ resblock_kernel(const T* __restrict__ x, const float* __restrict__ w1,
       float acc[NT][4];
       init_bias<NT>(acc, b3, n0, C, lane);
       for (int c0 = 0; c0 < ch8; c0 += 8)
-        mma_k8<NT, true, kF32>(acc, a0 + c0, a8 + c0, w3, C, c0, Ch, n0, C, lane);
+        mma_k8<NT, kF32, kF32>(acc, a0 + c0, a8 + c0, w3, C, c0, Ch, n0, C, lane);
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int p = m0 + gid + 8 * half;
@@ -303,7 +314,7 @@ resblock_kernel(const T* __restrict__ x, const float* __restrict__ w1,
             const int n = n0 + 8 * tt + 2 * tig + j;
             if (n < C)
               store(out + (long long)b * H * W * C + base + n,
-                    to_f32(xb[base + n]) + acc[tt][2 * half + j]);
+                    to_f32(xb[base + n]) + round_to<T>(acc[tt][2 * half + j]));
           }
         }
       }

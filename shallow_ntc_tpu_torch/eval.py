@@ -1,13 +1,17 @@
-"""Eval CLI of the port: per-image R-D metrics of the flagship model -> JSON.
+"""Eval CLI of the port: per-image R-D metrics of an mshyper model -> JSON.
 
   python -m shallow_ntc_tpu_torch.eval --init_seed 0 --dataset synthetic \
       --results_dir /tmp/results
   python -m shallow_ntc_tpu_torch.eval --params params.npz --images 'imgs/*.npy'
+  python -m shallow_ntc_tpu_torch.eval --config jpegl_rd --init_seed 0 --dataset synthetic
 
---params takes an .npz whose keys are flax parameter paths
-("_analysis/Conv_0/kernel", ...) and may hold a "step" entry; --init_seed
-evaluates a seeded full-width init instead. Runs on CUDA unless --device
-names another device.
+--config picks the model and its run name: two_layer_syn_rd (the flagship,
+the default) or jpegl_rd (the JPEG-like decoder). --params takes an .npz
+whose keys are flax parameter paths ("_analysis/Conv_0/kernel", ...) and
+may hold a "step" entry; --init_seed evaluates a seeded full-width init
+instead. Runs on CUDA unless --device names another device.
+--matmul_precision highest (the default, as the JAX eval's) turns TF32 off
+for cuDNN convolutions and matmuls; default leaves TF32 on.
 """
 
 import argparse
@@ -15,6 +19,7 @@ import os
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
 from shallow_ntc_tpu_torch import configs
 from shallow_ntc_tpu_torch import data as data_lib
@@ -34,24 +39,33 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
   parser.add_argument("--patchsize", type=int, default=256, help="synthetic image size")
   parser.add_argument("--results_dir", default="./json_results/torch")
   parser.add_argument("--device", default="cuda")
+  parser.add_argument("--config", default="two_layer_syn_rd",
+                      choices=("two_layer_syn_rd", "jpegl_rd"))
+  parser.add_argument("--matmul_precision", default="highest", choices=("highest", "default"))
   args = parser.parse_args(argv)
+  # Process-wide, so set here and not in eval_lib: a library must not change
+  # its caller's numerics.
+  tf32 = args.matmul_precision == "default"
+  torch.backends.cudnn.allow_tf32 = tf32
+  torch.backends.cuda.matmul.allow_tf32 = tf32
+  model_config, runname = configs.eval_config(args.config)
 
   step = 0
   if args.params is not None:
     with np.load(args.params) as npz:
       params = {k: npz[k] for k in npz.files}
     step = int(params.pop("step", 0))
-    model = eval_lib.build_model(params=params, device=args.device)
+    model = eval_lib.build_model(model_config, params=params, device=args.device)
     xid = os.path.splitext(os.path.basename(args.params))[0]
   else:
-    model = eval_lib.build_model(init_seed=args.init_seed, device=args.device)
+    model = eval_lib.build_model(model_config, init_seed=args.init_seed,
+                                 device=args.device)
     xid = f"init_seed={args.init_seed}"
   if args.dataset == "synthetic":
     images = data_lib.SyntheticDataset(1, args.patchsize, num_batches=_SYNTHETIC_IMAGES)
   else:
     images = data_lib.npy_images(args.images)
-  path = eval_lib.eval_to_json(model, images, args.results_dir,
-                               configs.TWO_LAYER_SYN_RD_RUNNAME, xid, step)
+  path = eval_lib.eval_to_json(model, images, args.results_dir, runname, xid, step)
   print(path)
   return path
 

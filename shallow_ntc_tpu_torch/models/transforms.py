@@ -1,4 +1,5 @@
-"""Transforms of the flagship model (mirrors shallow_ntc_tpu/models/transforms.py).
+"""Transforms of the flagship and JPEG-like models (mirrors
+shallow_ntc_tpu/models/transforms.py).
 
 Every module takes and returns NHWC tensors and keeps its parameters in the
 flax layout under the flax names (`kernel` [k, k, C_in, C_out], `bias`,
@@ -14,6 +15,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from shallow_ntc_tpu_torch.ops import fast_deconv as fd
+from shallow_ntc_tpu_torch.ops.jpegl_decode import jpegl_synthesize
 from shallow_ntc_tpu_torch.ops.math import lower_bound
 from shallow_ntc_tpu_torch.ops.twolayer_final import final_deconv_phase
 
@@ -59,13 +61,17 @@ class Conv(nn.Module):
 
 
 class FastConvTranspose(nn.Module):
-  """SAME transposed conv with a flax [k, k, C_in, C_out] kernel (flax ConvTranspose)."""
+  """SAME transposed conv with a flax [k, k, C_in, C_out] kernel (flax ConvTranspose).
 
-  def __init__(self, in_features: int, features: int, kernel_size: int, stride: int):
+  With use_bias=False there is no `bias` parameter, as in flax.
+  """
+
+  def __init__(self, in_features: int, features: int, kernel_size: int, stride: int,
+               use_bias: bool = True):
     super().__init__()
     self.stride = stride
     self.kernel = nn.Parameter(torch.zeros(kernel_size, kernel_size, in_features, features))
-    self.bias = nn.Parameter(torch.zeros(features))
+    self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
     return fd.fast_conv_transpose(x, self.kernel, self.bias, self.stride)
@@ -226,6 +232,52 @@ class TwoLayerResSynthesis(nn.Module):
                                 s1, self.strides[1], c)
 
 
+class JPEGLikeSynthesis(nn.Module):
+  """Single-deconv synthesis: one affine map from each latent vector to a k x k
+  x output_channels patch (kernel_size 18, strides 16 in the paper: patches
+  overlap by 2 px).
+
+  use_offset appends a channel of ones to the latents (the conv then has
+  C + 1 inputs). use_pallas sends kernel_size == strides to the
+  jpegl_synthesize kernel (ops/jpegl_decode.py) with the conv's own
+  parameters, so `conv/kernel` and `conv/bias` load the same on both routes.
+  """
+
+  def __init__(self, in_features: int, output_channels: int = 3, kernel_size: int = 16,
+               strides: int = 16, padding: str = "SAME", use_bias: bool = True,
+               use_offset: bool = False, use_pallas: bool = False):
+    super().__init__()
+    if padding != "SAME":
+      raise NotImplementedError(f"padding {padding!r} is not ported")
+    self.upsample_factor = strides
+    self.output_depth = output_channels
+    self.use_offset = use_offset
+    self.kernel_route = use_pallas and kernel_size == strides
+    self.conv = FastConvTranspose(in_features + int(use_offset), output_channels, kernel_size,
+                                  strides, use_bias=use_bias)
+
+  def forward(self, x: torch.Tensor) -> torch.Tensor:
+    if self.use_offset:
+      x = torch.cat([x, torch.ones(x.shape[:-1] + (1,), dtype=x.dtype, device=x.device)], -1)
+    if self.kernel_route:
+      return jpegl_synthesize(x.contiguous(), self.conv.kernel, self.conv.bias)
+    return self.conv(x)
+
+
+class JPEGLikeHyperSynthesis(nn.Module):
+  """JPEG-like hyper-decoder: one k6s4 deconv to 2 * bottleneck channels (mu, scale)."""
+
+  upsample_factor = 4
+
+  def __init__(self, in_features: int, bottleneck_size: int, kernel_size: int = 6):
+    super().__init__()
+    self.output_depth = bottleneck_size * 2
+    self.conv = FastConvTranspose(in_features, bottleneck_size * 2, kernel_size, 4)
+
+  def forward(self, x: torch.Tensor) -> torch.Tensor:
+    return self.conv(x)
+
+
 def build_transform(cfg: dict, in_features: int, **extra) -> nn.Module:
   """Instantiate a ported transform from a {'cls': name, **kwargs} config dict."""
   from shallow_ntc_tpu_torch.models.elic import ElicAnalysis
@@ -233,7 +285,8 @@ def build_transform(cfg: dict, in_features: int, **extra) -> nn.Module:
   cfg = dict(cfg)
   name = cfg.pop("cls")
   cls = {c.__name__: c for c in (ElicAnalysis, HyperAnalysis, HyperSynthesis,
-                                 TwoLayerResSynthesis)}.get(name)
+                                 TwoLayerResSynthesis, JPEGLikeSynthesis,
+                                 JPEGLikeHyperSynthesis)}.get(name)
   if cls is None:
     raise NotImplementedError(f"transform {name} is not ported yet")
   return cls(in_features, **{k: tuple(v) if isinstance(v, list) else v

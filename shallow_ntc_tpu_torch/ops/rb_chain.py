@@ -40,12 +40,21 @@ def _kernel_fn(dtype):
 
 
 def dense_resblock(x: torch.Tensor, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
-  """The plain version of one block: three convolutions in x's dtype."""
+  """The plain version of one block, with the kernels' rounding: weights
+  rounded to x's dtype, float32 biases and accumulation, and h1, h2 and the
+  residual h3 rounded to x's dtype after their bias (as the Pallas kernel,
+  shallow_ntc_tpu/ops/pallas/rb_chain.py:129-166). In float32 every
+  rounding is the identity."""
   dt = x.dtype
-  xn = x.permute(0, 3, 1, 2)
-  h = torch.relu(F.conv2d(xn, w1.to(dt).t()[:, :, None, None], b1.to(dt)))
-  h = torch.relu(F.conv2d(h, w2.to(dt).permute(3, 2, 0, 1), b2.to(dt), padding=1))
-  h = F.conv2d(h, w3.to(dt).t()[:, :, None, None], b3.to(dt))
+
+  def conv(h, w, b, padding=0):
+    out = F.conv2d(h, w.to(dt).float(), b.float(), padding=padding)
+    return out.to(dt).float()
+
+  xn = x.permute(0, 3, 1, 2).float()
+  h = torch.relu(conv(xn, w1.t()[:, :, None, None], b1))
+  h = torch.relu(conv(h, w2.permute(3, 2, 0, 1), b2, padding=1))
+  h = conv(h, w3.t()[:, :, None, None], b3).to(dt)
   return x + h.permute(0, 2, 3, 1)
 
 
@@ -76,7 +85,9 @@ def block_cuda(x: torch.Tensor, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
       raise ValueError("x and the block parameters must be on one device")
   if not 1 <= ch <= MAX_HIDDEN:
     raise ValueError(f"the kernel takes C/2 in [1, {MAX_HIDDEN}], got {ch}")
-  w = [t.detach().to(x.dtype).float().contiguous() for t, _ in shapes]
+  # Weights rounded to x's dtype, biases kept in float32 (the Pallas contract).
+  w = [(t.detach() if i % 2 else t.detach().to(x.dtype)).float().contiguous()
+       for i, (t, _) in enumerate(shapes)]
   out = torch.empty_like(x)
   b, h, wd, _ = x.shape
   stream = torch.cuda.current_stream(x.device).cuda_stream

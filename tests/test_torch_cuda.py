@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card, against their plain versions
-(final_deconv_phase; fused_rb_chain and fused_resblock).
+(final_deconv_phase; fused_rb_chain and fused_resblock; jpegl_synthesize),
+and the eval CLI on the card against the CPU.
 
 Tests marked gpu skip without an NVIDIA GPU. This file imports no JAX, so on
 a machine with a GPU it runs as
@@ -7,11 +8,14 @@ a machine with a GPU it runs as
 (--noconftest: tests/conftest.py imports JAX, which a GPU machine need not have).
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
 
 from shallow_ntc_tpu_torch.ops import cuda_build
+from shallow_ntc_tpu_torch.ops import jpegl_decode
 from shallow_ntc_tpu_torch.ops import rb_chain
 from shallow_ntc_tpu_torch.ops import resblock
 from shallow_ntc_tpu_torch.ops import twolayer_final as tl
@@ -98,8 +102,8 @@ def _rb_params(seed, n, c, device):
     (2, 8, 8, 320, 3, torch.float32), (2, 8, 8, 320, 3, torch.bfloat16),
     (3, 7, 5, 16, 2, torch.float32), (2, 9, 17, 10, 1, torch.float32)])
 def test_rb_chain_kernel_matches_plain(cuda_device, b, h, w, c, n, dtype):
-  """f32 within 1e-4 of max|y|; bf16 within 2e-2 of max|y| (the plain version
-  rounds each conv to bf16, the kernel keeps h1 and h2 in f32)."""
+  """f32 within 1e-4 of max|y|; bf16 within 2e-2 of max|y| (both round h1, h2
+  and h3 to bf16; a float32 sum summed in another order can round across)."""
   params = _rb_params(c + n, n, c, cuda_device)
   x = torch.randn(b, h, w, c, device=cuda_device).to(dtype)
   launches = rb_chain.STATS.launches
@@ -154,3 +158,79 @@ def test_rb_chain_kernel_refuses_what_it_does_not_take(cuda_device):
   with pytest.raises(ValueError, match="C/2"):
     rb_chain.block_cuda(torch.zeros(1, 2, 2, 2 * (rb_chain.MAX_HIDDEN + 1),
                                     device=cuda_device), *wide)
+
+
+def _jpegl_inputs(seed, b, hl, wl, c_in, k, device, dtype, use_bias=True):
+  rng = np.random.default_rng(seed)
+  z = torch.from_numpy(rng.normal(0, 3, (b, hl, wl, c_in)).astype(np.float32))
+  kernel = torch.from_numpy(rng.normal(0, 0.1 / np.sqrt(c_in / 32), (k, k, c_in, 3))
+                            .astype(np.float32))
+  bias = torch.from_numpy(rng.normal(0, 0.1, (3,)).astype(np.float32)) if use_bias else None
+  return z.to(device, dtype), kernel.to(device), None if bias is None else bias.to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,hl,wl,c_in,k,dtype,use_bias", [
+    (8, 32, 48, 320, 16, torch.bfloat16, True), (1, 32, 48, 320, 16, torch.float32, True),
+    (3, 5, 7, 321, 16, torch.float32, False), (1, 3, 5, 16, 8, torch.float32, True),
+    (3, 5, 7, 321, 16, torch.bfloat16, False), (2, 3, 5, 40, 5, torch.bfloat16, True)])
+def test_jpegl_kernel_matches_plain(cuda_device, b, hl, wl, c_in, k, dtype, use_bias):
+  """f32 within 1e-4 max(1, max|y|); bf16 within 1e-2 max|y| (both round an
+  f32 sum once). The decode and eval shapes, the offset channel (C odd: the
+  2-byte loads) with no bias, k=8, and k=5 (k c_out odd: single stores; C=40
+  ends in a partial channel stage)."""
+  z, kernel, bias = _jpegl_inputs(b + c_in, b, hl, wl, c_in, k, cuda_device, dtype, use_bias)
+  launches = jpegl_decode.STATS.launches
+  out = jpegl_decode.jpegl_synthesize(z, kernel, bias)
+  torch.cuda.synchronize()
+  assert jpegl_decode.STATS.launches == launches + 1
+  ref = jpegl_decode.jpegl_synthesize_plain(z, kernel, bias)
+  assert out.shape == ref.shape == (b, hl * k, wl * k, 3) and out.dtype == dtype
+  err = (out.float() - ref.float()).abs().max().item()
+  scale = ref.float().abs().max().item()
+  assert err <= (1e-4 * max(1.0, scale) if dtype == torch.float32 else 1e-2 * scale), (err, scale)
+
+
+@pytest.mark.gpu
+def test_jpegl_kernel_refuses_what_it_does_not_take(cuda_device):
+  z, kernel, bias = _jpegl_inputs(0, 1, 2, 3, 16, 16, cuda_device, torch.float32)
+  with pytest.raises(ValueError, match="CUDA tensor"):
+    jpegl_decode.jpegl_synthesize_cuda(z.cpu(), kernel, bias)
+  with pytest.raises(TypeError):
+    jpegl_decode.jpegl_synthesize_cuda(z.half(), kernel, bias)
+  with pytest.raises(ValueError, match="contiguous"):
+    jpegl_decode.jpegl_synthesize_cuda(z.transpose(1, 2), kernel, bias)
+  with pytest.raises(ValueError, match="kernel_size == strides"):
+    jpegl_decode.jpegl_synthesize_cuda(z, kernel, bias, strides=8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("config", ["two_layer_syn_rd", "jpegl_rd"])
+def test_eval_cli_on_the_card_matches_the_cpu(cuda_device, tmp_path, monkeypatch, config):
+  """The eval CLI at its default precision on one synthetic 256x256 image,
+  with TF32 on beforehand (PyTorch's default for cuDNN): on the card and on
+  the CPU with the same seeded weights, the latent rate and PSNR within
+  rtol 1e-3 (PERF.md section 2), and the CLI leaves TF32 off. The total bpp
+  is not held: it includes the hyper-latent rate, where elements on the
+  reference prior's sign-trick degeneracy take the 1e-9 floor or not by the
+  last bit of each device's arithmetic (ROADMAP.md queue 3; chip_smoke.py
+  measured 1.1e-2 on a 192x256 crop); it is printed."""
+  from shallow_ntc_tpu_torch import data
+  from shallow_ntc_tpu_torch import eval as eval_cli
+
+  monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+  monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+  image = next(iter(data.SyntheticDataset(1, 256, num_batches=1, raw_uint8=True)))[0]
+  np.save(tmp_path / "img.npy", image)
+  records = {}
+  for device in ("cuda", "cpu"):
+    path = eval_cli.main(["--config", config, "--init_seed", "0", "--images",
+                          str(tmp_path / "img.npy"), "--device", device,
+                          "--results_dir", str(tmp_path / device)])
+    with open(path) as f:
+      (records[device],) = json.load(f)
+  assert not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32
+  print({k: (records["cuda"][k], records["cpu"][k]) for k in ("bpp", "hyper_latent_bpp")})
+  for key in ("latent_bpp", "psnr"):
+    np.testing.assert_allclose(records["cuda"][key], records["cpu"][key], rtol=1e-3,
+                               err_msg=key)

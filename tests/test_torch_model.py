@@ -16,14 +16,9 @@ from shallow_ntc_tpu_torch import eval as eval_cli
 from shallow_ntc_tpu_torch import eval_lib
 from shallow_ntc_tpu_torch import params as params_lib
 from shallow_ntc_tpu_torch.models.mshyper import Model
-from tests.torch_parity import SMALL_CONFIG, jax_eval, models, to_numpy, to_torch
+from tests.torch_parity import SMALL_CONFIG, check_eval_matches_jax, images, models
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-def _images(seed, hw):
-  rng = np.random.default_rng(seed)
-  return (rng.integers(0, 256, (1,) + hw + (3,)).astype(np.float32) / 255.0 - 0.5)
 
 
 @pytest.fixture(scope="module")
@@ -33,41 +28,7 @@ def small_models():
 
 @pytest.mark.parametrize("hw", [(64, 64), (128, 192)])
 def test_end_to_end_eval_matches_jax(small_models, hw):
-  jax_model, params, port = small_models
-  x = _images(hw[0], hw)
-  cls = jax_mshyper.Model
-  rv = jax_model.apply({"params": params}, x, method=cls.infer_latent_rvs)
-  z_j, y_j = (np.asarray(r.loc) for r in rv.uq)
-  with torch.no_grad():
-    rv_t = port.infer_latent_rvs(to_torch(x))
-    z_t, y_t = (to_numpy(r.loc) for r in rv_t.uq)
-  np.testing.assert_allclose(z_t, z_j, atol=1e-4)
-  np.testing.assert_allclose(y_t, y_j, atol=1e-4)
-
-  # Feed JAX's y_hat to the port's synthesis: a symbol that rounding flips
-  # at a .5 boundary must not hide a reconstruction error.
-  offset = jax_model.apply({"params": params}, method=cls.prior_quantization_offset)
-  z_hat = np.round(z_j - offset) + offset
-  mu, idx = jax_model.apply({"params": params}, z_hat, method=cls.hyper_synthesize)
-  y_hat = np.round(y_j - np.asarray(mu)) + np.asarray(mu)
-  rec_j = jax_model.apply({"params": params}, y_hat, method=cls.synthesize)
-  with torch.no_grad():
-    mu_t, idx_t = port.hyper_synthesize(to_torch(z_hat))
-    rec_t = port.synthesize(to_torch(y_hat))
-  np.testing.assert_allclose(to_numpy(mu_t), np.asarray(mu), atol=1e-4)
-  np.testing.assert_allclose(to_numpy(idx_t), np.asarray(idx), rtol=1e-4, atol=1e-4)
-  np.testing.assert_allclose(to_numpy(rec_t), np.asarray(rec_j), atol=1e-4)
-
-  _, m_j, _ = jax_eval(jax_model, params, x)
-  with torch.no_grad():
-    _, m_t, rec255 = port.end_to_end_frame_loss(to_torch(x), training=False)
-  assert rec255.shape == x.shape
-  assert set(m_t) == set(m_j)
-  for key in ("bpp", "hyper_latent_bpp", "latent_bpp", "psnr", "mse", "rd_loss"):
-    np.testing.assert_allclose(float(m_t[key]), float(m_j[key]), rtol=1e-3, err_msg=key)
-  np.testing.assert_array_equal(float(m_t["sched_rd_lambda"]), float(m_j["sched_rd_lambda"]))
-  # (MS-)SSIM lies in [-1, 1]; a random-init model's is near 0, so absolute.
-  np.testing.assert_allclose(float(m_t["msssim"]), float(m_j["msssim"]), atol=1e-5)
+  check_eval_matches_jax(*small_models, images(hw[0], hw))
 
 
 def test_numpy_init_has_the_flax_tree():
@@ -125,6 +86,31 @@ def test_eval_cli_writes_the_jax_record_keys(tmp_path, monkeypatch):
   assert all(np.isfinite(r["bpp"]) and np.isfinite(r["psnr"]) for r in records)
 
 
+def test_eval_cli_sets_tf32_by_matmul_precision(tmp_path, monkeypatch):
+  """--matmul_precision highest (the default) turns TF32 off for cuDNN convs
+  and matmuls before the model is built; default turns it on."""
+  monkeypatch.setattr(eval_lib.configs, "TWO_LAYER_SYN_RD", SMALL_CONFIG)
+  monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+  monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+  seen = []
+  build = eval_lib.build_model
+
+  def spy(*args, **kwargs):
+    seen.append((torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32))
+    return build(*args, **kwargs)
+
+  monkeypatch.setattr(eval_lib, "build_model", spy)
+  np.save(tmp_path / "img.npy", np.zeros((64, 64, 3), np.uint8))
+  argv = ["--init_seed", "0", "--images", str(tmp_path / "img.npy"), "--device", "cpu",
+          "--results_dir", str(tmp_path / "out")]
+  eval_cli.main(argv)
+  assert seen[-1] == (False, False)
+  assert not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32
+  eval_cli.main(argv + ["--matmul_precision", "default"])
+  assert seen[-1] == (True, True)
+  assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
+
+
 def test_port_imports_no_jax():
   """Importing every module of the port pulls in no JAX, flax or JAX-package module."""
   code = (
@@ -137,7 +123,7 @@ def test_port_imports_no_jax():
       "   'PIL', 'tensorflow', 'shallow_ntc_tpu'))\n"
       "names = {m.name for m in pkgutil.walk_packages(p.__path__, 'shallow_ntc_tpu_torch.')}\n"
       "need = {'shallow_ntc_tpu_torch.' + n for n in ('train_lib', 'train', 'ops.rb_chain',\n"
-      "        'ops.resblock', 'eval', 'models.mshyper')}\n"
+      "        'ops.resblock', 'eval', 'models.mshyper', 'ops.jpegl_decode')}\n"
       "assert need <= names, need - names\n"
       "print(len(names), bad)\n"
       "assert not bad, bad\n")

@@ -76,6 +76,45 @@ def test_resblock_matches_jax(h, w, c):
   np.testing.assert_allclose(to_numpy(x_t.grad), np.asarray(g_ref), atol=1e-4)
 
 
+def _bf16(a):
+  """a rounded to bfloat16, as a float32 numpy array."""
+  return np.asarray(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))
+
+
+@pytest.mark.parametrize("case", [("chain", 1), ("chain", 2), ("chain", 3),
+                                  ("block", (16, 12, 8)), ("block", (16, 6, 4))])
+def test_bf16_plain_versions_match_jax(case):
+  """bfloat16 x and float32 parameters: the port's plain chain and block
+  against the Pallas kernels in interpret mode, which round the weights to
+  bf16, keep the biases in f32, and round h1, h2 and each residual to bf16.
+  Both sides round at the same points, so they differ only where a float32
+  sum summed in another order lands across a bf16 rounding boundary:
+  atol 2^-8 max|y|, half a bf16 ulp at the largest output. The block runs at
+  H=16 since JAX's fused_resblock leaves the kernel for H < 16 (its dense
+  fallback refuses bf16 x with f32 weights)."""
+  kind, arg = case
+  if kind == "chain":
+    params = _chain_params(arg, 16, seed=arg)
+    x = _bf16(np.random.default_rng(7).normal(0, 1, (2, 32, 24, 16)))
+    ref = jax_rb_chain.fused_rb_chain(jnp.asarray(x, jnp.bfloat16), params)
+    with torch.no_grad():
+      out = rb_chain.fused_rb_chain(to_torch(x).bfloat16(), _torch_params(params))
+  else:
+    h, w, c = arg
+    rng = np.random.default_rng(8)
+    x = _bf16(rng.normal(0, 1, (2, h, w, c)))
+    ws = [rng.normal(0, s, shape).astype(np.float32) for s, shape in (
+        (0.2, (c, c // 2)), (0.1, (c // 2,)), (0.2, (3, 3, c // 2, c // 2)), (0.1, (c // 2,)),
+        (0.2, (c // 2, c)), (0.1, (c,)))]
+    ref = jax_resblock.fused_resblock(jnp.asarray(x, jnp.bfloat16), *ws)
+    with torch.no_grad():
+      out = resblock.fused_resblock(to_torch(x).bfloat16(), *map(to_torch, ws))
+  assert out.dtype == torch.bfloat16 and ref.dtype == jnp.bfloat16
+  ref = np.asarray(ref.astype(jnp.float32))
+  np.testing.assert_allclose(to_numpy(out.float()), ref, rtol=0,
+                             atol=2.0**-8 * np.abs(ref).max())
+
+
 @pytest.mark.parametrize("switch", ["SNTC_FUSED_RB_CHAIN", "SNTC_FUSED_RESBLOCK"])
 def test_elic_analysis_with_the_kernels_matches_jax(monkeypatch, switch):
   """ElicAnalysis (8, 10, 12, 14), 2 blocks per chain, 64x96, with the switch on

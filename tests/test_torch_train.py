@@ -153,19 +153,19 @@ def test_training_loss_and_gradients_match_jax(small_models):
   port.zero_grad()
 
 
-def test_two_train_steps_match_jax():
+def check_two_train_steps_match_jax(model_config, optimizer_config, seed=1):
   """JAX make_train_step against the port's, twice, from the same params and
   with the same noise: the loss within rtol 1e-4 at each step, and every
   parameter afterwards within atol 0.05 * lr of that step (Adam moves a
   parameter by ~lr * g / (|g| + 1e-7), so a gradient near zero whose last
   bits differ can move it by a fraction of lr)."""
-  jax_model, params, port = models(MODEL_CONFIG, seed=1)
-  tx, jax_lr = jax_train_lib.make_optimizer(OPTIMIZER_CONFIG, jax_model.scheduled_num_steps)
+  jax_model, params, port = models(model_config, seed=seed)
+  tx, jax_lr = jax_train_lib.make_optimizer(optimizer_config, jax_model.scheduled_num_steps)
   key = jax.random.PRNGKey(7)
   state_j = jax_train_lib.TrainState(step=jnp.zeros((), jnp.int32), params=params,
                                      opt_state=tx.init(params), rng=key)
   step_j = jax.jit(jax_train_lib.make_train_step(jax_model, tx, jax_lr))
-  state_t, lr_fn = train_lib.create_train_state(port.train(), OPTIMIZER_CONFIG)
+  state_t, lr_fn = train_lib.create_train_state(port.train(), optimizer_config)
   step_t = train_lib.make_train_step(port, state_t.optimizer, lr_fn)
   for step in range(2):
     x = _batch(10 + step)
@@ -180,6 +180,10 @@ def test_two_train_steps_match_jax():
       np.testing.assert_allclose(to_numpy(p), p_j[_flax_path(name)], rtol=0, atol=atol,
                                  err_msg=f"step {step}: {name}")
   assert state_t.step == int(state_j.step) == 2
+
+
+def test_two_train_steps_match_jax():
+  check_two_train_steps_match_jax(MODEL_CONFIG, OPTIMIZER_CONFIG)
 
 
 def test_checkpoint_round_trip_resumes(tmp_path):

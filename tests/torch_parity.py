@@ -72,3 +72,48 @@ def jax_eval(jax_model, params, images, step=0):
   return jax.jit(lambda p, x: jax_model.apply(
       {"params": p}, x, training=False, rng=None, step=step,
       method=type(jax_model).end_to_end_frame_loss))(params, images)
+
+
+def images(seed, hw):
+  """One normalized [1, H, W, 3] image of random 0..255 pixels."""
+  rng = np.random.default_rng(seed)
+  return (rng.integers(0, 256, (1,) + hw + (3,)).astype(np.float32) / 255.0 - 0.5)
+
+
+def check_eval_matches_jax(jax_model, params, port, x):
+  """The port's training=False eval of image x against the JAX model's:
+  latents atol 1e-4; the hyper-synthesis and synthesis from JAX's rounded
+  latents atol 1e-4; bpp, PSNR, MSE and rd_loss rtol 1e-3; (MS-)SSIM atol
+  1e-5 (it lies in [-1, 1] and is near 0 at a random init)."""
+  cls = jax_mshyper.Model
+  rv = jax_model.apply({"params": params}, x, method=cls.infer_latent_rvs)
+  z_j, y_j = (np.asarray(r.loc) for r in rv.uq)
+  with torch.no_grad():
+    rv_t = port.infer_latent_rvs(to_torch(x))
+    z_t, y_t = (to_numpy(r.loc) for r in rv_t.uq)
+  np.testing.assert_allclose(z_t, z_j, atol=1e-4)
+  np.testing.assert_allclose(y_t, y_j, atol=1e-4)
+
+  # Feed JAX's y_hat to the port's synthesis: a symbol that rounding flips
+  # at a .5 boundary must not hide a reconstruction error.
+  offset = jax_model.apply({"params": params}, method=cls.prior_quantization_offset)
+  z_hat = np.round(z_j - offset) + offset
+  mu, idx = jax_model.apply({"params": params}, z_hat, method=cls.hyper_synthesize)
+  y_hat = np.round(y_j - np.asarray(mu)) + np.asarray(mu)
+  rec_j = jax_model.apply({"params": params}, y_hat, method=cls.synthesize)
+  with torch.no_grad():
+    mu_t, idx_t = port.hyper_synthesize(to_torch(z_hat))
+    rec_t = port.synthesize(to_torch(y_hat))
+  np.testing.assert_allclose(to_numpy(mu_t), np.asarray(mu), atol=1e-4)
+  np.testing.assert_allclose(to_numpy(idx_t), np.asarray(idx), rtol=1e-4, atol=1e-4)
+  np.testing.assert_allclose(to_numpy(rec_t), np.asarray(rec_j), atol=1e-4)
+
+  _, m_j, _ = jax_eval(jax_model, params, x)
+  with torch.no_grad():
+    _, m_t, rec255 = port.end_to_end_frame_loss(to_torch(x), training=False)
+  assert rec255.shape == x.shape
+  assert set(m_t) == set(m_j)
+  for key in ("bpp", "hyper_latent_bpp", "latent_bpp", "psnr", "mse", "rd_loss"):
+    np.testing.assert_allclose(float(m_t[key]), float(m_j[key]), rtol=1e-3, err_msg=key)
+  np.testing.assert_array_equal(float(m_t["sched_rd_lambda"]), float(m_j["sched_rd_lambda"]))
+  np.testing.assert_allclose(float(m_t["msssim"]), float(m_j["msssim"]), atol=1e-5)
