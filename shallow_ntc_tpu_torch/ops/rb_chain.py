@@ -25,7 +25,8 @@ import torch.nn.functional as F
 from shallow_ntc_tpu_torch.ops import cuda_build
 
 SOURCE = "rb_chain.cu"
-MAX_HIDDEN = 160  # C/2 <= 160: the kernel's register tile (csrc/rb_chain.cu kMaxRN)
+MAX_HIDDEN = 160  # C/2 <= 160: the kernel's register tile (csrc/rb_chain.cu, RN <= 5)
+SLAB_K = 32  # rows of a packed weight slab (csrc/rb_chain.cu kSlabK)
 STATS = cuda_build.KernelStats("fused_rb_chain")
 _SYMBOLS = {torch.float32: "rb_block_f32", torch.bfloat16: "rb_block_bf16"}
 
@@ -34,9 +35,43 @@ BlockParams = Tuple[torch.Tensor, ...]  # (w1, b1, w2, b2, w3, b3)
 
 def _kernel_fn(dtype):
   fn = getattr(cuda_build.load(SOURCE), _SYMBOLS[dtype])
-  fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+  fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
   fn.restype = ctypes.c_int
   return fn
+
+
+def _ceil(a: int, b: int) -> int:
+  return -(-a // b)
+
+
+def slab_layout(c: int, ch: int) -> Tuple[int, int, int, int, int]:
+  """(ldn, s1, s2, passes, s3) of the packed weights: a slab row holds
+  ldn = 32 RN + 8 floats (RN = ceil(ch / 32)); w1 takes s1 slabs, w2 s2
+  (rows tap * ch8 + channel), and w3 `passes` column passes of 32 RN columns
+  of s3 slabs each (csrc/rb_chain.cu, Slabs)."""
+  rn, ch8 = _ceil(ch, 32), 8 * _ceil(ch, 8)
+  return (32 * rn + 8, _ceil(c, SLAB_K), _ceil(9 * ch8, SLAB_K), _ceil(c, 32 * rn),
+          _ceil(ch8, SLAB_K))
+
+
+def pack_weights(w1: torch.Tensor, w2: torch.Tensor, w3: torch.Tensor,
+                 dtype: torch.dtype) -> torch.Tensor:
+  """w1 [C, Ch], w2 [3, 3, Ch, Ch], w3 [Ch, C], rounded to dtype, as the
+  kernel's float32 stream of [SLAB_K, ldn] slabs: w1's rows, then w2's
+  (tap, channel) rows, then w3 pass by pass; zero wherever no weight lies."""
+  c, ch = w1.shape
+  ldn, s1, s2, passes, s3 = slab_layout(c, ch)
+  width, ch8 = ldn - 8, 8 * _ceil(ch, 8)
+
+  def pad(m, rows, cols):
+    return F.pad(m, (0, cols - m.shape[-1], 0, rows - m.shape[-2]))
+
+  w = [t.detach().to(dtype).float() for t in (w1, w2, w3)]
+  p1 = pad(w[0], SLAB_K * s1, ldn)
+  p2 = pad(pad(w[1].reshape(9, ch, ch), ch8, ch).reshape(9 * ch8, ch), SLAB_K * s2, ldn)
+  p3 = pad(pad(w[2], SLAB_K * s3, passes * width).reshape(SLAB_K * s3, passes, width)
+           .transpose(0, 1), SLAB_K * s3, ldn).reshape(-1, ldn)
+  return torch.cat([p1, p2, p3]).contiguous()
 
 
 def dense_resblock(x: torch.Tensor, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
@@ -86,13 +121,13 @@ def block_cuda(x: torch.Tensor, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
   if not 1 <= ch <= MAX_HIDDEN:
     raise ValueError(f"the kernel takes C/2 in [1, {MAX_HIDDEN}], got {ch}")
   # Weights rounded to x's dtype, biases kept in float32 (the Pallas contract).
-  w = [(t.detach() if i % 2 else t.detach().to(x.dtype)).float().contiguous()
-       for i, (t, _) in enumerate(shapes)]
+  wp = pack_weights(w1, w2, w3, x.dtype)
+  biases = [t.detach().float().contiguous() for t in (b1, b2, b3)]
   out = torch.empty_like(x)
   b, h, wd, _ = x.shape
   stream = torch.cuda.current_stream(x.device).cuda_stream
-  rc = _kernel_fn(x.dtype)(x.data_ptr(), *(t.data_ptr() for t in w), out.data_ptr(),
-                           b, h, wd, c, ch, stream)
+  rc = _kernel_fn(x.dtype)(x.data_ptr(), wp.data_ptr(), *(t.data_ptr() for t in biases),
+                           out.data_ptr(), b, h, wd, c, ch, stream)
   if rc != 0:
     raise RuntimeError(f"residual-block kernel launch failed: CUDA error {rc}")
   return out

@@ -168,3 +168,36 @@ def test_plain_chain_is_the_blocks_in_turn():
       block.Conv_2.bias.copy_(b3)
       z = block(z)
   torch.testing.assert_close(y, z, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("c", [16, 20, 192, 320, 33])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_packed_weights_hold_the_dense_weights(c, dtype):
+  """Read back through the kernel's addressing (csrc/rb_chain.cu): w1 (k, n)
+  at row k; w2 (tap, k, n) at row s1 SLAB_K + tap ch8 + k; w3 (k, n) at row
+  (s1 + s2 + pass s3) SLAB_K + k, column n - pass 32 RN. Every weight is
+  found rounded to dtype, with 0 error, and every other entry is 0."""
+  ch = c // 2
+  rng = np.random.default_rng(c)
+  w1, w2, w3 = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                for s in ((c, ch), (3, 3, ch, ch), (ch, c)))
+  packed = rb_chain.pack_weights(w1, w2, w3, dtype)
+  ldn, s1, s2, passes, s3 = rb_chain.slab_layout(c, ch)
+  width, ch8, k = ldn - 8, 8 * -(-ch // 8), rb_chain.SLAB_K
+  assert ldn % 32 == 8 and width >= ch and packed.dtype == torch.float32
+  assert packed.shape == ((s1 + s2 + passes * s3) * k, ldn)
+  seen = torch.zeros_like(packed, dtype=torch.bool)
+
+  def read(rows, cols, dense):
+    got = packed[rows[:, None], cols[None, :]]
+    seen[rows[:, None], cols[None, :]] = True
+    torch.testing.assert_close(got, dense.to(dtype).float(), rtol=0, atol=0)
+
+  read(torch.arange(c), torch.arange(ch), w1)
+  for tap in range(9):
+    read(s1 * k + tap * ch8 + torch.arange(ch), torch.arange(ch), w2.reshape(9, ch, ch)[tap])
+  for p in range(passes):
+    cols = torch.arange(p * width, min(c, (p + 1) * width))
+    read((s1 + s2 + p * s3) * k + torch.arange(ch), cols - p * width, w3[:, cols])
+  assert not packed[~seen].any()
+
