@@ -10,7 +10,7 @@ eval stages: device time by CUDA events, the device held busy
 (torch.cuda._sleep) until the host has queued every call. Run from another
 checkout's root (a copy of this script beside its package), it times that
 checkout's kernel. --quick stops
-after the checks. One JSON line of the times at the end, beside the card's
+after the checks; --time_only skips them. One JSON line of the times at the end, beside the card's
 name and power limit from nvidia-smi.
 """
 
@@ -68,6 +68,8 @@ def chain(x, ps):
 def main():
   ap = argparse.ArgumentParser()
   ap.add_argument("--quick", action="store_true")
+  ap.add_argument("--time_only", action="store_true",
+                  help="skip the checks (for ablated copies of the kernel)")
   args = ap.parse_args()
   if not torch.cuda.is_available():
     print("needs an NVIDIA GPU", file=sys.stderr)
@@ -96,7 +98,7 @@ def main():
 
   ok = True
   rng = np.random.default_rng(0)
-  for b, h, w, c, n in ((2, 17, 9, 192, 2), (3, 7, 5, 20, 2), (2, 9, 17, 320, 1),
+  for b, h, w, c, n in () if args.time_only else ((2, 17, 9, 192, 2), (3, 7, 5, 20, 2), (2, 9, 17, 320, 1),
                         (2, 32, 32, 192, 3), (1, 33, 20, 62, 1)):
     ps = params(n, c, b + h + w + c + n, dev)
     x32 = torch.from_numpy(rng.standard_normal((b, h, w, c), np.float32)).to(dev)

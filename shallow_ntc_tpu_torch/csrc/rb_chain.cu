@@ -133,7 +133,7 @@ __host__ __device__ inline int h_x_floats(int ch) {
 
 template <typename T, int RN>
 __host__ __device__ inline int smem_floats(int ch) {
-  return h_x_floats<T>(ch) + kStages * kSlabK * (32 * RN + 8);
+  return h_x_floats<T>(ch) + kStages * 32 * RN * (kSlabK + 4);
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -177,12 +177,38 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// A fragment of one k-step: rows gid and gid + 8 (a0, a8 at the k-step's
-// first column), columns tig and tig + 4.
-template <bool kTail, typename TA>
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
+}
+
+// ldmatrix moves 8x8 matrices of 16-bit pairs, that is 8 rows x 4 floats:
+// lane l gives the address of row l % 8 of matrix l / 8 and gets word l % 4
+// of row l / 4 of each, which is the m16n8k8 TF32 fragment layout.
+// A (16 rows x 8 k, row-major): matrices (rows 0-7 | 8-15) x (k 0-3 | 4-7),
+// so lane l points at row l % 8 + 8 ((l / 8) % 2), column 4 (l / 16).
+__device__ __forceinline__ int a_lane_row(int lane) { return (lane & 7) + 8 * ((lane >> 3) & 1); }
+__device__ __forceinline__ int a_lane_col(int lane) { return 4 * (lane >> 4); }
+
+// A fragment of one k-step: rows gid and gid + 8, columns tig and tig + 4.
+template <bool kTail>
 struct FragA {
   uint32_t hi[4], lo[4];
-  __device__ __forceinline__ FragA(const TA* a0, const TA* a8, int tig) {
+  // From float rows by ldmatrix: p is this lane's address (a_lane_row/col).
+  __device__ __forceinline__ explicit FragA(const float* p) {
+    uint32_t r[4];
+    ldmatrix_x4(r, p);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split<kTail>(__uint_as_float(r[i]), hi[i], lo[i]);
+  }
+  // From bfloat16 rows (x) by scalar loads: a0, a8 at rows gid and gid + 8.
+  __device__ __forceinline__ FragA(const __nv_bfloat16* a0, const __nv_bfloat16* a8, int tig) {
     split<kTail>(to_f32(a0[tig]), hi[0], lo[0]);
     split<kTail>(to_f32(a8[tig]), hi[1], lo[1]);
     split<kTail>(to_f32(a0[tig + 4]), hi[2], lo[2]);
@@ -190,17 +216,35 @@ struct FragA {
   }
 };
 
-// B fragments of one k-step for NT n-tiles of 8, from a ring slab: w points
-// at the k-step's first row and the warp's first column; rows LDN apart.
-template <int NT, int LDN, bool kTail>
+// A weight slab is stored n-major: row n holds its 32 k-values, padded to
+// kSlabLd = 36 floats (16-byte rows; 8 rows hit 8 distinct 16-byte bank
+// groups). B (8 k x 8 n per n-tile) is then two matrices per n-tile
+// (k 0-3 | 4-7), and one ldmatrix.x4 loads two n-tiles: lane l points at
+// row l % 8 + 8 (l / 16), column 4 ((l / 8) % 2).
+constexpr int kSlabLd = kSlabK + 4;
+__device__ __forceinline__ int b_lane_off(int lane) {
+  return ((lane & 7) + 8 * (lane >> 4)) * kSlabLd + 4 * ((lane >> 3) & 1);
+}
+
+// B fragments of one k-step for NT n-tiles of 8: p is the warp's first
+// n-row at the k-step's column plus b_lane_off(lane).
+template <int NT, bool kTail>
 struct FragB {
   uint32_t hi[NT][2], lo[NT][2];
-  __device__ __forceinline__ FragB(const float* w, int lane) {
-    const float* p = w + (lane & 3) * LDN + (lane >> 2);
+  __device__ __forceinline__ explicit FragB(const float* p) {
 #pragma unroll
-    for (int t = 0; t < NT; ++t) {
-      split<kTail>(p[8 * t], hi[t][0], lo[t][0]);
-      split<kTail>(p[4 * LDN + 8 * t], hi[t][1], lo[t][1]);
+    for (int t = 0; t + 1 < NT; t += 2) {
+      uint32_t r[4];
+      ldmatrix_x4(r, p + 8 * t * kSlabLd);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) split<kTail>(__uint_as_float(r[i]), hi[t + i / 2][i % 2],
+                                               lo[t + i / 2][i % 2]);
+    }
+    if (NT % 2) {  // lanes 0-15 address the last n-tile's two matrices
+      uint32_t r[2];
+      ldmatrix_x2(r, p + 8 * (NT - 1) * kSlabLd);
+      split<kTail>(__uint_as_float(r[0]), hi[NT - 1][0], lo[NT - 1][0]);
+      split<kTail>(__uint_as_float(r[1]), hi[NT - 1][1], lo[NT - 1][1]);
     }
   }
 };
@@ -223,9 +267,9 @@ __device__ __forceinline__ void mma_tf32_fresh(float (&d)[4], const uint32_t (&a
 // 2^-15 of the sum of |terms| at Ch = 160) is far under the bfloat16 rounding
 // of h1, h2 and h3. The MMAs are issued tile after tile, so that no MMA waits
 // on the one before it.
-template <int NT, bool kTail, typename TA, int LDN>
-__device__ __forceinline__ void mma_k8(float (&acc)[NT][4], const FragA<kTail, TA>& a,
-                                       const FragB<NT, LDN, kTail>& b) {
+template <int NT, bool kTail>
+__device__ __forceinline__ void mma_k8(float (&acc)[NT][4], const FragA<kTail>& a,
+                                       const FragB<NT, kTail>& b) {
   if (kTail) {
     float d[NT][4];
 #pragma unroll
@@ -308,8 +352,7 @@ resblock_kernel(const T* __restrict__ x, const float* __restrict__ wp,
                 const float* __restrict__ b3, T* __restrict__ out, int H, int W, int C,
                 int Ch, int tiles_w, int tiles_h, bool x_async) {
   constexpr int NT = 2 * RN;            // n-tiles of 8 per warp: 16 RN >= Ch / 2
-  constexpr int kLdn = 32 * RN + 8;     // weight slab row: 32 RN columns + 8 (banks)
-  constexpr int kWSlab = kSlabK * kLdn;  // floats
+  constexpr int kWSlab = 32 * RN * kSlabLd;  // floats: 32 RN n-rows of kSlabLd
   constexpr int kXLd = x_ld<T>();
   constexpr int kXSlab = kHaloRows * kXLd;  // elements of T
   constexpr bool kF32 = sizeof(T) == sizeof(float);  // else bf16: x, w, h1, h2 exact in TF32
@@ -320,11 +363,12 @@ resblock_kernel(const T* __restrict__ x, const float* __restrict__ wp,
   float* h1 = smem;                        // [kHaloPix][ld]
   float* h2 = smem + kHaloPix * ld;        // [kPix][ld]
   T* xring = reinterpret_cast<T*>(smem);   // [kStages][kHaloRows][kXLd], phase 1 only
-  float* wring = smem + h_x_floats<T>(Ch);  // [kStages][kSlabK][kLdn]
+  float* wring = smem + h_x_floats<T>(Ch);  // [kStages][32 RN][kSlabLd]
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int gid = lane >> 2, tig = lane & 3;
+  const int a_row = a_lane_row(lane), a_col = a_lane_col(lane), b_off = b_lane_off(lane);
   int t = blockIdx.x;
   const int tx = t % tiles_w;
   t /= tiles_w;
@@ -395,17 +439,21 @@ resblock_kernel(const T* __restrict__ x, const float* __restrict__ wp,
 #pragma unroll
     for (int i = 0; i < kU; ++i) init_bias<RN>(acc[i], b1, n0, Ch, lane);
     for (int s = 0; s < slabs.s1; ++s, ++g) {
-      const float* w = next_slab() + n0;
-      const T* xs = xring + (s % kStages) * kXSlab + gid * kXLd;
+      const float* w = next_slab() + n0 * kSlabLd + b_off;
+      const T* xs = xring + (s % kStages) * kXSlab;
 #pragma unroll
       for (int ks = 0; ks < kSlabK; ks += 8) {  // channels past C are 0 in x and w1
-        const FragB<RN, kLdn, kF32> fb(w + ks * kLdn, lane);
+        const FragB<RN, kF32> fb(w + ks);
 #pragma unroll
         for (int i = 0; i < kU; ++i) {
           const int u = warp + i * kWarps;
           if (u >= kUnits) break;
           const T* r = xs + (u >> 2) * 16 * kXLd + ks;
-          mma_k8(acc[i], FragA<kF32, T>(r, r + 8 * kXLd, tig), fb);
+          if constexpr (kF32) {
+            mma_k8(acc[i], FragA<true>(r + a_row * kXLd + a_col), fb);
+          } else {
+            mma_k8(acc[i], FragA<false>(r + gid * kXLd, r + (gid + 8) * kXLd, tig), fb);
+          }
         }
       }
     }
@@ -427,19 +475,16 @@ resblock_kernel(const T* __restrict__ x, const float* __restrict__ wp,
     const int n0 = col_half * n_half;
     float acc[NT][4];
     init_bias<NT>(acc, b2, n0, Ch, lane);
-    // This lane's A rows: output pixels m0 + gid and m0 + gid + 8.
-    const int p0 = m0 + gid, p8 = p0 + 8;
-    const float* a0 = h1 + ((p0 / 8) * kHalo + p0 % 8) * ld;
-    const float* a8 = h1 + ((p8 / 8) * kHalo + p8 % 8) * ld;
+    // This lane's ldmatrix row: output pixel m0 + a_row, at tap (0, 0).
+    const int pa = m0 + a_row;
+    const float* a = h1 + ((pa / 8) * kHalo + pa % 8) * ld + a_col;
     const int ksteps = 9 * ch8 / 8;
     int kstep = 0, tap = 0, c = 0, tap_off = 0;  // the next k-step's tap and channel
     for (int s = 0; s < slabs.s2; ++s, ++g) {
-      const float* w = next_slab() + n0;
+      const float* w = next_slab() + n0 * kSlabLd + b_off;
 #pragma unroll
       for (int ks = 0; ks < kSlabK; ks += 8) {
-        const int off = tap_off + c;
-        mma_k8(acc, FragA<kF32, float>(a0 + off, a8 + off, tig),
-               FragB<NT, kLdn, kF32>(w + ks * kLdn, lane));
+        mma_k8(acc, FragA<kF32>(a + tap_off + c), FragB<NT, kF32>(w + ks));
         if (++kstep < ksteps && (c += 8) == ch8) {
           c = 0;
           ++tap;
@@ -452,20 +497,18 @@ resblock_kernel(const T* __restrict__ x, const float* __restrict__ wp,
 
   // ---- 3. out = x + h2 @ w3 + b3: column passes of 32 RN ------------------
   {
-    const float* a0 = h2 + (m0 + gid) * ld;
-    const float* a8 = a0 + 8 * ld;
+    const float* a = h2 + (m0 + a_row) * ld + a_col;
     for (int pass = 0; pass < slabs.passes; ++pass) {
       const int n0 = pass * 32 * RN + col_half * n_half;
       float acc[NT][4];
       init_bias<NT>(acc, b3, n0, C, lane);
       for (int s = 0; s < slabs.s3; ++s, ++g) {
-        const float* w = next_slab() + col_half * n_half;
+        const float* w = next_slab() + col_half * n_half * kSlabLd + b_off;
 #pragma unroll
         for (int ks = 0; ks < kSlabK; ks += 8) {
           // Past ch8: the last A columns again, against zero rows of w3.
           const int c = min(s * kSlabK + ks, ch8 - 8);
-          mma_k8(acc, FragA<kF32, float>(a0 + c, a8 + c, tig),
-                 FragB<NT, kLdn, kF32>(w + ks * kLdn, lane));
+          mma_k8(acc, FragA<kF32>(a + c), FragB<NT, kF32>(w + ks));
         }
       }
 #pragma unroll
