@@ -15,8 +15,9 @@ Phases, one flushed line each with its seconds (TF32 off throughout):
                (ELIC 192/192/192/320, synthesis (12, 3)), seeded random
                weights, three 512x768 images, f32; one batch decode at B=8 in
                bf16; then image 0 three ways: cuDNN residual blocks,
-               SNTC_FUSED_RB_CHAIN=1 and SNTC_FUSED_RESBLOCK=1. Launch counts
-               are zeroed before each run and read after it.
+               SNTC_FUSED_RB_CHAIN=1 and SNTC_FUSED_RESBLOCK=1, each held to
+               the cuDNN way on its latents z and y, latent rate and PSNR.
+               Launch counts are zeroed before each run and read after it.
   5. reference the GPU eval against the port's CPU eval (plain versions) on a
                192x256 crop with the same weights: latents and prior logits
                to float tolerance, then the rest of the path from the same
@@ -37,7 +38,8 @@ Phases, one flushed line each with its seconds (TF32 off throughout):
   9. train-jpegl  2 steps of jpegl_rd through train_lib.train_and_eval at
                B=8 256x256 f32 with SNTC_FUSED_RB_CHAIN=1: losses finite,
                params moved, no jpegl_synthesize launch (k18).
- 10. timing    the train step with the chain kernel on and off; the B=8 bf16
+ 10. timing    the train step with the chain kernel on and off; the chain at
+               each train stage; the B=8 bf16
                decode in Mpx/s of the flagship, jpegl_rd and JPEGL_K16; each
                kernel, its plain version and (where one exists) one PyTorch
                library call computing the same function, by CUDA events,
@@ -287,8 +289,8 @@ def main():
   rb_train, rb_eval = (TRAIN_BATCH, TRAIN_HW // 2, TRAIN_HW // 2, 192, 3), (1, 256, 384, 192, 3)
   rb_stages = [(TRAIN_BATCH, TRAIN_HW // s, TRAIN_HW // s, 192, 3) for s in (4, 8)] + [
       (TRAIN_BATCH, TRAIN_HW // 16, TRAIN_HW // 16, 320, 3)]
-  # The cases added after PR 6 draw x from a generator of their own, so that
-  # the later phases see the data they saw before.
+  # The cases of rb_new_cases draw x from a generator of their own, so that
+  # the data of the later phases does not depend on the cases added here.
   rb_cases = [rb_train, rb_eval, rb_stages[-1], (3, 7, 5, 16, 2),
               (TRAIN_BATCH, TRAIN_HW // 2, TRAIN_HW // 2, 192, 1), (3, 7, 5, 16, 1)]
   rb_new_cases = [*rb_stages[:2], (2, 17, 9, 192, 2), (3, 7, 5, 20, 2), (2, 17, 9, 320, 1),

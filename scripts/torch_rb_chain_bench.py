@@ -1,17 +1,17 @@
 #!/usr/bin/env python3
 """The residual-block kernel (csrc/rb_chain.cu) alone on one NVIDIA GPU.
 
-  python3 scripts/torch_rb_chain_bench.py [--quick]
+  python3 scripts/torch_rb_chain_bench.py [--quick | --time_only]
 
 Builds the source with nvcc (printing ptxas's registers and spills per
 instantiation), holds the kernel against the plain version (dense_rb_chain)
 at odd shapes, f32 and bf16, and times the chain at the flagship's train and
 eval stages: device time by CUDA events, the device held busy
-(torch.cuda._sleep) until the host has queued every call. Run from another
-checkout's root (a copy of this script beside its package), it times that
-checkout's kernel. --quick stops
-after the checks; --time_only skips them. One JSON line of the times at the end, beside the card's
-name and power limit from nvidia-smi.
+(torch.cuda._sleep) until the host has queued every call. --quick stops
+after the checks; --time_only skips the ptxas report and the checks. Run
+from another checkout's root (a copy of this script beside its package), it
+times that checkout's kernel. One JSON line of the times at the end, beside
+the card's name and power limit from nvidia-smi.
 """
 
 import argparse
@@ -69,7 +69,7 @@ def main():
   ap = argparse.ArgumentParser()
   ap.add_argument("--quick", action="store_true")
   ap.add_argument("--time_only", action="store_true",
-                  help="skip the checks (for ablated copies of the kernel)")
+                  help="skip the ptxas report and the checks (A/B runs, ablated copies)")
   args = ap.parse_args()
   if not torch.cuda.is_available():
     print("needs an NVIDIA GPU", file=sys.stderr)
@@ -82,24 +82,26 @@ def main():
   print(f"{torch.cuda.get_device_name(0)}; nvidia-smi: {smi}; torch {torch.__version__}",
         flush=True)
   t = time.time()
-  with tempfile.TemporaryDirectory() as tmp:
-    probe = subprocess.run([cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS, "-Xptxas", "-v",
-                            "-o", os.path.join(tmp, "probe.so"),
-                            os.path.join(cuda_build.CSRC_DIR, rb.SOURCE)],
-                           capture_output=True, text=True)
-  for line in probe.stderr.splitlines():
-    if "registers" in line or "spill" in line or "Compiling entry" in line:
-      print("ptxas:", line.strip())
-  if probe.returncode:
-    print(probe.stderr, file=sys.stderr)
-    return 1
+  if not args.time_only:
+    with tempfile.TemporaryDirectory() as tmp:
+      probe = subprocess.run([cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS, "-Xptxas", "-v",
+                              "-o", os.path.join(tmp, "probe.so"),
+                              os.path.join(cuda_build.CSRC_DIR, rb.SOURCE)],
+                             capture_output=True, text=True)
+    for line in probe.stderr.splitlines():
+      if "registers" in line or "spill" in line or "Compiling entry" in line:
+        print("ptxas:", line.strip())
+    if probe.returncode:
+      print(probe.stderr, file=sys.stderr)
+      return 1
   cuda_build.load(rb.SOURCE)
   print(f"build {time.time() - t:.1f}s", flush=True)
 
   ok = True
   rng = np.random.default_rng(0)
-  for b, h, w, c, n in () if args.time_only else ((2, 17, 9, 192, 2), (3, 7, 5, 20, 2), (2, 9, 17, 320, 1),
-                        (2, 32, 32, 192, 3), (1, 33, 20, 62, 1)):
+  checks = ((2, 17, 9, 192, 2), (3, 7, 5, 20, 2), (2, 9, 17, 320, 1), (2, 32, 32, 192, 3),
+            (1, 33, 20, 62, 1))
+  for b, h, w, c, n in () if args.time_only else checks:
     ps = params(n, c, b + h + w + c + n, dev)
     x32 = torch.from_numpy(rng.standard_normal((b, h, w, c), np.float32)).to(dev)
     for dtype in (torch.float32, torch.bfloat16):

@@ -27,51 +27,55 @@
 // the bf16 MMAs' peak, which this kernel does not use yet). At B=8 128x128
 // C=192 N=3 that is 0.567 ms (f32) and 0.095 ms (bf16).
 //
-// Design: one CTA per TH x 8 output tile (TH = 8 or 16, a template
-// parameter the wrapper chooses), 2 TH / 8 * 8 warps. The three
-// convolutions are GEMMs on the tensor cores (mma.sync m16n8k8 TF32):
-//   1. h1 = relu(x @ w1 + b1) over the (TH+2) x 10 halo tile (M = 100 or
-//      180, padded to 16s), into shared memory. h1 is 0 at pixels outside
-//      the image: SAME zero padding of the 3x3 applies to h1, and relu(b1)
-//      != 0 there, so x must not simply be zero-padded.
-//   2. h2 = relu(3x3(h1) + b2) over the output tile (K = 9 Ch, the A rows
-//      gathered from h1 per tap), into shared memory.
+// Design: one CTA per 8x8 output tile, 256 threads (8 warps), 2 CTAs per
+// SM up to Ch = 96. The three convolutions are GEMMs on the tensor cores
+// (mma.sync m16n8k8 TF32):
+//   1. h1 = relu(x @ w1 + b1) over the 10x10 halo tile (M = 100, padded to
+//      112), into shared memory. h1 is 0 at pixels outside the image: SAME
+//      zero padding of the 3x3 applies to h1, and relu(b1) != 0 there, so x
+//      must not simply be zero-padded. Each warp runs 3-4 units of 16 rows
+//      by 8 RN columns in one column quarter, so one B fragment feeds them.
+//   2. h2 = relu(3x3(h1) + b2) over the 8x8 tile (M = 64, K = 9 Ch, the A
+//      rows gathered from h1 per tap), into shared memory.
 //   3. out = x + h2 @ w3 + b3, written once, in column passes of 32 RN.
-// In phases 2 and 3 each warp owns 16 rows by 16 RN columns of the GEMM;
-// in phase 1, 3 or 4 units of 16 rows by 8 RN columns in one column
-// quarter, so one B fragment feeds them all.
+// In phases 2 and 3 each warp owns 16 rows by 16 RN columns.
 //
-// What held the first version back was its B operand: every warp read its
-// weight fragments from L2 with scalar loads, so each weight crossed into
-// the SM once per warp using it (4-7 times per tile). Here:
+// What held the first version of this kernel back was its B operand: every
+// warp read its weight fragments from L2 with scalar loads, so each weight
+// crossed into the SM once per warp using it (4-7 times per tile), and x
+// was staged with plain loads between two barriers. Here:
 //   - Weights come once per CTA through shared memory. The wrapper packs the
-//     three matrices into one stream of 32-row slabs, each row padded to
-//     ldn = 32 RN + 8 floats (8 mod 32: a B fragment's 4 k-rows x 8 columns
-//     hit 32 banks) and zero past the matrix, so a slab is one contiguous
-//     copy and fragments need no bounds checks. Phase 3's w3 is stored per
-//     column pass. A two-stage ring of slabs is filled by 16-byte
-//     cp.async.cg; slab g+1 is in flight while the warps multiply slab g,
-//     across phase boundaries too; cp.async.wait_group and one barrier per
-//     slab guard each stage.
-//   - The TF32 hi/lo split of a weight happens at fragment load, from shared
-//     memory, as it did from L2: pre-split hi/lo weights would double the
-//     ring's bytes and the shared-memory reads per MMA, and those reads,
-//     not the integer split, are the scarcer issue slots.
+//     three matrices into one stream of slabs of 32 k-rows, each row padded
+//     to ldn = 32 RN + 8 floats (8 mod 32: a B fragment's 4 k-rows x 8
+//     columns hit 32 banks) and zero past the matrix, so a slab is one
+//     contiguous copy and no fragment needs a bounds check.
+//     Phase 3's w3 is stored per column pass. A ring of kStages slabs is
+//     filled by 16-byte cp.async.cg: two slabs are in flight while the warps
+//     multiply a third, across phase boundaries too; cp.async.wait_group and
+//     one barrier per slab guard each stage.
 //   - x comes the same way: each 32-channel slab of the halo tile rides in
-//     the slab's cp.async group into its own two-stage ring, in x's type
-//     (bfloat16 widens at fragment load). Pixels outside the image are
-//     zero-filled (src-size 0). When C * sizeof(T) is not a multiple of 16
-//     bytes, the slab is loaded with plain loads instead, one slab ahead.
-//   - TH = 16 halves the weight bytes per output pixel. It needs up to
-//     154 KB of shared memory, so it is compiled for Ch <= 96 only and taken
-//     where the grid still fills the card (ops/rb_chain.choose_tile_h).
+//     its weight slab's cp.async group into a ring of its own, in x's type,
+//     laid over h1 and h2 (phase 1 writes h1 only after its last x slab).
+//     Pixels outside the image are zero-filled (src-size 0). Where C *
+//     sizeof(T) is not a multiple of 16 bytes, x slabs are loaded with plain
+//     loads instead, two slabs ahead.
+//   - A fragments come by scalar loads from rows padded to 4 mod 8 floats
+//     (h1, h2: Ch rounded to 8, plus 4; x: 36 floats or 40 bfloat16), so
+//     they are free of bank conflicts. Loading A and B by ldmatrix measured
+//     slower in float32 at the flagship's shapes and was left out.
+//   - The TF32 hi/lo split of a weight happens at fragment load, from shared
+//     memory, as it did from L2. Weights split once by the wrapper would
+//     double the ring's bytes, and the ring would no longer leave room for 2
+//     CTAs per SM.
+//   - A 16x8 output tile (half the weight bytes per pixel, 1 CTA of 16 warps
+//     per SM) measured slower at the flagship's shapes and was left out.
 // Float32 accuracy with TF32 tensor cores: every operand is split into a
 // TF32 head and a TF32 tail, and a*b = ah*bh + ah*bl + al*bh (3xTF32; the
 // dropped al*bl is below float32 rounding), summed per k-step into a fresh
-// tile that is added to the float32 accumulator. h1 and h2 rows are padded to
-// 4 mod 8 floats, x ring rows to 36 floats or 40 bfloat16, so every A
-// fragment load is free of bank conflicts. The whole chain in one launch,
-// bf16 MMAs and wgmma are later work.
+// tile that is added to the float32 accumulator. What bounds it now is that
+// fragment work (the splits and adds, not the MMAs: with the MMAs replaced
+// by adds the kernel still takes 80% of its time). The whole chain in one
+// launch, bf16 MMAs (m16n8k16) and wgmma are later work.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -133,7 +137,7 @@ __host__ __device__ inline int h_x_floats(int ch) {
 
 template <typename T, int RN>
 __host__ __device__ inline int smem_floats(int ch) {
-  return h_x_floats<T>(ch) + kStages * 32 * RN * (kSlabK + 4);
+  return h_x_floats<T>(ch) + kStages * kSlabK * (32 * RN + 8);
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -177,38 +181,12 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_addr(p)));
-}
-
-// ldmatrix moves 8x8 matrices of 16-bit pairs, that is 8 rows x 4 floats:
-// lane l gives the address of row l % 8 of matrix l / 8 and gets word l % 4
-// of row l / 4 of each, which is the m16n8k8 TF32 fragment layout.
-// A (16 rows x 8 k, row-major): matrices (rows 0-7 | 8-15) x (k 0-3 | 4-7),
-// so lane l points at row l % 8 + 8 ((l / 8) % 2), column 4 (l / 16).
-__device__ __forceinline__ int a_lane_row(int lane) { return (lane & 7) + 8 * ((lane >> 3) & 1); }
-__device__ __forceinline__ int a_lane_col(int lane) { return 4 * (lane >> 4); }
-
-// A fragment of one k-step: rows gid and gid + 8, columns tig and tig + 4.
-template <bool kTail>
+// A fragment of one k-step: rows gid and gid + 8 (a0, a8 at the k-step's
+// first column), columns tig and tig + 4.
+template <bool kTail, typename TA>
 struct FragA {
   uint32_t hi[4], lo[4];
-  // From float rows by ldmatrix: p is this lane's address (a_lane_row/col).
-  __device__ __forceinline__ explicit FragA(const float* p) {
-    uint32_t r[4];
-    ldmatrix_x4(r, p);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) split<kTail>(__uint_as_float(r[i]), hi[i], lo[i]);
-  }
-  // From bfloat16 rows (x) by scalar loads: a0, a8 at rows gid and gid + 8.
-  __device__ __forceinline__ FragA(const __nv_bfloat16* a0, const __nv_bfloat16* a8, int tig) {
+  __device__ __forceinline__ FragA(const TA* a0, const TA* a8, int tig) {
     split<kTail>(to_f32(a0[tig]), hi[0], lo[0]);
     split<kTail>(to_f32(a8[tig]), hi[1], lo[1]);
     split<kTail>(to_f32(a0[tig + 4]), hi[2], lo[2]);
@@ -216,35 +194,17 @@ struct FragA {
   }
 };
 
-// A weight slab is stored n-major: row n holds its 32 k-values, padded to
-// kSlabLd = 36 floats (16-byte rows; 8 rows hit 8 distinct 16-byte bank
-// groups). B (8 k x 8 n per n-tile) is then two matrices per n-tile
-// (k 0-3 | 4-7), and one ldmatrix.x4 loads two n-tiles: lane l points at
-// row l % 8 + 8 (l / 16), column 4 ((l / 8) % 2).
-constexpr int kSlabLd = kSlabK + 4;
-__device__ __forceinline__ int b_lane_off(int lane) {
-  return ((lane & 7) + 8 * (lane >> 4)) * kSlabLd + 4 * ((lane >> 3) & 1);
-}
-
-// B fragments of one k-step for NT n-tiles of 8: p is the warp's first
-// n-row at the k-step's column plus b_lane_off(lane).
-template <int NT, bool kTail>
+// B fragments of one k-step for NT n-tiles of 8, from a ring slab: w points
+// at the k-step's first row and the warp's first column; rows LDN apart.
+template <int NT, int LDN, bool kTail>
 struct FragB {
   uint32_t hi[NT][2], lo[NT][2];
-  __device__ __forceinline__ explicit FragB(const float* p) {
+  __device__ __forceinline__ FragB(const float* w, int lane) {
+    const float* p = w + (lane & 3) * LDN + (lane >> 2);
 #pragma unroll
-    for (int t = 0; t + 1 < NT; t += 2) {
-      uint32_t r[4];
-      ldmatrix_x4(r, p + 8 * t * kSlabLd);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) split<kTail>(__uint_as_float(r[i]), hi[t + i / 2][i % 2],
-                                               lo[t + i / 2][i % 2]);
-    }
-    if (NT % 2) {  // lanes 0-15 address the last n-tile's two matrices
-      uint32_t r[2];
-      ldmatrix_x2(r, p + 8 * (NT - 1) * kSlabLd);
-      split<kTail>(__uint_as_float(r[0]), hi[NT - 1][0], lo[NT - 1][0]);
-      split<kTail>(__uint_as_float(r[1]), hi[NT - 1][1], lo[NT - 1][1]);
+    for (int t = 0; t < NT; ++t) {
+      split<kTail>(p[8 * t], hi[t][0], lo[t][0]);
+      split<kTail>(p[4 * LDN + 8 * t], hi[t][1], lo[t][1]);
     }
   }
 };
@@ -261,15 +221,15 @@ __device__ __forceinline__ void mma_tf32_fresh(float (&d)[4], const uint32_t (&a
 // acc += A[16, 8] @ W[8, 8 NT] for one k-step. Float32 (kTail): 3xTF32,
 // summed into a fresh tile that is added to acc in float32. The tensor core
 // rounds its sums toward zero, and the float32 add (round to nearest) keeps
-// the bias of that rounding from growing with K (without it PR 5 measured
-// 14x the error). bfloat16: every product is exact in one TF32 MMA, which
+// the bias of that rounding from growing with K (without it the float32 error
+// was 14x larger). bfloat16: every product is exact in one TF32 MMA, which
 // accumulates into acc directly: the truncation's bias over K <= 9 Ch (below
 // 2^-15 of the sum of |terms| at Ch = 160) is far under the bfloat16 rounding
 // of h1, h2 and h3. The MMAs are issued tile after tile, so that no MMA waits
 // on the one before it.
-template <int NT, bool kTail>
-__device__ __forceinline__ void mma_k8(float (&acc)[NT][4], const FragA<kTail>& a,
-                                       const FragB<NT, kTail>& b) {
+template <int NT, bool kTail, typename TA, int LDN>
+__device__ __forceinline__ void mma_k8(float (&acc)[NT][4], const FragA<kTail, TA>& a,
+                                       const FragB<NT, LDN, kTail>& b) {
   if (kTail) {
     float d[NT][4];
 #pragma unroll
@@ -352,7 +312,8 @@ resblock_kernel(const T* __restrict__ x, const float* __restrict__ wp,
                 const float* __restrict__ b3, T* __restrict__ out, int H, int W, int C,
                 int Ch, int tiles_w, int tiles_h, bool x_async) {
   constexpr int NT = 2 * RN;            // n-tiles of 8 per warp: 16 RN >= Ch / 2
-  constexpr int kWSlab = 32 * RN * kSlabLd;  // floats: 32 RN n-rows of kSlabLd
+  constexpr int kLdn = 32 * RN + 8;     // weight slab row: 32 RN columns + 8 (banks)
+  constexpr int kWSlab = kSlabK * kLdn;  // floats
   constexpr int kXLd = x_ld<T>();
   constexpr int kXSlab = kHaloRows * kXLd;  // elements of T
   constexpr bool kF32 = sizeof(T) == sizeof(float);  // else bf16: x, w, h1, h2 exact in TF32
@@ -363,12 +324,11 @@ resblock_kernel(const T* __restrict__ x, const float* __restrict__ wp,
   float* h1 = smem;                        // [kHaloPix][ld]
   float* h2 = smem + kHaloPix * ld;        // [kPix][ld]
   T* xring = reinterpret_cast<T*>(smem);   // [kStages][kHaloRows][kXLd], phase 1 only
-  float* wring = smem + h_x_floats<T>(Ch);  // [kStages][32 RN][kSlabLd]
+  float* wring = smem + h_x_floats<T>(Ch);  // [kStages][kSlabK][kLdn]
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int gid = lane >> 2, tig = lane & 3;
-  const int a_row = a_lane_row(lane), a_col = a_lane_col(lane), b_off = b_lane_off(lane);
   int t = blockIdx.x;
   const int tx = t % tiles_w;
   t /= tiles_w;
@@ -439,21 +399,17 @@ resblock_kernel(const T* __restrict__ x, const float* __restrict__ wp,
 #pragma unroll
     for (int i = 0; i < kU; ++i) init_bias<RN>(acc[i], b1, n0, Ch, lane);
     for (int s = 0; s < slabs.s1; ++s, ++g) {
-      const float* w = next_slab() + n0 * kSlabLd + b_off;
-      const T* xs = xring + (s % kStages) * kXSlab;
+      const float* w = next_slab() + n0;
+      const T* xs = xring + (s % kStages) * kXSlab + gid * kXLd;
 #pragma unroll
       for (int ks = 0; ks < kSlabK; ks += 8) {  // channels past C are 0 in x and w1
-        const FragB<RN, kF32> fb(w + ks);
+        const FragB<RN, kLdn, kF32> fb(w + ks * kLdn, lane);
 #pragma unroll
         for (int i = 0; i < kU; ++i) {
           const int u = warp + i * kWarps;
           if (u >= kUnits) break;
           const T* r = xs + (u >> 2) * 16 * kXLd + ks;
-          if constexpr (kF32) {
-            mma_k8(acc[i], FragA<true>(r + a_row * kXLd + a_col), fb);
-          } else {
-            mma_k8(acc[i], FragA<false>(r + gid * kXLd, r + (gid + 8) * kXLd, tig), fb);
-          }
+          mma_k8(acc[i], FragA<kF32, T>(r, r + 8 * kXLd, tig), fb);
         }
       }
     }
@@ -475,16 +431,19 @@ resblock_kernel(const T* __restrict__ x, const float* __restrict__ wp,
     const int n0 = col_half * n_half;
     float acc[NT][4];
     init_bias<NT>(acc, b2, n0, Ch, lane);
-    // This lane's ldmatrix row: output pixel m0 + a_row, at tap (0, 0).
-    const int pa = m0 + a_row;
-    const float* a = h1 + ((pa / 8) * kHalo + pa % 8) * ld + a_col;
+    // This lane's A rows: output pixels m0 + gid and m0 + gid + 8.
+    const int p0 = m0 + gid, p8 = p0 + 8;
+    const float* a0 = h1 + ((p0 / 8) * kHalo + p0 % 8) * ld;
+    const float* a8 = h1 + ((p8 / 8) * kHalo + p8 % 8) * ld;
     const int ksteps = 9 * ch8 / 8;
     int kstep = 0, tap = 0, c = 0, tap_off = 0;  // the next k-step's tap and channel
     for (int s = 0; s < slabs.s2; ++s, ++g) {
-      const float* w = next_slab() + n0 * kSlabLd + b_off;
+      const float* w = next_slab() + n0;
 #pragma unroll
       for (int ks = 0; ks < kSlabK; ks += 8) {
-        mma_k8(acc, FragA<kF32>(a + tap_off + c), FragB<NT, kF32>(w + ks));
+        const int off = tap_off + c;
+        mma_k8(acc, FragA<kF32, float>(a0 + off, a8 + off, tig),
+               FragB<NT, kLdn, kF32>(w + ks * kLdn, lane));
         if (++kstep < ksteps && (c += 8) == ch8) {
           c = 0;
           ++tap;
@@ -497,18 +456,20 @@ resblock_kernel(const T* __restrict__ x, const float* __restrict__ wp,
 
   // ---- 3. out = x + h2 @ w3 + b3: column passes of 32 RN ------------------
   {
-    const float* a = h2 + (m0 + a_row) * ld + a_col;
+    const float* a0 = h2 + (m0 + gid) * ld;
+    const float* a8 = a0 + 8 * ld;
     for (int pass = 0; pass < slabs.passes; ++pass) {
       const int n0 = pass * 32 * RN + col_half * n_half;
       float acc[NT][4];
       init_bias<NT>(acc, b3, n0, C, lane);
       for (int s = 0; s < slabs.s3; ++s, ++g) {
-        const float* w = next_slab() + col_half * n_half * kSlabLd + b_off;
+        const float* w = next_slab() + col_half * n_half;
 #pragma unroll
         for (int ks = 0; ks < kSlabK; ks += 8) {
           // Past ch8: the last A columns again, against zero rows of w3.
           const int c = min(s * kSlabK + ks, ch8 - 8);
-          mma_k8(acc, FragA<kF32>(a + c), FragB<NT, kF32>(w + ks));
+          mma_k8(acc, FragA<kF32, float>(a0 + c, a8 + c, tig),
+                 FragB<NT, kLdn, kF32>(w + ks * kLdn, lane));
         }
       }
 #pragma unroll

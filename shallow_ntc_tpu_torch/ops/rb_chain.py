@@ -17,6 +17,7 @@ per chain (its N block kernels).
 """
 
 import ctypes
+import functools
 from typing import Callable, Sequence, Tuple
 
 import torch
@@ -26,14 +27,14 @@ from shallow_ntc_tpu_torch.ops import cuda_build
 
 SOURCE = "rb_chain.cu"
 MAX_HIDDEN = 160  # C/2 <= 160: the kernel's register tile (csrc/rb_chain.cu, RN <= 5)
-SLAB_K, SLAB_LD = 32, 36  # k-rows of a packed weight slab, and its n-rows' stride
-                          # (csrc/rb_chain.cu kSlabK, kSlabLd)
+SLAB_K = 32  # rows of a packed weight slab (csrc/rb_chain.cu kSlabK)
 STATS = cuda_build.KernelStats("fused_rb_chain")
 _SYMBOLS = {torch.float32: "rb_block_f32", torch.bfloat16: "rb_block_bf16"}
 
 BlockParams = Tuple[torch.Tensor, ...]  # (w1, b1, w2, b2, w3, b3)
 
 
+@functools.lru_cache(maxsize=None)
 def _kernel_fn(dtype):
   fn = getattr(cuda_build.load(SOURCE), _SYMBOLS[dtype])
   fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
@@ -46,39 +47,49 @@ def _ceil(a: int, b: int) -> int:
 
 
 def slab_layout(c: int, ch: int) -> Tuple[int, int, int, int, int]:
-  """(width, s1, s2, passes, s3) of the packed weights: a slab holds SLAB_K
-  k-rows of width = 32 RN columns (RN = ceil(ch / 32)); w1 takes s1 slabs,
-  w2 s2 (k-rows tap * ch8 + channel), and w3 `passes` column passes of
-  `width` columns of s3 slabs each (csrc/rb_chain.cu, Slabs)."""
+  """(ldn, s1, s2, passes, s3) of the packed weights: a slab row holds
+  ldn = 32 RN + 8 floats (RN = ceil(ch / 32)); w1 takes s1 slabs, w2 s2
+  (rows tap * ch8 + channel), and w3 `passes` column passes of 32 RN columns
+  of s3 slabs each (csrc/rb_chain.cu, Slabs)."""
   rn, ch8 = _ceil(ch, 32), 8 * _ceil(ch, 8)
-  return (32 * rn, _ceil(c, SLAB_K), _ceil(9 * ch8, SLAB_K), _ceil(c, 32 * rn),
+  return (32 * rn + 8, _ceil(c, SLAB_K), _ceil(9 * ch8, SLAB_K), _ceil(c, 32 * rn),
           _ceil(ch8, SLAB_K))
+
+
+def _slabs(w1: torch.Tensor, w2: torch.Tensor, w3: torch.Tensor) -> torch.Tensor:
+  """The slab layout of pack_weights, for weights of any dtype."""
+  c, ch = w1.shape
+  ldn, s1, s2, passes, s3 = slab_layout(c, ch)
+  width, ch8 = ldn - 8, 8 * _ceil(ch, 8)
+
+  def pad(m, rows, cols):
+    return F.pad(m, (0, cols - m.shape[-1], 0, rows - m.shape[-2]))
+
+  p1 = pad(w1, SLAB_K * s1, ldn)
+  p2 = pad(pad(w2.reshape(9, ch, ch), ch8, ch).reshape(9 * ch8, ch), SLAB_K * s2, ldn)
+  p3 = pad(pad(w3, SLAB_K * s3, passes * width).reshape(SLAB_K * s3, passes, width)
+           .transpose(0, 1), SLAB_K * s3, ldn).reshape(-1, ldn)
+  return torch.cat([p1, p2, p3])
+
+
+@functools.lru_cache(maxsize=None)
+def _slab_index(c: int, ch: int, device: torch.device) -> torch.Tensor:
+  """Where each packed entry comes from in [0, w1, w2, w3] flattened (0 for
+  padding): the slab layout of the positions, built once per shape."""
+  sizes = (c * ch, 9 * ch * ch, ch * c)
+  pos = torch.arange(1, sum(sizes) + 1, dtype=torch.float64).split(sizes)
+  return _slabs(pos[0].view(c, ch), pos[1].view(3, 3, ch, ch), pos[2].view(ch, c)).long().to(
+      device)
 
 
 def pack_weights(w1: torch.Tensor, w2: torch.Tensor, w3: torch.Tensor,
                  dtype: torch.dtype) -> torch.Tensor:
   """w1 [C, Ch], w2 [3, 3, Ch, Ch], w3 [Ch, C], rounded to dtype, as the
-  kernel's float32 stream of slabs [n_slabs, width, SLAB_LD]: slab s holds
-  k-rows SLAB_K s .. SLAB_K s + SLAB_K - 1 of one matrix, stored n-major
-  (entry [s, n, k]) with the rows padded to SLAB_LD floats. w1's slabs come
-  first, then w2's over (tap, channel) rows, then w3's pass by pass; zero
-  wherever no weight lies."""
-  c, ch = w1.shape
-  width, s1, s2, passes, s3 = slab_layout(c, ch)
-  ch8 = 8 * _ceil(ch, 8)
-
-  def pad(m, rows, cols):
-    return F.pad(m, (0, cols - m.shape[-1], 0, rows - m.shape[-2]))
-
-  def slabs(m):  # [SLAB_K n_slabs, width] -> [n_slabs, width, SLAB_LD]
-    m = m.reshape(-1, SLAB_K, width).transpose(1, 2)
-    return F.pad(m, (0, SLAB_LD - SLAB_K))
-
-  w = [t.detach().to(dtype).float() for t in (w1, w2, w3)]
-  p1 = pad(w[0], SLAB_K * s1, width)
-  p2 = pad(pad(w[1].reshape(9, ch, ch), ch8, ch).reshape(9 * ch8, ch), SLAB_K * s2, width)
-  p3 = pad(w[2], SLAB_K * s3, passes * width).reshape(SLAB_K * s3, passes, width).transpose(0, 1)
-  return torch.cat([slabs(p1), slabs(p2), slabs(p3.reshape(-1, width))]).contiguous()
+  kernel's float32 stream of [SLAB_K, ldn] slabs: w1's rows, then w2's
+  (tap, channel) rows, then w3 pass by pass; zero wherever no weight lies.
+  One gather, so that packing costs a few launches per block."""
+  flat = torch.cat([w1.new_zeros(1), w1.reshape(-1), w2.reshape(-1), w3.reshape(-1)])
+  return flat.detach().to(dtype).float()[_slab_index(*w1.shape, w1.device)]
 
 
 def dense_resblock(x: torch.Tensor, w1, b1, w2, b2, w3, b3) -> torch.Tensor:

@@ -173,26 +173,24 @@ def test_plain_chain_is_the_blocks_in_turn():
 @pytest.mark.parametrize("c", [16, 20, 192, 320, 33])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_packed_weights_hold_the_dense_weights(c, dtype):
-  """Read back through the kernel's addressing (csrc/rb_chain.cu): k-row r
-  of the stream is in slab r // SLAB_K at [n, r % SLAB_K]; w1 (k, n) at
-  r = k, w2 (tap, k, n) at r = SLAB_K s1 + tap ch8 + k, w3 (k, n) at
-  r = SLAB_K (s1 + s2 + pass s3) + k, n - pass width. Every weight is found
-  rounded to dtype, with 0 error, and every other entry is 0."""
+  """Read back through the kernel's addressing (csrc/rb_chain.cu): w1 (k, n)
+  at row k; w2 (tap, k, n) at row s1 SLAB_K + tap ch8 + k; w3 (k, n) at row
+  (s1 + s2 + pass s3) SLAB_K + k, column n - pass 32 RN. Every weight is
+  found rounded to dtype, with 0 error, and every other entry is 0."""
   ch = c // 2
   rng = np.random.default_rng(c)
   w1, w2, w3 = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
                 for s in ((c, ch), (3, 3, ch, ch), (ch, c)))
   packed = rb_chain.pack_weights(w1, w2, w3, dtype)
-  width, s1, s2, passes, s3 = rb_chain.slab_layout(c, ch)
-  ch8, k = 8 * -(-ch // 8), rb_chain.SLAB_K
-  assert width % 32 == 0 and width >= ch and packed.dtype == torch.float32
-  assert packed.shape == (s1 + s2 + passes * s3, width, rb_chain.SLAB_LD)
+  ldn, s1, s2, passes, s3 = rb_chain.slab_layout(c, ch)
+  width, ch8, k = ldn - 8, 8 * -(-ch // 8), rb_chain.SLAB_K
+  assert ldn % 32 == 8 and width >= ch and packed.dtype == torch.float32
+  assert packed.shape == ((s1 + s2 + passes * s3) * k, ldn)
   seen = torch.zeros_like(packed, dtype=torch.bool)
 
   def read(rows, cols, dense):
-    r, n = rows[:, None], cols[None, :]
-    got = packed[r // k, n, r % k]
-    seen[r // k, n, r % k] = True
+    got = packed[rows[:, None], cols[None, :]]
+    seen[rows[:, None], cols[None, :]] = True
     torch.testing.assert_close(got, dense.to(dtype).float(), rtol=0, atol=0)
 
   read(torch.arange(c), torch.arange(ch), w1)
@@ -202,3 +200,4 @@ def test_packed_weights_hold_the_dense_weights(c, dtype):
     cols = torch.arange(p * width, min(c, (p + 1) * width))
     read((s1 + s2 + p * s3) * k + torch.arange(ch), cols - p * width, w3[:, cols])
   assert not packed[~seen].any()
+
