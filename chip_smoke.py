@@ -687,7 +687,7 @@ def main():
 
   # --- 10. timing -----------------------------------------------------------
   # The full-width train step, chain kernel off and on, in turns (off, on,
-  # on, off), each the mean of 3 steps by CUDA events after a warm-up step.
+  # on, off), each the mean of 8 steps by CUDA events after 2 warm-up steps.
   t_model, _ = train_lib.build_model(train_cfg["model_config"], init_seed=0, device="cuda")
   t_state, lr_fn = train_lib.create_train_state(t_model, opt_cfg)
   t_step = train_lib.make_train_step(t_model, t_state.optimizer, lr_fn)
@@ -697,9 +697,9 @@ def main():
   for way in ("off", "on", "on", "off"):
     if way == "on":
       with switch_on("SNTC_FUSED_RB_CHAIN"):
-        step_ms[way].append(cuda_ms(torch, lambda: t_step(t_state, t_batch), iters=3, warmup=1))
+        step_ms[way].append(cuda_ms(torch, lambda: t_step(t_state, t_batch), iters=8, warmup=2))
     else:
-      step_ms[way].append(cuda_ms(torch, lambda: t_step(t_state, t_batch), iters=3, warmup=1))
+      step_ms[way].append(cuda_ms(torch, lambda: t_step(t_state, t_batch), iters=8, warmup=2))
   zero_counts()
   with switch_on("SNTC_FUSED_RB_CHAIN"):
     t_step(t_state, t_batch)
