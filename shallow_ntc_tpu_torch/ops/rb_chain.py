@@ -56,30 +56,23 @@ def slab_layout(c: int, ch: int) -> Tuple[int, int, int, int, int]:
           _ceil(ch8, SLAB_K))
 
 
-def _slabs(w1: torch.Tensor, w2: torch.Tensor, w3: torch.Tensor) -> torch.Tensor:
-  """The slab layout of pack_weights, for weights of any dtype."""
-  c, ch = w1.shape
+@functools.lru_cache(maxsize=None)
+def _slab_index(c: int, ch: int, device: torch.device) -> torch.Tensor:
+  """Where each packed entry comes from in [0, w1, w2, w3] flattened (0 for
+  padding): the positions 1, 2, ... laid out in slabs, once per shape."""
   ldn, s1, s2, passes, s3 = slab_layout(c, ch)
   width, ch8 = ldn - 8, 8 * _ceil(ch, 8)
+  sizes = (c * ch, 9 * ch * ch, ch * c)
+  w1, w2, w3 = torch.arange(1, sum(sizes) + 1, dtype=torch.float64).split(sizes)
 
   def pad(m, rows, cols):
     return F.pad(m, (0, cols - m.shape[-1], 0, rows - m.shape[-2]))
 
-  p1 = pad(w1, SLAB_K * s1, ldn)
-  p2 = pad(pad(w2.reshape(9, ch, ch), ch8, ch).reshape(9 * ch8, ch), SLAB_K * s2, ldn)
-  p3 = pad(pad(w3, SLAB_K * s3, passes * width).reshape(SLAB_K * s3, passes, width)
+  p1 = pad(w1.view(c, ch), SLAB_K * s1, ldn)
+  p2 = pad(pad(w2.view(9, ch, ch), ch8, ch).reshape(9 * ch8, ch), SLAB_K * s2, ldn)
+  p3 = pad(pad(w3.view(ch, c), SLAB_K * s3, passes * width).reshape(SLAB_K * s3, passes, width)
            .transpose(0, 1), SLAB_K * s3, ldn).reshape(-1, ldn)
-  return torch.cat([p1, p2, p3])
-
-
-@functools.lru_cache(maxsize=None)
-def _slab_index(c: int, ch: int, device: torch.device) -> torch.Tensor:
-  """Where each packed entry comes from in [0, w1, w2, w3] flattened (0 for
-  padding): the slab layout of the positions, built once per shape."""
-  sizes = (c * ch, 9 * ch * ch, ch * c)
-  pos = torch.arange(1, sum(sizes) + 1, dtype=torch.float64).split(sizes)
-  return _slabs(pos[0].view(c, ch), pos[1].view(3, 3, ch, ch), pos[2].view(ch, c)).long().to(
-      device)
+  return torch.cat([p1, p2, p3]).long().to(device)
 
 
 def pack_weights(w1: torch.Tensor, w2: torch.Tensor, w3: torch.Tensor,

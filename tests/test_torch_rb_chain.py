@@ -200,4 +200,3 @@ def test_packed_weights_hold_the_dense_weights(c, dtype):
     cols = torch.arange(p * width, min(c, (p + 1) * width))
     read((s1 + s2 + p * s3) * k + torch.arange(ch), cols - p * width, w3[:, cols])
   assert not packed[~seen].any()
-
