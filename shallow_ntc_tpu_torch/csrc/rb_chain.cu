@@ -225,7 +225,7 @@ __device__ __forceinline__ void mma_tf32_fresh(float (&d)[4], const uint32_t (&a
 // was 14x larger). bfloat16: every product is exact in one TF32 MMA, which
 // accumulates into acc directly: the truncation's bias over K <= 9 Ch (below
 // 2^-15 of the sum of |terms| at Ch = 160) is far under the bfloat16 rounding
-// of h1, h2 and h3. The MMAs are issued tile after tile, so that no MMA waits
+// of h1, h2 and h3. The MMAs go out tile after tile, so that no MMA waits
 // on the one before it.
 template <int NT, bool kTail, typename TA, int LDN>
 __device__ __forceinline__ void mma_k8(float (&acc)[NT][4], const FragA<kTail, TA>& a,
@@ -360,10 +360,10 @@ resblock_kernel(const T* __restrict__ x, const float* __restrict__ wp,
       }
     }
   };
-  // Issue slab s of the stream (and of x in phase 1) into ring stage
+  // Start copying slab s of the stream (and of x in phase 1) into ring stage
   // s % kStages, as one cp.async group (empty past the stream's end, so that
   // every thread counts the same groups).
-  auto issue = [&](int s) {
+  auto fetch = [&](int s) {
     if (s < slabs.total) {
       float* dst = wring + (s % kStages) * kWSlab;
       const float* src = wp + (long long)s * kWSlab;
@@ -380,10 +380,10 @@ resblock_kernel(const T* __restrict__ x, const float* __restrict__ wp,
   auto next_slab = [&]() -> const float* {
     cp_async_wait_ring();
     __syncthreads();
-    issue(g + kStages - 1);
+    fetch(g + kStages - 1);
     return wring + (g % kStages) * kWSlab;
   };
-  for (int s = 0; s < kStages - 1; ++s) issue(s);
+  for (int s = 0; s < kStages - 1; ++s) fetch(s);
 
   const int n_half = 16 * RN;  // columns per warp in phases 2 and 3
 
