@@ -43,7 +43,8 @@ Phases, one flushed line each with its seconds (TF32 off throughout):
                decode in Mpx/s of the flagship, jpegl_rd and JPEGL_K16; each
                kernel, its plain version and (where one exists) one PyTorch
                library call computing the same function, by CUDA events,
-               beside its bound.
+               beside its bound (final_deconv_phase at the decode, eval and
+               train shapes).
 Then one JSON line of kernels, the nvidia-smi line, and the last line
 {"ok": true, "device": {...}}. Any failed phase exits non-zero before that
 line. Without CUDA, or without the port beside this script, it exits 1.
@@ -115,7 +116,8 @@ def cuda_ms(torch, fn, iters=50, warmup=5, host_ahead=False):
 def final_deconv_bound_ms(mid_p, out, kernel, dtype_name):
   """Least time for final_deconv_phase on these inputs: bytes or operations.
 
-  Bytes: mid read once, output written once, float32 weights and bias once.
+  Bytes: mid read once, output written once, weights and bias once (in
+  mid's type, as the kernel reads them).
   Operations: 2 * c_in * c_out per valid (output pixel, tap) pair, the valid
   taps counted exactly for this geometry (rows outside the image read none).
   """
@@ -128,7 +130,7 @@ def final_deconv_bound_ms(mid_p, out, kernel, dtype_name):
                if (t - p0 + o % 2) % 2 == 0 and 0 <= o // 2 + (t - p0 + o % 2) // 2 < n_mid)
 
   n_bytes = (mid_p.numel() * mid_p.element_size() + out.numel() * out.element_size()
-             + 4 * (kernel.numel() + c_out))
+             + mid_p.element_size() * (kernel.numel() + c_out))
   flops = 2 * c_in * c_out * b * taps(8 * h) * taps(8 * w)
   t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
   t_ops = flops / H100_PEAK_FLOPS[dtype_name] * 1e3
@@ -237,28 +239,43 @@ def main():
   # --- 3. kernels against their plain versions ------------------------------
   rng = np.random.default_rng(0)
 
-  def final_inputs(b, h, w, dtype, k=5, c_in=12, c_out=3):
-    mid = torch.from_numpy(rng.standard_normal((b, h, w, 64 * c_in), np.float32))
-    kern = torch.from_numpy(rng.standard_normal((k, k, c_in, c_out), np.float32) * 0.1)
-    bias = torch.from_numpy(rng.standard_normal((c_out,), np.float32) * 0.1)
+  def final_inputs(b, h, w, dtype, k=5, c_in=12, c_out=3, gen=None):
+    gen = rng if gen is None else gen
+    mid = torch.from_numpy(gen.standard_normal((b, h, w, 64 * c_in), np.float32))
+    kern = torch.from_numpy(gen.standard_normal((k, k, c_in, c_out), np.float32) * 0.1)
+    bias = torch.from_numpy(gen.standard_normal((c_out,), np.float32) * 0.1)
     return mid.to(dev, dtype), kern.to(dev, dtype), bias.to(dev)
 
+  # (B, H, W, dtype, k, c_in, c_out): the eval and decode shapes, then the
+  # shapes the kernel's tiles (one phase row x 8 phase columns) make ragged,
+  # as tests/test_torch_cuda.py has them: W no multiple of 8 and W = 1, H = 1,
+  # B = 1; k = 3, 5, 7; c_in 12, 5, 6, 16; c_out 3, 4, 5, 8; and the train
+  # shape. The cases after the first four draw from a generator of their own,
+  # so that the data of the later phases does not depend on them.
   mh, mw = EVAL_HW[0] // 16, EVAL_HW[1] // 16
-  cases = [(1, mh, mw, torch.float32, 5), (DECODE_BATCH, mh, mw, torch.bfloat16, 5),
-           (3, 5, 7, torch.float32, 5), (2, 3, 4, torch.float32, 7)]
+  fd_train = (TRAIN_BATCH, TRAIN_HW // 16, TRAIN_HW // 16, torch.float32, 5, 12, 3)
+  cases = [(1, mh, mw, torch.float32, 5, 12, 3), (DECODE_BATCH, mh, mw, torch.bfloat16, 5, 12, 3),
+           (3, 5, 7, torch.float32, 5, 12, 3), (2, 3, 4, torch.float32, 7, 12, 3)]
+  new_cases = [(1, 1, 1, torch.bfloat16, 5, 12, 3), (2, 3, 9, torch.bfloat16, 7, 12, 3),
+               (1, 2, 11, torch.float32, 3, 12, 3), (2, 3, 5, torch.float32, 5, 5, 5),
+               (2, 3, 5, torch.bfloat16, 5, 5, 5), (1, 2, 10, torch.bfloat16, 3, 16, 8),
+               (3, 1, 17, torch.float32, 7, 16, 3), (2, 2, 9, torch.bfloat16, 5, 6, 4),
+               (1, 2, 9, torch.float32, 5, 6, 4), fd_train]
+  fd_rng = np.random.default_rng(9)
   errs = {}
-  for b, h, w, dtype, k in cases:
-    mid, kern, bias = final_inputs(b, h, w, dtype, k)
-    out = tl.final_deconv_cuda(mid, kern, bias, 12)
-    ref = tl.final_deconv_plain(mid, kern, bias, 12)
+  for case in cases + new_cases:
+    b, h, w, dtype, k, c_in, c_out = case
+    mid, kern, bias = final_inputs(*case, gen=None if case in cases else fd_rng)
+    out = tl.final_deconv_cuda(mid, kern, bias, c_in)
+    ref = tl.final_deconv_plain(mid, kern, bias, c_in)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
     scale = ref.float().abs().max().item()
     tol = 1e-4 if dtype == torch.float32 else 2e-2 * scale
-    log("kernels", f"final_deconv_phase B={b} {h}x{w} k={k} {dtype}: max|err| {err:.3e} "
-        f"(tol {tol:.3e}, max|y| {scale:.3f})")
+    log("kernels", f"final_deconv_phase B={b} {h}x{w} k={k} c_in={c_in} c_out={c_out} {dtype}: "
+        f"max|err| {err:.3e} (tol {tol:.3e}, max|y| {scale:.3f})")
     check(out.shape == ref.shape and err <= tol, f"final_deconv_phase disagrees: {err} > {tol}")
-    errs[(b, dtype)] = err
+    errs[("final_deconv_phase", case)] = err
   mid, kern, bias = final_inputs(2, 3, 4, torch.float32)
   cot = torch.randn(2, 48, 64, 3, device=dev)
   grads = []
@@ -747,30 +764,33 @@ def main():
   log("timing", f"decode B={DECODE_BATCH} {EVAL_HW[0]}x{EVAL_HW[1]} bf16: {decode_ms:.4f} ms, "
       f"{pixels / decode_ms / 1e3:.2f} Mpx/s  [{smi}]")
 
-  def time_final(b, dtype):
-    mid, kern, bias = final_inputs(b, mh, mw, dtype)
+  def time_final(b, h, w, dtype):
+    """The kernel with its weights and bias in the input's type, as the
+    model's parameters are, so a call launches the kernel alone."""
+    mid, kern, bias = final_inputs(b, h, w, dtype)
+    bias = bias.to(dtype)
     out = tl.final_deconv_cuda(mid, kern, bias, 12)
     x_d2s = fd.depth_to_space(mid, 8).permute(0, 3, 1, 2)  # NCHW view, channels-last
     weight = kern.flip(0, 1).permute(2, 3, 0, 1).contiguous()
-    lib = F.conv_transpose2d(x_d2s, weight, bias.to(dtype), stride=2, padding=1)
-    lib_err = (lib[:, :, : 16 * mh, : 16 * mw].permute(0, 2, 3, 1).float()
+    lib = F.conv_transpose2d(x_d2s, weight, bias, stride=2, padding=1)
+    lib_err = (lib[:, :, : 16 * h, : 16 * w].permute(0, 2, 3, 1).float()
                - out.float()).abs().max().item()
     ms = cuda_ms(torch, lambda: tl.final_deconv_cuda(mid, kern, bias, 12), host_ahead=True)
     call = cuda_ms(torch, lambda: tl.final_deconv_cuda(mid, kern, bias, 12))
     plain = cuda_ms(torch, lambda: tl.final_deconv_plain(mid, kern, bias, 12), iters=20,
                     host_ahead=True)
-    lib_bias = bias.to(dtype)
-    lib_ms = cuda_ms(torch, lambda: F.conv_transpose2d(x_d2s, weight, lib_bias, stride=2,
+    lib_ms = cuda_ms(torch, lambda: F.conv_transpose2d(x_d2s, weight, bias, stride=2,
                                                        padding=1), host_ahead=True)
     bound, by = final_deconv_bound_ms(mid, out, kern, str(dtype).split(".")[-1])
-    log("timing", f"final_deconv_phase B={b} {mh}x{mw} {dtype}: kernel {ms:.5f} ms (a call "
+    log("timing", f"final_deconv_phase B={b} {h}x{w} {dtype}: kernel {ms:.5f} ms (a call "
         f"{call:.5f} ms), plain {plain:.5f} ms, conv_transpose2d {lib_ms:.5f} ms (vs kernel "
         f"max|diff| {lib_err:.2e}), bound {bound:.5f} ms ({by})  [{smi}]")
     return dict(ms=ms, call_ms=call, plain_ms=plain, bound_ms=bound, bound_by=by,
                 library_ms=lib_ms)
 
-  decode_t = time_final(DECODE_BATCH, torch.bfloat16)
-  eval_t = time_final(1, torch.float32)
+  decode_t = time_final(DECODE_BATCH, mh, mw, torch.bfloat16)
+  eval_t = time_final(1, mh, mw, torch.float32)
+  train_fd_t = time_final(*fd_train[:4])
   del model_bf16
 
   # The JPEG-like decode at the same shape: k18 (cuDNN) and K16 (the kernel).
@@ -827,11 +847,13 @@ def main():
       name=tl.STATS.name, route="cuda",
       source="shallow_ntc_tpu_torch/csrc/final_deconv.cu",
       replaces="shallow_ntc_tpu/ops/pallas/twolayer_final.py:273",
-      launches=train_counts[tl.STATS.name], max_abs_err=errs[(DECODE_BATCH, torch.bfloat16)],
+      launches=train_counts[tl.STATS.name], max_abs_err=errs[("final_deconv_phase", cases[1])],
       **decode_t,
       shape=f"B={DECODE_BATCH} mid {mh}x{mw}x768 bf16 (decode)",
       eval_shape=dict(shape=f"B=1 mid {mh}x{mw}x768 f32 (eval)",
-                      max_abs_err=errs[(1, torch.float32)], **eval_t),
+                      max_abs_err=errs[("final_deconv_phase", cases[0])], **eval_t),
+      train_shape=dict(shape=f"B={fd_train[0]} mid {fd_train[1]}x{fd_train[2]}x768 f32 (train)",
+                       max_abs_err=errs[("final_deconv_phase", fd_train)], **train_fd_t),
       decode_mpx_per_s=pixels / decode_ms / 1e3)]
   # Launches: this slice's main path is the training run of phase 6 (4 steps
   # and the final eval); fused_resblock's own path is the eval of image 0

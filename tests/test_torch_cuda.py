@@ -47,17 +47,26 @@ def test_build_names_the_missing_compiler(monkeypatch, tmp_path):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,h,w,dtype,k", [
-    (1, 32, 48, torch.float32, 5), (8, 32, 48, torch.bfloat16, 5),
-    (3, 5, 7, torch.float32, 5), (2, 3, 4, torch.float32, 7)])
-def test_final_deconv_kernel_matches_plain(cuda_device, b, h, w, dtype, k):
-  """f32 within 1e-4; bf16 within 2e-2 of max|y| (both round the output to bf16)."""
-  mid, kernel, bias = _inputs(b + h, b, h, w, cuda_device, dtype, k=k)
+@pytest.mark.parametrize("b,h,w,dtype,k,c_in,c_out", [
+    (1, 32, 48, torch.float32, 5, 12, 3), (8, 32, 48, torch.bfloat16, 5, 12, 3),
+    (3, 5, 7, torch.float32, 5, 12, 3), (2, 3, 4, torch.float32, 7, 12, 3),
+    (1, 1, 1, torch.bfloat16, 5, 12, 3), (2, 3, 9, torch.bfloat16, 7, 12, 3),
+    (1, 2, 11, torch.float32, 3, 12, 3), (2, 3, 5, torch.float32, 5, 5, 5),
+    (2, 3, 5, torch.bfloat16, 5, 5, 5), (1, 2, 10, torch.bfloat16, 3, 16, 8),
+    (3, 1, 17, torch.float32, 7, 16, 3), (2, 2, 9, torch.bfloat16, 5, 6, 4),
+    (1, 2, 9, torch.float32, 5, 6, 4), (8, 16, 16, torch.float32, 5, 12, 3)])
+def test_final_deconv_kernel_matches_plain(cuda_device, b, h, w, dtype, k, c_in, c_out):
+  """f32 within 1e-4; bf16 within 2e-2 of max|y| (both round the output to bf16).
+  The kernel's tiles are 8 phase columns of one phase row: W no multiple of
+  8 and W = 1, H = 1, B = 1; k = 3, 5 and 7 (7 reads two halo rows above and
+  two halo columns to the left); c_in 12, 5 (bf16 staged in 2-byte pieces),
+  6 and 16; c_out 3, 4, 5 and 8 (5 and 8 take two GEMM passes)."""
+  mid, kernel, bias = _inputs(b + h, b, h, w, cuda_device, dtype, k=k, c_in=c_in, c_out=c_out)
   launches = tl.STATS.launches
-  out = tl.final_deconv_cuda(mid, kernel, bias, 12)
+  out = tl.final_deconv_cuda(mid, kernel, bias, c_in)
   torch.cuda.synchronize()
   assert tl.STATS.launches == launches + 1
-  ref = tl.final_deconv_plain(mid, kernel, bias, 12)
+  ref = tl.final_deconv_plain(mid, kernel, bias, c_in)
   err = (out.float() - ref.float()).abs().max().item()
   scale = ref.float().abs().max().item()
   assert err <= (1e-4 if dtype == torch.float32 else 2e-2 * scale), (err, scale)
@@ -85,6 +94,9 @@ def test_final_deconv_kernel_refuses_what_it_does_not_take(cuda_device):
     tl.final_deconv_cuda(mid.transpose(1, 2), kernel, bias, 12)
   with pytest.raises(ValueError, match="kernel"):
     tl.final_deconv_cuda(mid, kernel[:, :, :6], bias, 12)
+  wide = torch.zeros(9, 9, 12, 3, device=cuda_device)
+  with pytest.raises(ValueError, match="k <= 7"):
+    tl.final_deconv_cuda(mid, wide, bias, 12)
 
 
 def _rb_params(seed, n, c, device):

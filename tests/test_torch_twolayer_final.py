@@ -7,9 +7,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from shallow_ntc_tpu.ops.pallas import twolayer_final as jax_tl
 from shallow_ntc_tpu_torch.models import transforms as T
+from shallow_ntc_tpu_torch.ops import fast_deconv as fd
 from shallow_ntc_tpu_torch.ops import twolayer_final as tl
 from tests.torch_parity import rand, to_numpy, to_torch
 
@@ -77,3 +79,40 @@ def test_kernel_wrapper_refuses_non_cuda_tensors():
   launches = tl.STATS.launches
   tl.final_deconv_phase(mid_p, kernel, bias, 12)  # CPU: the plain version, no launch
   assert tl.STATS.launches == launches
+
+
+def _quad_gemm(mid_p, kernel, bias, c_in):
+  """The GEMM the CUDA kernel runs, in torch: each mid pixel's neighbourhood
+  (X + d, Y + e), d and e in [d0, 1], its channels padded to 16, times the
+  weights folded by fold_index, then each row's 4 parities scattered to its
+  2x2 output quad."""
+  k, c_out = kernel.shape[0], kernel.shape[3]
+  d0, nd = tl.quad_taps(k)
+  mid = fd.depth_to_space(mid_p, tl.S1)
+  b, hm, wm, _ = mid.shape
+  mid = F.pad(mid, (0, tl.K_PAD - c_in, -d0, 1, -d0, 1))
+  rows = torch.stack([mid[:, dy:dy + hm, dx:dx + wm] for dy in range(nd) for dx in range(nd)],
+                     dim=3)
+  flat = F.pad(kernel.reshape(-1), (0, 1))  # the index past the kernel reads 0
+  wf = flat[tl.fold_index(k, c_in, c_out).long()]
+  quads = torch.einsum("bxytk,ctkn->bxycn", rows, wf)
+  quads = quads.reshape(b, hm, wm, wf.shape[0], tl.S2, tl.S2, tl.CO_CHUNK)
+  out = quads.permute(0, 1, 4, 2, 5, 3, 6).reshape(b, tl.S2 * hm, tl.S2 * wm, -1)
+  return out[..., :c_out] + bias
+
+
+@pytest.mark.parametrize("k,c_in,c_out", [(3, 12, 3), (5, 12, 3), (7, 12, 3), (5, 5, 5),
+                                          (7, 16, 8)])
+def test_kernel_weight_folding_matches_plain_and_jax(k, c_in, c_out):
+  """fold_index, checked where the CUDA kernel cannot run: the quad GEMM
+  against the plain version, and against the JAX Pallas kernel in interpret
+  mode, or at k=7 against the JAX dense reference (the Pallas kernel skips
+  the d=-2 taps there, ROADMAP queue 3)."""
+  mid_p, kernel, bias = _inputs(k + c_in + c_out, 2, 2, 3, c_in=c_in, c_out=c_out, k=k)
+  out = _quad_gemm(to_torch(mid_p), to_torch(kernel), to_torch(bias), c_in)
+  plain = tl.final_deconv_plain(to_torch(mid_p), to_torch(kernel), to_torch(bias), c_in)
+  jax_fn = jax_tl._reference_final_deconv if k == 7 else jax_tl.final_deconv_phase
+  ref = jax_fn(mid_p, kernel, bias, c_in)
+  assert out.shape == (2, 32, 48, c_out)
+  np.testing.assert_allclose(to_numpy(out), to_numpy(plain), atol=ATOL)
+  np.testing.assert_allclose(to_numpy(out), np.asarray(ref), atol=ATOL)
