@@ -140,12 +140,12 @@ def final_deconv_bound_ms(mid_p, out, kernel, dtype_name):
 def jpegl_bound_ms(z, out, kernel, dtype_name):
   """Least time for jpegl_synthesize on these inputs: bytes or operations.
 
-  Bytes: z read once, the image written once, the weights (in z's dtype)
-  and the float32 bias once. Operations: 2 C per output element.
+  Bytes: z read once, the image written once, the weights and bias once
+  (in z's dtype, as the model's). Operations: 2 C per output element.
   """
   k, _, c_in, c_out = kernel.shape
   n_bytes = (z.numel() * z.element_size() + out.numel() * out.element_size()
-             + kernel.numel() * z.element_size() + 4 * c_out)
+             + (kernel.numel() + c_out) * z.element_size())
   flops = 2 * c_in * out.numel()
   t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
   t_ops = flops / H100_PEAK_FLOPS[dtype_name] * 1e3
@@ -352,33 +352,41 @@ def main():
     check(g_err <= 1e-5, f"{name} gradients disagree")
 
   # jpegl_synthesize (B, H_l, W_l, C, k, dtype): JPEGL_K16's decode and eval
-  # shapes, the offset channel (C odd, with no bias) and k=8. Weights at the
-  # scale of a glorot init, asymmetric (a missed flip shows). A generator of
-  # its own, so that the phases before this slice draw their data as before.
+  # shapes, a ragged M at C=320 (B=1 3x5: fewer latent tiles than the bf16
+  # kernel's walkers) and 64-latent tiles that cross latent rows with a
+  # ragged last tile (B=2 3x48) in both dtypes, the offset channel (C odd,
+  # with no bias) and k=8. Weights and bias in z's dtype, as the model's
+  # parameters are, except the last three cases (float32, rounded by the
+  # wrapper). Weights at the scale of a glorot init, asymmetric (a missed
+  # flip shows). A generator of its own, so that the phases before this
+  # slice draw their data as before.
   jl_rng = np.random.default_rng(6)
 
-  def jpegl_inputs(b, hl, wl, c, k, dtype):
+  def jpegl_inputs(b, hl, wl, c, k, dtype, params=None):
     z = torch.from_numpy(jl_rng.normal(0, 3, (b, hl, wl, c)).astype(np.float32))
     kern = torch.from_numpy((jl_rng.normal(0, 0.1, (k, k, c, 3)) / np.sqrt(c / 32))
-                            .astype(np.float32)).to(dev)
-    bias = (torch.from_numpy(jl_rng.normal(0, 0.1, (3,)).astype(np.float32)).to(dev)
-            if c % 2 == 0 else None)
+                            .astype(np.float32)).to(dev, params or torch.float32)
+    bias = (torch.from_numpy(jl_rng.normal(0, 0.1, (3,)).astype(np.float32))
+            .to(dev, params or torch.float32) if c % 2 == 0 else None)
     return z.to(dev, dtype), kern, bias
 
-  jl_decode = (DECODE_BATCH, mh, mw, 320, 16, torch.bfloat16)
-  jl_eval = (1, mh, mw, 320, 16, torch.float32)
-  for case in (jl_decode, jl_eval, (3, 5, 7, 321, 16, torch.float32),
-               (3, 5, 7, 321, 16, torch.bfloat16), (2, 3, 5, 16, 8, torch.float32)):
+  jl_decode = (DECODE_BATCH, mh, mw, 320, 16, torch.bfloat16, torch.bfloat16)
+  jl_eval = (1, mh, mw, 320, 16, torch.float32, torch.float32)
+  jl_cases = [jl_decode, jl_eval]
+  for dtype in (torch.bfloat16, torch.float32):
+    jl_cases += [(1, 3, 5, 320, 16, dtype, dtype), (2, 3, mw, 320, 16, dtype, dtype)]
+  for case in jl_cases + [(3, 5, 7, 321, 16, torch.float32), (3, 5, 7, 321, 16, torch.bfloat16),
+                          (2, 3, 5, 16, 8, torch.float32)]:
     z, kern, bias = jpegl_inputs(*case)
     out = jd.jpegl_synthesize_cuda(z, kern, bias)
     ref = jd.jpegl_synthesize_plain(z, kern, bias)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
     scale = ref.float().abs().max().item()
-    tol = 1e-4 * max(1.0, scale) if case[-1] == torch.float32 else 1e-2 * scale
+    tol = 1e-4 * max(1.0, scale) if case[5] == torch.float32 else 1e-2 * scale
     log("kernels", f"jpegl_synthesize B={case[0]} {case[1]}x{case[2]} C={case[3]} k={case[4]} "
-        f"{case[5]}{'' if bias is not None else ' no bias'}: max|err| {err:.3e} "
-        f"(tol {tol:.3e}, max|y| {scale:.3f})")
+        f"{case[5]}, params {kern.dtype}{'' if bias is not None else ', no bias'}: "
+        f"max|err| {err:.3e} (tol {tol:.3e}, max|y| {scale:.3f})")
     check(out.shape == ref.shape and err <= tol, f"jpegl_synthesize disagrees: {err} > {tol}")
     errs[("jpegl_synthesize", case)] = err
   z, kern, bias = jpegl_inputs(1, 2, 3, 16, 8, torch.float32)
@@ -818,15 +826,16 @@ def main():
         f"jpegl_synthesize launches per decode: {jl_decode_launches}")
 
   def time_jpegl(case):
-    b, hl, wl, c, k, dtype = case
+    """The kernel with its weights and bias in z's type, as the model's
+    parameters are, so a call launches the kernel alone."""
+    b, hl, wl, c, k, dtype, _ = case
     z, kern, bias = jpegl_inputs(*case)
     out = jd.jpegl_synthesize_cuda(z, kern, bias)
     zn = z.permute(0, 3, 1, 2)  # NCHW view of the NHWC latents
-    weight = kern.flip(0, 1).permute(2, 3, 0, 1).to(dtype).contiguous()
-    lib_bias = bias.to(dtype)
+    weight = kern.flip(0, 1).permute(2, 3, 0, 1).contiguous()
 
     def lib():
-      return F.conv_transpose2d(zn, weight, lib_bias, stride=k)
+      return F.conv_transpose2d(zn, weight, bias, stride=k)
 
     lib_err = (lib().permute(0, 2, 3, 1).float() - out.float()).abs().max().item()
     ms = cuda_ms(torch, lambda: jd.jpegl_synthesize_cuda(z, kern, bias), host_ahead=True)
@@ -873,7 +882,7 @@ def main():
   kernels[1]["train_step_ms"] = train_step_ms
   # Launches: this slice's main path is the K16 eval of phase 8 (3 images);
   # times at the decode shape (B=8 bf16), the eval shape beside them. ms is
-  # the device time of the wrapper's launches (the weight copy and the kernel).
+  # the device time of the kernel alone: weights and bias in z's type.
   kernels.append(dict(
       name=jd.STATS.name, route="cuda", source="shallow_ntc_tpu_torch/csrc/jpegl_decode.cu",
       replaces="shallow_ntc_tpu/ops/pallas/jpegl_decode.py:75",

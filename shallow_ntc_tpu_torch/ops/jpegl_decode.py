@@ -12,8 +12,8 @@ ConvTranspose kernel [k, k, C, c_out]. It replaces
 shallow_ntc_tpu/ops/pallas/jpegl_decode.py:jpegl_synthesize.
 
 Rounding, as the Pallas kernel: the weights are rounded to z's dtype, the
-bias stays float32, products are summed in float32, and the output is
-rounded once to z's dtype.
+bias is added in float32 (a bfloat16 bias widened exactly), products are
+summed in float32, and the output is rounded once to z's dtype.
 
 On a CUDA tensor the forward pass launches the hand-written kernel of
 csrc/jpegl_decode.cu or raises; on a CPU tensor it runs the plain version,
@@ -37,7 +37,8 @@ _SYMBOLS = {torch.float32: "jpegl_synthesize_f32", torch.bfloat16: "jpegl_synthe
 
 def _kernel_fn(dtype):
   fn = getattr(cuda_build.load(SOURCE), _SYMBOLS[dtype])
-  fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+  fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 6
+                 + [ctypes.c_void_p])
   fn.restype = ctypes.c_int
   return fn
 
@@ -90,14 +91,17 @@ def jpegl_synthesize_cuda(z: torch.Tensor, kernel: torch.Tensor,
     raise ValueError("z, kernel and bias must be on one device")
   if strides is not None and strides != k:
     raise ValueError(f"the kernel computes kernel_size == strides only, got {k} and {strides}")
-  # The kernel reads the weights as [k, k, c_out, C] in z's dtype (one copy
-  # that swaps the last two axes and rounds); it does the double flip itself.
-  w = torch.empty((k, k, c_out, c_in), dtype=z.dtype, device=z.device)
-  w.copy_(kernel.detach().permute(0, 1, 3, 2))
-  b32 = None if bias is None else bias.detach().float().contiguous()
+  # The kernel reads the flax kernel as it is, in z's dtype, and the bias in
+  # float32 or bfloat16: with the model's parameters in z's dtype a call
+  # launches the kernel alone.
+  w = kernel.detach().to(z.dtype).contiguous()
+  if bias is not None:
+    bias = bias.detach()
+    bias = (bias if bias.dtype in _SYMBOLS else bias.float()).contiguous()
   out = torch.empty((b, hl * k, wl * k, c_out), dtype=z.dtype, device=z.device)
   stream = torch.cuda.current_stream(z.device).cuda_stream
-  rc = _kernel_fn(z.dtype)(z.data_ptr(), w.data_ptr(), None if b32 is None else b32.data_ptr(),
+  rc = _kernel_fn(z.dtype)(z.data_ptr(), w.data_ptr(), None if bias is None else bias.data_ptr(),
+                           int(bias is not None and bias.dtype == torch.bfloat16),
                            out.data_ptr(), b, hl, wl, c_in, c_out, k, stream)
   if rc != 0:
     raise RuntimeError(f"jpegl_synthesize kernel launch failed: CUDA error {rc}")

@@ -13,6 +13,7 @@ import json
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from shallow_ntc_tpu_torch.ops import cuda_build
 from shallow_ntc_tpu_torch.ops import jpegl_decode
@@ -185,26 +186,41 @@ def test_rb_chain_kernel_refuses_what_it_does_not_take(cuda_device):
                                     device=cuda_device), *wide)
 
 
-def _jpegl_inputs(seed, b, hl, wl, c_in, k, device, dtype, use_bias=True):
+def _jpegl_inputs(seed, b, hl, wl, c_in, k, device, dtype, use_bias=True,
+                  params=torch.float32):
   rng = np.random.default_rng(seed)
   z = torch.from_numpy(rng.normal(0, 3, (b, hl, wl, c_in)).astype(np.float32))
   kernel = torch.from_numpy(rng.normal(0, 0.1 / np.sqrt(c_in / 32), (k, k, c_in, 3))
                             .astype(np.float32))
   bias = torch.from_numpy(rng.normal(0, 0.1, (3,)).astype(np.float32)) if use_bias else None
-  return z.to(device, dtype), kernel.to(device), None if bias is None else bias.to(device)
+  return (z.to(device, dtype), kernel.to(device, params),
+          None if bias is None else bias.to(device, params))
+
+
+BF16, F32 = torch.bfloat16, torch.float32
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,hl,wl,c_in,k,dtype,use_bias", [
-    (8, 32, 48, 320, 16, torch.bfloat16, True), (1, 32, 48, 320, 16, torch.float32, True),
-    (3, 5, 7, 321, 16, torch.float32, False), (1, 3, 5, 16, 8, torch.float32, True),
-    (3, 5, 7, 321, 16, torch.bfloat16, False), (2, 3, 5, 40, 5, torch.bfloat16, True)])
-def test_jpegl_kernel_matches_plain(cuda_device, b, hl, wl, c_in, k, dtype, use_bias):
+@pytest.mark.parametrize("b,hl,wl,c_in,k,dtype,use_bias,params", [
+    (8, 32, 48, 320, 16, BF16, True, BF16), (1, 32, 48, 320, 16, F32, True, F32),
+    (8, 32, 48, 320, 16, BF16, True, F32), (1, 3, 5, 320, 16, BF16, True, BF16),
+    (1, 3, 5, 320, 16, F32, True, F32), (3, 5, 7, 320, 16, BF16, False, BF16),
+    (3, 5, 7, 320, 16, F32, False, F32), (2, 3, 48, 320, 16, BF16, True, BF16),
+    (2, 3, 48, 320, 16, F32, True, F32), (3, 5, 7, 321, 16, F32, False, F32),
+    (1, 3, 5, 16, 8, F32, True, F32), (1, 3, 5, 16, 8, BF16, True, BF16),
+    (3, 5, 7, 321, 16, BF16, False, F32), (2, 3, 5, 40, 5, BF16, True, F32),
+    (2, 3, 5, 40, 5, F32, True, F32), (2, 3, 5, 40, 16, BF16, True, BF16)])
+def test_jpegl_kernel_matches_plain(cuda_device, b, hl, wl, c_in, k, dtype, use_bias, params):
   """f32 within 1e-4 max(1, max|y|); bf16 within 1e-2 max|y| (both round an
-  f32 sum once). The decode and eval shapes, the offset channel (C odd: the
-  2-byte loads) with no bias, k=8, and k=5 (k c_out odd: single stores; C=40
-  ends in a partial channel stage)."""
-  z, kernel, bias = _jpegl_inputs(b + c_in, b, hl, wl, c_in, k, cuda_device, dtype, use_bias)
+  f32 sum once). The decode and eval shapes with the parameters in z's dtype
+  (the bf16 decode is the K16 kernel) and in float32; M no multiple of the
+  64-latent tile (B=1 3x5: fewer tiles than the K16 kernel's walkers; B=3
+  5x7), tiles that cross latent rows (W_l = 48, 5, 7), with and without
+  bias; the offset channel (C odd: 4-byte or 2-byte pieces) with no bias;
+  k=8 (C=16, one partial channel chunk) and k=5 (N = 75: a partial column
+  tile and single stores; C=40 ends in a partial chunk)."""
+  z, kernel, bias = _jpegl_inputs(b + c_in, b, hl, wl, c_in, k, cuda_device, dtype, use_bias,
+                                  params)
   launches = jpegl_decode.STATS.launches
   out = jpegl_decode.jpegl_synthesize(z, kernel, bias)
   torch.cuda.synchronize()
@@ -214,6 +230,37 @@ def test_jpegl_kernel_matches_plain(cuda_device, b, hl, wl, c_in, k, dtype, use_
   err = (out.float() - ref.float()).abs().max().item()
   scale = ref.float().abs().max().item()
   assert err <= (1e-4 * max(1.0, scale) if dtype == torch.float32 else 1e-2 * scale), (err, scale)
+
+
+@pytest.mark.gpu
+def test_jpegl_kernel_at_k16_takes_an_unaligned_kernel(cuda_device):
+  """A bf16 K16 kernel 2 bytes off 16-byte alignment takes the tiled route
+  (its whole-patch-row stores included) and agrees as the aligned one does."""
+  z, kernel, bias = _jpegl_inputs(7, 2, 3, 48, 320, 16, cuda_device, BF16, params=BF16)
+  buf = torch.empty(kernel.numel() + 1, dtype=BF16, device=cuda_device)
+  buf[1:] = kernel.flatten()
+  shifted = buf[1:].view(kernel.shape)
+  out = jpegl_decode.jpegl_synthesize(z, shifted, bias)
+  aligned = jpegl_decode.jpegl_synthesize(z, kernel, bias)
+  ref = jpegl_decode.jpegl_synthesize_plain(z, kernel, bias).float()
+  scale = ref.abs().max().item()
+  for o in (out, aligned):
+    assert (o.float() - ref).abs().max().item() <= 1e-2 * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [BF16, F32])
+def test_jpegl_call_launches_the_kernel_alone(cuda_device, dtype):
+  """With weights and bias in z's dtype, as the model's, a call launches one
+  CUDA kernel and nothing else (torch.profiler)."""
+  z, kernel, bias = _jpegl_inputs(3, 1, 4, 6, 320, 16, cuda_device, dtype, params=dtype)
+  jpegl_decode.jpegl_synthesize(z, kernel, bias)
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    jpegl_decode.jpegl_synthesize(z, kernel, bias)
+    torch.cuda.synchronize()
+  names = [e.key for e in prof.key_averages() if e.device_type.name == "CUDA"]
+  assert len(names) == 1 and "jpegl" in names[0], names
 
 
 @pytest.mark.gpu

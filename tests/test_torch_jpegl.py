@@ -99,6 +99,53 @@ def test_pack_weights_matches_jax():
     np.testing.assert_array_equal(to_numpy(rows_t), np.asarray(rows_j))
 
 
+def _kernel_index_synthesize(z, kernel, bias):
+  """jpegl_synthesize by the CUDA kernels' index arithmetic, in numpy.
+
+  Wt[n, c] is gathered from the flat flax kernel twice: as the tiled kernel
+  does (w_base: kernel[k-1-r, k-1-rc, c, co]) and as the K16 kernel stages
+  its slices (4 patch rows each; 48-byte units of 8 channels x 3 outputs at
+  ((kr k + kcol) C + 8 c8) 3, kr = k-1-r, deinterleaved into rows
+  n = 48 rl + 3 (k-1-kcol) + co); output (m, n) is scattered to out_offset.
+  """
+  b, hl, wl, c_in = z.shape
+  k, c_out = kernel.shape[0], kernel.shape[3]
+  kc, n_cols, flat = k * c_out, k * k * c_out, kernel.reshape(-1)
+  n = np.arange(n_cols)
+  r, j = n // kc, n % kc
+  w_base = ((k - 1 - r) * k + (k - 1 - j // c_out)) * c_in * c_out + j % c_out
+  wt = flat[w_base[:, None] + np.arange(c_in)[None, :] * c_out]
+  wt_k16 = np.full_like(wt, np.nan)
+  for sl in range(k // 4):
+    for rl in range(4):
+      for kcol in range(k):
+        for c8 in range(c_in // 8):
+          kr = k - 1 - (4 * sl + rl)
+          unit = flat[((kr * k + kcol) * c_in + 8 * c8) * 3:][:24]
+          for co in range(3):
+            wt_k16[4 * kc * sl + kc * rl + 3 * (k - 1 - kcol) + co, 8 * c8:8 * c8 + 8] = unit[co::3]
+  np.testing.assert_array_equal(wt_k16, wt)
+  m = np.arange(b * hl * wl)
+  row, w_l = m // wl, m % wl
+  offset = (((row[:, None] * k + r[None, :]) * wl + w_l[:, None]) * kc + j[None, :])
+  out = np.zeros(b * hl * k * wl * k * c_out, np.float32)
+  out[offset] = z.reshape(-1, c_in) @ wt.T + (0 if bias is None else bias[n % c_out])
+  return out.reshape(b, hl * k, wl * k, c_out), wt
+
+
+@pytest.mark.parametrize("k,c_in,shape", [(16, 320, (1, 3, 5)), (8, 16, (2, 2, 3))])
+def test_kernel_index_arithmetic_matches_pack_weights_and_pallas(k, c_in, shape):
+  """The kernels' weight gathers equal pack_weights' rows (exactly), and the
+  GEMM scattered by their output offsets equals the Pallas kernel in
+  interpret mode (atol 1e-4, as tests/test_pallas.py)."""
+  z, kernel, bias = _op_inputs(k, c_in, shape, seed=k)
+  out, wt = _kernel_index_synthesize(z, kernel, bias)
+  w_packed, _ = jpegl_decode.pack_weights(to_torch(kernel), to_torch(bias))
+  np.testing.assert_array_equal(wt, to_numpy(w_packed).transpose(0, 2, 1).reshape(-1, c_in))
+  ref = np.asarray(jd.jpegl_synthesize(jnp.asarray(z), jnp.asarray(kernel), jnp.asarray(bias)))
+  np.testing.assert_allclose(out, ref, atol=1e-4)
+
+
 def test_backward_raises_as_jax_cannot_differentiate_either():
   z, kernel, bias = _op_inputs(8, 16, (1, 2, 2))
   zt = to_torch(z).requires_grad_(True)
