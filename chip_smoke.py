@@ -5,7 +5,8 @@
 
 Phases, one flushed line each with its seconds (TF32 off throughout):
   1. build     nvcc builds every CUDA kernel of the main paths (csrc/*.cu),
-               one process per source, all started together.
+               one process per source, and g++ the codec's rANS coder
+               (codec/rans.cc), all started together.
   2. device    the card's name, and its name and power limit from nvidia-smi.
   3. kernels   each kernel against its plain PyTorch version on the card, at
                the main paths' shapes plus odd ones, f32 and bf16, and its
@@ -22,23 +23,33 @@ Phases, one flushed line each with its seconds (TF32 off throughout):
                192x256 crop with the same weights: latents and prior logits
                to float tolerance, then the rest of the path from the same
                latents (latent rate, PSNR, reconstruction).
-  6. train     the train entry point (train_lib.train_and_eval, as the CLI
+  6. codec     real bitstreams (shallow_ntc_tpu_torch.codec) of the flagship,
+               float32, the seeded weights of phase 4: compress -> decompress
+               of two 512x768 images and a 500x740 one, bit-exact, the decoded
+               latent equal to the eval path's; compress and decompress in two
+               processes through the CLI; the batch paths against the
+               per-image path; one compress with SNTC_FUSED_RB_CHAIN=1; GPU
+               encode -> CPU decode (reported); times of compress and
+               decompress split into device legs and host rANS; then a
+               JPEGL_K16 round trip (jpegl_synthesize). Launch counts are
+               zeroed before each call and read after it.
+  7. train     the train entry point (train_lib.train_and_eval, as the CLI
                calls it) on the flagship config: B=8 256x256 f32, synthetic
                crops, SNTC_FUSED_RB_CHAIN=1, a few steps and the final eval;
                losses finite, params moved, the chain kernel 7 times per
                forward, a checkpoint restored equal to the live state.
-  7. train-reference  one full-width train step on the card (kernels)
+  8. train-reference  one full-width train step on the card (kernels)
                against the port's CPU step (plain versions), B=2 64x64, same
                params, batch and noise: loss, metrics and every gradient.
-  8. eval-jpegl  the JPEG-like model at full width (ELIC 192/192/192/320),
+  9. eval-jpegl  the JPEG-like model at full width (ELIC 192/192/192/320),
                seeded weights, three 512x768 f32 images each: jpegl_rd (k18,
                the paper's decoder, a cuDNN transposed conv) and JPEGL_K16
                (k16, through jpegl_synthesize); then K16 on the card against
                the port's CPU eval on a 192x256 crop, as in phase 5.
-  9. train-jpegl  2 steps of jpegl_rd through train_lib.train_and_eval at
+ 10. train-jpegl  2 steps of jpegl_rd through train_lib.train_and_eval at
                B=8 256x256 f32 with SNTC_FUSED_RB_CHAIN=1: losses finite,
                params moved, no jpegl_synthesize launch (k18).
- 10. timing    the train step with the chain kernel on and off; the chain at
+ 11. timing    the train step with the chain kernel on and off; the chain at
                each train stage; the B=8 bf16
                decode in Mpx/s of the flagship, jpegl_rd and JPEGL_K16; each
                kernel, its plain version and (where one exists) one PyTorch
@@ -187,6 +198,267 @@ class switch_on:
       os.environ[self.name] = self.old
 
 
+def eval_y_hat(model, x, z=None, frozen_offset=None):
+  """(y_hat, metrics) of the eval path (frame_loss, training=False) on image x
+  (a device tensor), y_hat caught at the synthesis; z, when given, replaces
+  the analysis's z."""
+  import torch
+  from shallow_ntc_tpu_torch.latents import LatentRVCollection, UQLatentRV
+
+  caught = []
+  with torch.no_grad():
+    latents = model.infer_latent_rvs(x)
+    if z is not None:
+      latents = LatentRVCollection(uq=(UQLatentRV(loc=z), latents.uq[1]))
+    synthesize = model.synthesize
+    model.synthesize = lambda y_hat: caught.append(y_hat) or synthesize(y_hat)
+    try:
+      _, metrics, _ = model.frame_loss_given_latent_rvs(x, latents, training=False,
+                                                        frozen_offset=frozen_offset)
+    finally:
+      del model.synthesize
+  return caught[0].cpu().numpy(), {k: float(v) for k, v in metrics.items()}
+
+
+def timed_compress(codec, x):
+  """codec.compress(x) step by step: (blob, seconds in the device legs, in
+  the host's symbol arithmetic and rANS). A device leg is dispatch, kernels
+  and the copy back, timed to the host's wait for its result."""
+  h, w = x.shape[1], x.shape[2]
+  t0 = time.perf_counter()
+  z, y = codec._fetch(*codec._analyze(x))()
+  t1 = time.perf_counter()
+  z_chunks, z_hat = codec._encode_z_host(z)
+  t2 = time.perf_counter()
+  mu, idx = codec._fetch(*codec._hyper_dec(z_hat))()
+  t3 = time.perf_counter()
+  blob, y_hat = codec._encode_y_host(z_chunks, y, mu, idx, h, w)
+  t4 = time.perf_counter()
+  codec._reconstruct(y_hat, h, w)
+  t5 = time.perf_counter()
+  return blob, (t1 - t0) + (t3 - t2) + (t5 - t4), (t2 - t1) + (t4 - t3)
+
+
+def timed_decompress(codec, blob):
+  """codec.decompress(blob) step by step: (image, device-leg seconds, host
+  rANS seconds), as timed_compress."""
+  t0 = time.perf_counter()
+  h, w, z_hat, y_chunks = codec._decode_z_host(blob)
+  t1 = time.perf_counter()
+  mu, idx = codec._fetch(*codec._hyper_dec(z_hat))()
+  t2 = time.perf_counter()
+  y_hat = codec._decode_y_host(y_chunks, mu, idx)
+  t3 = time.perf_counter()
+  rec = codec._reconstruct(y_hat, h, w)
+  t4 = time.perf_counter()
+  return rec, (t2 - t1) + (t4 - t3), (t1 - t0) + (t3 - t2)
+
+
+def codec_phase(model, model_cpu, images, zero_counts, read_counts, smi):
+  """Phase 6: compress -> decompress of the flagship (float32, full width,
+  seeded) on two 512x768 images and a 500x740 one, and of JPEGL_K16 on one;
+  the decoded latent against the eval path's; compress and decompress in two
+  processes through the CLI; the batch paths against the per-image path;
+  one compress with the chain kernel; a GPU encode decoded on the CPU
+  (reported); times. Returns the launch counts of the codec path."""
+  import torch
+  from shallow_ntc_tpu_torch import configs, eval_lib
+  from shallow_ntc_tpu_torch.codec import api as codec_api
+  from shallow_ntc_tpu_torch.models import base as models_base
+  from shallow_ntc_tpu_torch.ops import jpegl_decode as jd
+  from shallow_ntc_tpu_torch.ops import rb_chain as rb
+  from shallow_ntc_tpu_torch.ops import twolayer_final as tl
+
+  dev = next(model.parameters()).device
+
+  phase = "codec"
+  t = time.time()
+  zero_counts()
+  codec = codec_api.make_codec(model)
+  table_s = time.time() - t
+  offset = model.prior_quantization_offset().cpu().numpy()
+  log(phase, f"flagship tables built in {table_s:.3f}s (factorized {codec.z_tables.channels} "
+      f"channels, Gaussian {codec.y_tables.tables.num_tables} scales); the offset equals the "
+      f"eval path's: {np.array_equal(offset, codec.z_tables.offset)}  [{smi}]")
+  check(np.array_equal(offset, codec.z_tables.offset),
+        "the codec's factorized offset differs from the eval path's")
+
+  xs = [images[0], images[1], images[2][:500, :740]]
+  counts = {"compress": [], "decompress": []}
+  results, gaps = [], []
+  for i, x in enumerate(xs):
+    h, w = x.shape[:2]
+    zero_counts()
+    result = codec.compress(x)
+    counts["compress"].append(read_counts())
+    zero_counts()
+    rec = codec.decompress(result.bitstring)
+    counts["decompress"].append(read_counts())
+    results.append(result)
+    exact = (rec.dtype == np.uint8 and rec.shape == (h, w, 3)
+             and np.array_equal(rec, result.reconstruction))
+    # The decoded latent against the eval path's, run under the codec's
+    # numerics from the encoder's latents (z on its coding grid, as the
+    # decoder rebuilds it): equal exactly. From the analysis's own z the
+    # eval's straight-through round lands an ulp off k + o in some elements,
+    # and y_hat moves by an ulp there: reported.
+    _, _, y_hat = codec.decode_latent(result.bitstring)
+    x_dev = torch.from_numpy(x[None]).to(dev)
+    z, _ = codec._fetch(*codec._analyze(x[None]))()
+    z_grid = codec.z_tables.latent_from_symbols(codec.z_tables.symbols_from_latent(z))
+    with codec_api.coding_numerics():
+      y_eval, metrics = eval_y_hat(model, x_dev, torch.from_numpy(z_grid).to(dev),
+                                   frozen_offset=torch.from_numpy(offset).to(dev))
+      y_raw, _ = eval_y_hat(model, x_dev, frozen_offset=torch.from_numpy(offset).to(dev))
+    gaps.append((result.bpp, metrics["bpp"]))
+    log(phase, f"flagship {h}x{w}: {len(result.bitstring)} bytes, bpp {result.bpp:.5f} against "
+        f"the likelihood's {metrics['bpp']:.5f} (gap {result.bpp / metrics['bpp'] - 1:+.4%}); "
+        f"streams {codec_api.stream_counts(result.bitstring)}; decoder's image bit-exact: "
+        f"{exact}; decoded y_hat equals the eval path's from the encoder's latents: "
+        f"{np.array_equal(y_eval, y_hat)}, from the analysis's z: {np.mean(y_raw == y_hat):.6f} "
+        f"equal, max|diff| {np.abs(y_raw - y_hat).max():.3e}; launches compress "
+        f"{counts['compress'][-1]}, decompress {counts['decompress'][-1]}")
+    check(exact, f"flagship {h}x{w}: the decoder's image differs from the encoder's")
+    check(np.array_equal(y_eval, y_hat), f"flagship {h}x{w}: the decoded y_hat differs from the "
+          "eval path's")
+    check(counts["decompress"][-1][tl.STATS.name] >= 1,
+          "a decompress did not launch final_deconv_phase")
+
+  # Compress in one process and decompress in another, through the CLI, on
+  # the same seeded weights; against this process's codec.
+  raw = np.round((images[0] + 0.5) * 255.0).astype(np.uint8)
+  x_cli = models_base.normalize_image(raw.astype(np.float32))
+  root = os.path.dirname(os.path.abspath(__file__))
+  with tempfile.TemporaryDirectory(prefix="chip_smoke_codec_") as tmp:
+    np.save(os.path.join(tmp, "img.npy"), raw)
+    t = time.time()
+    for argv in (["compress", "--input", "img.npy", "--output", "img.sntc"],
+                 ["decompress", "--input", "img.sntc", "--output", "rec.npy"]):
+      proc = subprocess.run([sys.executable, "-m", "shallow_ntc_tpu_torch.compress", *argv,
+                             "--init_seed", "0", "--device", dev.type], cwd=tmp, capture_output=True, text=True,
+                            timeout=300, env=dict(os.environ, PYTHONPATH=root))
+      check(proc.returncode == 0, f"the compress CLI failed: {proc.stderr[-2000:]}")
+      log(phase, f"CLI {argv[0]}: {proc.stdout.strip()}")
+    with open(os.path.join(tmp, "img.sntc"), "rb") as f:
+      cli_blob = f.read()
+    cli_rec = np.load(os.path.join(tmp, "rec.npy"))
+  ref = codec.compress(x_cli)
+  same = cli_blob == ref.bitstring and np.array_equal(cli_rec, ref.reconstruction)
+  log(phase, f"compress and decompress in two processes (CLI, {time.time() - t:.1f}s): bytes "
+      f"and image equal to this process's: {same}")
+  check(same, "the CLI's two processes disagree with the in-process codec")
+
+  # The batch paths against the per-image path.
+  t = time.time()
+  batch = codec.compress_batch(xs, reconstruct=True)
+  batch_c_s = time.time() - t
+  blobs = [r.bitstring for r in results]
+  t = time.time()
+  strict = codec.decompress_batch(blobs, strict=True)
+  t1 = time.time()
+  loose = codec.decompress_batch(blobs)
+  batch_d_s = time.time() - t1
+  diffs = [int(np.abs(b.reconstruction.astype(int) - r.reconstruction).max())
+           for b, r in zip(batch, results)]
+  loose_diffs = [int(np.abs(d.astype(int) - r.reconstruction).max())
+                 for d, r in zip(loose, results)]
+  held = ([b.bitstring for b in batch] == blobs and max(diffs + loose_diffs) <= 1
+          and all(np.array_equal(d, r.reconstruction) for d, r in zip(strict, results)))
+  log(phase, f"batch paths on the 3 images: bitstreams equal {[b.bitstring for b in batch] == blobs}"
+      f", reconstructions max|diff| {diffs} (tol 1), decompress_batch strict equal "
+      f"{all(np.array_equal(d, r.reconstruction) for d, r in zip(strict, results))}, loose "
+      f"max|diff| {loose_diffs} (tol 1); compress_batch {batch_c_s:.3f}s, decompress_batch "
+      f"{batch_d_s:.3f}s (strict {t1 - t:.3f}s)")
+  check(held, "the batch paths disagree with the per-image path")
+
+  # One compress with the residual blocks as the chain kernel.
+  with switch_on("SNTC_FUSED_RB_CHAIN"):
+    zero_counts()
+    chain = codec.compress(xs[0])
+    chain_counts = read_counts()
+  exact = np.array_equal(codec.decompress(chain.bitstring), chain.reconstruction)
+  log(phase, f"compress with SNTC_FUSED_RB_CHAIN=1: {len(chain.bitstring)} bytes (cuDNN route "
+      f"{len(results[0].bitstring)}), launches {chain_counts}; decodes bit-exact: {exact}")
+  check(chain_counts[rb.STATS.name] == CHAINS_PER_FORWARD and exact,
+        f"the chain compress launched {chain_counts} or decoded otherwise")
+
+  # GPU encode, CPU decode: reported, not held (the factorized tables and
+  # mu may differ in the last bit across devices; PERF_NOTES.md).
+  t = time.time()
+  codec_cpu = codec_api.make_codec(model_cpu)
+  zt_gpu, zt_cpu = codec.z_tables, codec_cpu.z_tables
+  if np.array_equal(zt_gpu.tables.sizes, zt_cpu.tables.sizes):
+    cdf_diff = np.abs(zt_gpu.tables.cdfs.astype(np.int64) - zt_cpu.tables.cdfs.astype(np.int64))
+    tables_diff = (f"{np.count_nonzero(cdf_diff)} of {cdf_diff.size} CDF entries differ (max "
+                   f"{cdf_diff.max()} of 65536)")
+  else:
+    tables_diff = "the table sizes differ"
+  offsets_diff = float(np.abs(zt_gpu.offset - zt_cpu.offset).max())
+  try:
+    z_cpu = codec_cpu._decode_z_host(results[0].bitstring)[2]
+    z_gpu = codec._decode_z_host(results[0].bitstring)[2]
+    rec_cpu = codec_cpu.decompress(results[0].bitstring)
+    interop = (f"bit-exact {np.array_equal(rec_cpu, results[0].reconstruction)}, "
+               f"{np.mean(rec_cpu == results[0].reconstruction):.6f} of image values and "
+               f"{np.mean(z_cpu == z_gpu):.6f} of z_hat equal")
+  except RuntimeError as e:  # a desynchronized stream may fail to decode
+    interop = f"decode failed ({e})"
+  log(phase, f"GPU encode -> CPU decode of image 0 (reported): {interop}; factorized tables "
+      f"across devices: {tables_diff}, offsets max|diff| {offsets_diff:.3e}; "
+      f"{time.time() - t:.1f}s")
+
+  # Times at 512x768 after a warm-up: each call, and its parts.
+  reps = 10
+  for _ in range(2):
+    codec.decompress(codec.compress(xs[0]).bitstring)
+  c_parts = [timed_compress(codec, xs[0][None]) for _ in range(reps)]
+  d_parts = [timed_decompress(codec, blobs[0]) for _ in range(reps)]
+  check(all(p[0] == blobs[0] for p in c_parts)
+        and all(np.array_equal(p[0], results[0].reconstruction) for p in d_parts),
+        "the timed steps differ from compress / decompress")
+  t = time.perf_counter()
+  for _ in range(reps):
+    codec.compress(xs[0])
+  c_ms = (time.perf_counter() - t) / reps * 1e3
+  t = time.perf_counter()
+  for _ in range(reps):
+    codec.decompress(blobs[0])
+  d_ms = (time.perf_counter() - t) / reps * 1e3
+  timing = dict(
+      compress_ms=c_ms, decompress_ms=d_ms,
+      compress_device_ms=float(np.mean([p[1] for p in c_parts])) * 1e3,
+      compress_host_rans_ms=float(np.mean([p[2] for p in c_parts])) * 1e3,
+      decompress_device_ms=float(np.mean([p[1] for p in d_parts])) * 1e3,
+      decompress_host_rans_ms=float(np.mean([p[2] for p in d_parts])) * 1e3,
+      table_build_s=table_s)
+  log(phase, f"flagship 512x768, mean of {reps} after a warm-up: compress {c_ms:.2f} ms (device "
+      f"legs {timing['compress_device_ms']:.2f}, host rANS {timing['compress_host_rans_ms']:.2f}),"
+      f" decompress {d_ms:.2f} ms (device legs {timing['decompress_device_ms']:.2f}, host rANS "
+      f"{timing['decompress_host_rans_ms']:.2f}); tables {table_s:.3f}s; bpp against likelihood "
+      + ", ".join(f"{a:.5f}/{b:.5f}" for a, b in gaps) + f"  [{smi}]")
+
+  # JPEGL_K16: the same codec on the JPEG-like model, through jpegl_synthesize.
+  m16 = eval_lib.build_model(configs.JPEGL_K16, init_seed=0, device=dev)
+  codec16 = codec_api.make_codec(m16)
+  zero_counts()
+  r16 = codec16.compress(xs[0])
+  k16_compress = read_counts()
+  zero_counts()
+  rec16 = codec16.decompress(r16.bitstring)
+  k16_decompress = read_counts()
+  exact = np.array_equal(rec16, r16.reconstruction)
+  log(phase, f"JPEGL_K16 512x768: {len(r16.bitstring)} bytes, bpp {r16.bpp:.5f}; bit-exact "
+      f"{exact}; launches compress {k16_compress}, decompress {k16_decompress}")
+  check(exact, "JPEGL_K16: the decoder's image differs from the encoder's")
+  check(k16_decompress[jd.STATS.name] >= 1, "the K16 decompress did not launch jpegl_synthesize")
+  summary = dict(flagship_compress=counts["compress"][0],
+                 flagship_decompress=counts["decompress"][0], chain_compress=chain_counts,
+                 k16_compress=k16_compress, k16_decompress=k16_decompress, timing=timing,
+                 bpp_vs_likelihood=[list(g) for g in gaps], gpu_to_cpu=interop, nvidia_smi=smi)
+  log(phase, "summary " + json.dumps(summary))
+  return summary
+
+
 def main():
   import torch
   if not torch.cuda.is_available():
@@ -194,6 +466,7 @@ def main():
     return 1
   try:
     from shallow_ntc_tpu_torch import configs, eval_lib, train_lib
+    from shallow_ntc_tpu_torch.codec import bindings as rans
     from shallow_ntc_tpu_torch.latents import LatentRVCollection, UQLatentRV
     from shallow_ntc_tpu_torch.ops import cuda_build
     from shallow_ntc_tpu_torch.ops import fast_deconv as fd
@@ -209,11 +482,14 @@ def main():
   # --- 1. build ------------------------------------------------------------
   t = time.time()
   sources = sorted({tl.SOURCE, rb.SOURCE, resblock.SOURCE, jd.SOURCE})
-  with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+  with concurrent.futures.ThreadPoolExecutor(len(sources) + 1) as pool:
+    librans = pool.submit(rans.build)
     built = list(pool.map(cuda_build.build, sources))
-  for source, so in zip(sources, built):
+    built.append(librans.result())
+  for source, so in zip(sources + ["codec/rans.cc (g++)"], built):
     log("build", f"{source} -> {so}")
-  log("build", f"{len(sources)} sources built in parallel in {time.time() - t:.1f}s")
+  log("build", f"{len(sources)} CUDA sources and the rANS coder built in parallel in "
+      f"{time.time() - t:.1f}s")
   stats = (tl.STATS, rb.STATS, resblock.STATS, jd.STATS)
 
   def zero_counts():
@@ -276,6 +552,25 @@ def main():
         f"max|err| {err:.3e} (tol {tol:.3e}, max|y| {scale:.3f})")
     check(out.shape == ref.shape and err <= tol, f"final_deconv_phase disagrees: {err} > {tol}")
     errs[("final_deconv_phase", case)] = err
+  # bfloat16 mid with float32 weights and a float32 bias off the bfloat16
+  # grid, at the decode shape: kernel and plain version both add the bias in
+  # float32 before the one rounding (rounding it first moves ~30% of the
+  # outputs by an ulp). mid is scaled by 0.05, so every output lies near its
+  # bias, away from 0, where one ulp is no bound on a sum's rounding. A
+  # generator of its own.
+  fb_rng = np.random.default_rng(12)
+  mid = torch.from_numpy(fb_rng.standard_normal((DECODE_BATCH, mh, mw, 768), np.float32) * 0.05)
+  kern = torch.from_numpy(fb_rng.standard_normal((5, 5, 12, 3), np.float32) * 0.1).to(dev)
+  mid = mid.to(dev, torch.bfloat16)
+  bias = torch.tensor([1 + 3 * 2**-10, -2 + 5 * 2**-9, 0.5 + 2**-11], device=dev)
+  out = tl.final_deconv_cuda(mid, kern, bias, 12).float()
+  ref = tl.final_deconv_plain(mid, kern, bias, 12).float()
+  ulp = torch.exp2(torch.floor(torch.log2(ref.abs())) - 7)
+  same = (out == ref).float().mean().item()
+  within = ((out - ref).abs() <= ulp).all().item()
+  log("kernels", f"final_deconv_phase B={DECODE_BATCH} {mh}x{mw} bf16 mid, float32 weights and "
+      f"bias: {same:.6f} of outputs equal (tol 0.99), all within one bf16 ulp: {within}")
+  check(same >= 0.99 and within, "final_deconv_phase adds a float32 bias otherwise than plain")
   mid, kern, bias = final_inputs(2, 3, 4, torch.float32)
   cot = torch.randn(2, 48, 64, 3, device=dev)
   grads = []
@@ -437,6 +732,27 @@ def main():
   log("eval", "seconds per image (the first includes cuDNN warm-up): "
       + ", ".join(f"{x:.4f}" for x in image_s)
       + f"; final_deconv_phase launches: eval {eval_launches}, eval+decode {launches}")
+  # The eval pass computes the prior's offset once (evaluate_images); the
+  # path before it recomputed the 60-step bisection for every image
+  # (end_to_end_frame_loss). Both on the same 3 images, warm, in turns.
+  def old_path():
+    for img in images:
+      with torch.no_grad():
+        _, m, _ = model.end_to_end_frame_loss(torch.from_numpy(img[None]).to(dev))
+      {k: float(v) for k, v in m.items()}
+
+  eval_ways = {"once per pass": [], "per image": []}
+  for way in ("once per pass", "per image", "per image", "once per pass"):
+    t = time.time()
+    if way == "once per pass":
+      list(eval_lib.evaluate_images(model, images))
+    else:
+      old_path()
+    torch.cuda.synchronize()
+    eval_ways[way].append((time.time() - t) / len(images) * 1e3)
+  log("eval", "ms per image over 3 images, the prior offset "
+      + "; ".join(f"{k}: {' / '.join(f'{x:.3f}' for x in v)}" for k, v in eval_ways.items())
+      + f"  [{smi}]")
   check(all(np.isfinite(r[k]) for r in records for k in ("bpp", "psnr", "msssim", "rd_loss")),
         "eval metrics not finite")
   check(eval_launches >= 3, f"eval launched final_deconv_phase {eval_launches} times, not >= 3")
@@ -545,7 +861,10 @@ def main():
   model_cpu = eval_lib.build_model(configs.TWO_LAYER_SYN_RD, init_seed=0, device="cpu")
   reference("reference", model, model_cpu)
 
-  # --- 6. train: the flagship's training through its entry point ---------
+  # --- 6. codec: real bitstreams of the flagship and of JPEGL_K16 ---------
+  codec_counts = codec_phase(model, model_cpu, images, zero_counts, read_counts, smi)
+
+  # --- 7. train: the flagship's training through its entry point ---------
   del model, model_cpu
   train_cfg = copy.deepcopy(configs.TRAIN_CONFIGS["two_layer_syn_rd"])
   train_cfg["train_eval_config"]["log_metrics_every_steps"] = 1
@@ -599,7 +918,7 @@ def main():
     check(same, "the restored checkpoint differs from the live state")
   del state, restored, init_model
 
-  # --- 7. train-reference: the GPU train step against the CPU one ----------
+  # --- 8. train-reference: the GPU train step against the CPU one ----------
   t = time.time()
   ref_models = {d: train_lib.build_model(train_cfg["model_config"], init_seed=0, device=d)[0]
                 for d in ("cuda", "cpu")}
@@ -652,7 +971,7 @@ def main():
   check(not failures, f"the GPU train step disagrees with the CPU one: {failures[:8]}")
   del ref_models
 
-  # --- 8. eval-jpegl: the JPEG-like model, k18 (cuDNN) and K16 (the kernel) --
+  # --- 9. eval-jpegl: the JPEG-like model, k18 (cuDNN) and K16 (the kernel) --
   jpegl = {}
   for name, cfg in (("jpegl_rd", configs.JPEGL_RD), ("JPEGL_K16", configs.JPEGL_K16)):
     m = eval_lib.build_model(cfg, init_seed=0, device="cuda")
@@ -676,7 +995,7 @@ def main():
   jpegl_eval_launches = jpegl["JPEGL_K16"][2][jd.STATS.name]
   del jpegl, k16_cpu
 
-  # --- 9. train-jpegl: jpegl_rd's training through its entry point -------
+  # --- 10. train-jpegl: jpegl_rd's training through its entry point -------
   jl_cfg = copy.deepcopy(configs.TRAIN_CONFIGS["jpegl_rd"])
   jl_cfg["train_eval_config"]["log_metrics_every_steps"] = 1
   with tempfile.TemporaryDirectory(prefix="chip_smoke_train_jpegl_") as workdir:
@@ -710,7 +1029,7 @@ def main():
   check(not unmoved, f"jpegl_rd parameters did not move: {unmoved[:5]}")
   del state, jl_init
 
-  # --- 10. timing -----------------------------------------------------------
+  # --- 11. timing -----------------------------------------------------------
   # The full-width train step, chain kernel off and on, in turns (off, on,
   # on, off), each the mean of 8 steps by CUDA events after 2 warm-up steps.
   t_model, _ = train_lib.build_model(train_cfg["model_config"], init_seed=0, device="cuda")
@@ -852,11 +1171,15 @@ def main():
 
   jl_decode_t = time_jpegl(jl_decode)
   jl_eval_t = time_jpegl(jl_eval)
+  codec_fd = sum(codec_counts[k][tl.STATS.name]
+                 for k in ("flagship_compress", "flagship_decompress"))
+  codec_k16 = sum(codec_counts[k][jd.STATS.name] for k in ("k16_compress", "k16_decompress"))
   kernels = [dict(
       name=tl.STATS.name, route="cuda",
       source="shallow_ntc_tpu_torch/csrc/final_deconv.cu",
       replaces="shallow_ntc_tpu/ops/pallas/twolayer_final.py:273",
-      launches=train_counts[tl.STATS.name], max_abs_err=errs[("final_deconv_phase", cases[1])],
+      launches=codec_fd, path="codec: compress + decompress of image 0",
+      max_abs_err=errs[("final_deconv_phase", cases[1])],
       **decode_t,
       shape=f"B={DECODE_BATCH} mid {mh}x{mw}x768 bf16 (decode)",
       eval_shape=dict(shape=f"B=1 mid {mh}x{mw}x768 f32 (eval)",
@@ -864,15 +1187,22 @@ def main():
       train_shape=dict(shape=f"B={fd_train[0]} mid {fd_train[1]}x{fd_train[2]}x768 f32 (train)",
                        max_abs_err=errs[("final_deconv_phase", fd_train)], **train_fd_t),
       decode_mpx_per_s=pixels / decode_ms / 1e3)]
-  # Launches: this slice's main path is the training run of phase 6 (4 steps
-  # and the final eval); fused_resblock's own path is the eval of image 0
-  # with SNTC_FUSED_RESBLOCK=1 (phase 4). Times are at train stage 1 in f32.
-  kernels[0]["launches_by_path"] = {"eval+decode": launches,
+  # Launches: this slice's main path is the codec (phase 6): one compress and
+  # one decompress of image 0, the chain in a compress with
+  # SNTC_FUSED_RB_CHAIN=1, jpegl_synthesize in the JPEGL_K16 round trip. The
+  # earlier slices' paths beside them: the training run of phase 7 (4 steps
+  # and the final eval), the eval of image 0 with SNTC_FUSED_RESBLOCK=1
+  # (fused_resblock's own path, phase 4), the K16 eval of phase 9. The
+  # chain's times are at train stage 1 in f32.
+  kernels[0]["launches_by_path"] = {"codec": codec_fd, "eval+decode": launches,
                                     "train": train_counts[tl.STATS.name]}
   kernels.append(dict(
       name=rb.STATS.name, route="cuda", source="shallow_ntc_tpu_torch/csrc/rb_chain.cu",
       replaces="shallow_ntc_tpu/ops/pallas/rb_chain.py:263",
-      launches=train_counts[rb.STATS.name], path="train",
+      launches=codec_counts["chain_compress"][rb.STATS.name],
+      path="codec: compress with SNTC_FUSED_RB_CHAIN=1",
+      launches_by_path={"codec": codec_counts["chain_compress"][rb.STATS.name],
+                        "train": train_counts[rb.STATS.name]},
       **chain_t["train f32"], other_shapes={k: v for k, v in chain_t.items() if k != "train f32"}))
   kernels.append(dict(
       name=resblock.STATS.name, route="cuda", source="shallow_ntc_tpu_torch/csrc/rb_chain.cu",
@@ -880,18 +1210,18 @@ def main():
       launches=ways["resblock"][1][resblock.STATS.name], path="eval image 0, SNTC_FUSED_RESBLOCK=1",
       **block_t["train f32"], other_shapes={"train bf16": block_t["train bf16"]}))
   kernels[1]["train_step_ms"] = train_step_ms
-  # Launches: this slice's main path is the K16 eval of phase 8 (3 images);
-  # times at the decode shape (B=8 bf16), the eval shape beside them. ms is
-  # the device time of the kernel alone: weights and bias in z's type.
+  # jpegl_synthesize's times at the decode shape (B=8 bf16), the eval shape
+  # beside them. ms is the device time of the kernel alone: weights and bias
+  # in z's type.
   kernels.append(dict(
       name=jd.STATS.name, route="cuda", source="shallow_ntc_tpu_torch/csrc/jpegl_decode.cu",
       replaces="shallow_ntc_tpu/ops/pallas/jpegl_decode.py:75",
-      launches=jpegl_eval_launches, path="eval JPEGL_K16",
+      launches=codec_k16, path="codec: JPEGL_K16 compress + decompress",
       max_abs_err=errs[("jpegl_synthesize", jl_decode)], **jl_decode_t,
       shape=f"B={DECODE_BATCH} z {mh}x{mw}x320 bf16 (decode)",
       eval_shape=dict(shape=f"B=1 z {mh}x{mw}x320 f32 (eval)",
                       max_abs_err=errs[("jpegl_synthesize", jl_eval)], **jl_eval_t),
-      launches_by_path={"eval K16": jpegl_eval_launches,
+      launches_by_path={"codec K16": codec_k16, "eval K16": jpegl_eval_launches,
                         "decode K16": jl_decode_launches["JPEGL_K16"]},
       decode_mpx_per_s={k: pixels / v / 1e3 for k, v in jl_decode_ms.items()}))
   print(json.dumps({"kernels": kernels}), flush=True)

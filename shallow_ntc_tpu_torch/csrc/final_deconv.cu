@@ -17,7 +17,8 @@
 //   widx  [ceil(c_out / 4), ND * ND, 16, 16] int32: the folding, below, as
 //         an index into w (k * k * c_in * c_out where the weight is zero),
 //         built once per geometry by ops/twolayer_final.fold_index
-//   bias  [c_out]                in mid's type, added in float32
+//   bias  [c_out]                float32 or bfloat16 (bias_bf16), widened and
+//                                added in float32
 //   out   [B, 16H, 16W, c_out]
 // Geometry: output row O = 2X + r reads mid row X + d with kernel row
 // t = p0 - r + 2d, p0 = k - 1 - max(k - 2, 0) / 2, for each t in [0, k);
@@ -106,8 +107,10 @@ template <typename T, int ND> struct Geo {
   static constexpr int kSmem = kTileBytes + kWBytes + kStageBytes;
 };
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float load_bias(const void* bias, int bias_bf16, int co) {
+  return bias_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(bias)[co])
+                   : static_cast<const float*>(bias)[co];
+}
 template <typename T> __device__ __forceinline__ T from_f32(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
@@ -214,8 +217,9 @@ __device__ __forceinline__ void stage_weights(const T* __restrict__ w,
 template <typename T, int ND, int P>
 __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 3 : 2)
 final_deconv_kernel(const T* __restrict__ mid, const T* __restrict__ w,
-                    const int* __restrict__ widx, const T* __restrict__ bias,
-                    T* __restrict__ out, int H, int W, int c_in, int c_out, int n_w) {
+                    const int* __restrict__ widx, const void* __restrict__ bias,
+                    int bias_bf16, T* __restrict__ out, int H, int W, int c_in, int c_out,
+                    int n_w) {
   using G = Geo<T, ND>;
   constexpr int kPixBytes = Cfg<T>::kPixBytes;
   constexpr int kQP = kPixBytes / P;  // pieces per padded pixel
@@ -288,8 +292,8 @@ final_deconv_kernel(const T* __restrict__ mid, const T* __restrict__ w,
     // % 2) (+1)).
     float acc[kR][kC][2][4];
     const int co = kCoChunk * chunk + 2 * (tig & 1);
-    const float bias0 = co < c_out ? to_f32(bias[co]) : 0.f;
-    const float bias1 = co + 1 < c_out ? to_f32(bias[co + 1]) : 0.f;
+    const float bias0 = co < c_out ? load_bias(bias, bias_bf16, co) : 0.f;
+    const float bias1 = co + 1 < c_out ? load_bias(bias, bias_bf16, co + 1) : 0.f;
 #pragma unroll
     for (int xr = 0; xr < kR; ++xr)
 #pragma unroll
@@ -406,8 +410,9 @@ final_deconv_kernel(const T* __restrict__ mid, const T* __restrict__ w,
 }
 
 template <typename T, int ND, int P>
-int launch_p(const void* mid, const void* w, const void* widx, const void* bias, void* out,
-             int B, int H, int W, int c_in, int c_out, int k, cudaStream_t stream) {
+int launch_p(const void* mid, const void* w, const void* widx, const void* bias,
+             int bias_bf16, void* out, int B, int H, int W, int c_in, int c_out, int k,
+             cudaStream_t stream) {
   constexpr int kSmem = Geo<T, ND>::kSmem;
   if (kSmem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -416,46 +421,48 @@ int launch_p(const void* mid, const void* w, const void* widx, const void* bias,
   }
   const long long blocks = (long long)B * H * ((W + kTW - 1) / kTW);
   final_deconv_kernel<T, ND, P><<<(unsigned)blocks, kThreads, kSmem, stream>>>(
-      (const T*)mid, (const T*)w, (const int*)widx, (const T*)bias, (T*)out, H, W, c_in, c_out,
+      (const T*)mid, (const T*)w, (const int*)widx, bias, bias_bf16, (T*)out, H, W, c_in, c_out,
       k * k * c_in * c_out);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int ND>
-int launch_nd(const void* mid, const void* w, const void* widx, const void* bias, void* out,
-              int B, int H, int W, int c_in, int c_out, int k, cudaStream_t stream) {
+int launch_nd(const void* mid, const void* w, const void* widx, const void* bias,
+              int bias_bf16, void* out, int B, int H, int W, int c_in, int c_out, int k,
+              cudaStream_t stream) {
   const int row_bytes = c_in * (int)sizeof(T);  // one mid pixel's values
   if (row_bytes % 16 == 0)
-    return launch_p<T, ND, 16>(mid, w, widx, bias, out, B, H, W, c_in, c_out, k, stream);
+    return launch_p<T, ND, 16>(mid, w, widx, bias, bias_bf16, out, B, H, W, c_in, c_out, k, stream);
   if (row_bytes % 8 == 0)
-    return launch_p<T, ND, 8>(mid, w, widx, bias, out, B, H, W, c_in, c_out, k, stream);
+    return launch_p<T, ND, 8>(mid, w, widx, bias, bias_bf16, out, B, H, W, c_in, c_out, k, stream);
   if (row_bytes % 4 == 0)
-    return launch_p<T, ND, 4>(mid, w, widx, bias, out, B, H, W, c_in, c_out, k, stream);
+    return launch_p<T, ND, 4>(mid, w, widx, bias, bias_bf16, out, B, H, W, c_in, c_out, k, stream);
   if constexpr (sizeof(T) == 2)
-    return launch_p<T, ND, 2>(mid, w, widx, bias, out, B, H, W, c_in, c_out, k, stream);
+    return launch_p<T, ND, 2>(mid, w, widx, bias, bias_bf16, out, B, H, W, c_in, c_out, k, stream);
   return (int)cudaErrorInvalidValue;
 }
 
 template <typename T>
-int launch(const void* mid, const void* w, const void* widx, const void* bias, void* out,
-           int B, int H, int W, int c_in, int c_out, int k, void* stream) {
+int launch(const void* mid, const void* w, const void* widx, const void* bias,
+           int bias_bf16, void* out, int B, int H, int W, int c_in, int c_out, int k,
+           void* stream) {
   if ((long long)B * H * W == 0) return 0;
   if (k < 1 || k > 7 || c_in < 1 || c_in > 16 || c_out < 1) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  return k == 7 ? launch_nd<T, 4>(mid, w, widx, bias, out, B, H, W, c_in, c_out, k, s)
-                : launch_nd<T, 3>(mid, w, widx, bias, out, B, H, W, c_in, c_out, k, s);
+  return k == 7 ? launch_nd<T, 4>(mid, w, widx, bias, bias_bf16, out, B, H, W, c_in, c_out, k, s)
+                : launch_nd<T, 3>(mid, w, widx, bias, bias_bf16, out, B, H, W, c_in, c_out, k, s);
 }
 
 }  // namespace
 
 extern "C" int final_deconv_f32(const void* mid, const void* w, const void* widx,
-                                const void* bias, void* out, int B, int H, int W,
+                                const void* bias, int bias_bf16, void* out, int B, int H, int W,
                                 int c_in, int c_out, int k, void* stream) {
-  return launch<float>(mid, w, widx, bias, out, B, H, W, c_in, c_out, k, stream);
+  return launch<float>(mid, w, widx, bias, bias_bf16, out, B, H, W, c_in, c_out, k, stream);
 }
 
 extern "C" int final_deconv_bf16(const void* mid, const void* w, const void* widx,
-                                 const void* bias, void* out, int B, int H, int W,
+                                 const void* bias, int bias_bf16, void* out, int B, int H, int W,
                                  int c_in, int c_out, int k, void* stream) {
-  return launch<__nv_bfloat16>(mid, w, widx, bias, out, B, H, W, c_in, c_out, k, stream);
+  return launch<__nv_bfloat16>(mid, w, widx, bias, bias_bf16, out, B, H, W, c_in, c_out, k, stream);
 }

@@ -52,12 +52,16 @@ def evaluate_images(model: Model, images: Iterable, step: int = 0) -> Iterator[D
   device = next(model.parameters()).device
   if hasattr(images, "shape"):
     images = [images[i : i + 1] for i in range(images.shape[0])]
+  # The prior's offset depends on its frozen parameters alone: one bisection
+  # per pass, not one per image.
+  offset = model.prior_quantization_offset()
   for img in images:
     img = torch.as_tensor(np.asarray(img, np.float32), device=device)
     if img.ndim == 3:
       img = img[None]
     with torch.no_grad():
-      _, metrics, _ = model.end_to_end_frame_loss(img, training=False, step=step)
+      _, metrics, _ = model.frame_loss_given_latent_rvs(
+          img, model.infer_latent_rvs(img), training=False, step=step, frozen_offset=offset)
     yield {k: float(v) for k, v in metrics.items()}
 
 

@@ -58,8 +58,13 @@ class Model(nn.Module):
     return LatentRVCollection(uq=(UQLatentRV(loc=z), UQLatentRV(loc=y)))
 
   def hyper_synthesize(self, z_hat: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """z_hat -> (mu, scale_indexes); the index is made positive by exp."""
-    mu, raw = torch.chunk(self._hyper_synthesis(z_hat), 2, dim=-1)
+    """z_hat -> (mu, scale_indexes); the index is made positive by exp.
+
+    z_hat is taken contiguous (NHWC): cuDNN and oneDNN pick their convolution
+    algorithm by the memory layout too, so a view of the analysis's output
+    and the codec's decoded z_hat would round mu differently. One layout is
+    one program for every caller (codec/api.py's determinism contract)."""
+    mu, raw = torch.chunk(self._hyper_synthesis(z_hat.contiguous()), 2, dim=-1)
     return mu, torch.exp(raw)
 
   def synthesize(self, y_hat: torch.Tensor) -> torch.Tensor:
@@ -72,15 +77,24 @@ class Model(nn.Module):
                                   latent_rvs: LatentRVCollection, training: bool = False,
                                   step: int = 0,
                                   noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                                  generator: Optional[torch.Generator] = None):
+                                  generator: Optional[torch.Generator] = None,
+                                  frozen_offset: Optional[torch.Tensor] = None):
     """Returns (rd_loss, metrics, reconstruction on the 255 scale).
 
     In training the offset-heuristic bisection is skipped: the noisy sample
     does not read it, and JAX's values and gradients do not depend on it.
+    The offset is a function of the prior's parameters alone, so a caller
+    that holds them fixed (an eval pass, the codec) computes it once with
+    prior_quantization_offset() and passes it as `frozen_offset`.
     """
     z_rv, y_rv = latent_rvs.uq
     u_z, u_y = noise if noise is not None else (None, None)
-    offset = None if training else self.prior_quantization_offset()
+    if training or not self.offset_heuristic:
+      offset = None
+    elif frozen_offset is not None:
+      offset = frozen_offset
+    else:
+      offset = self.prior_quantization_offset()
     z_hat, z_bits = entropy.batched_em_call(
         self._prior, z_rv.loc, offset, training=training, noise=u_z, generator=generator)
     mu, indexes = self.hyper_synthesize(z_hat)

@@ -51,24 +51,30 @@ def library_path(source: str) -> str:
   return os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
 
 
-def build(source: str) -> str:
-  """Compile csrc/<source> with nvcc unless its library exists; return its path."""
-  out = library_path(source)
-  if os.path.exists(out):
-    return out
+def compile_library(cmd, out: str) -> str:
+  """Run the compiler command `cmd` + ["-o", <temporary file>] into BUILD_DIR
+  and move the result to `out`; return `out`."""
   os.makedirs(BUILD_DIR, exist_ok=True)
   fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
   os.close(fd)
   try:
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, source)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    proc = subprocess.run([*cmd, "-o", tmp], capture_output=True, text=True)
     if proc.returncode != 0:
-      raise RuntimeError(f"nvcc failed ({proc.returncode}) for {source}:\n{proc.stderr}")
+      raise RuntimeError(f"{os.path.basename(cmd[0])} failed ({proc.returncode}) for "
+                         f"{os.path.basename(cmd[-1])}:\n{proc.stderr}")
     os.replace(tmp, out)  # atomic: concurrent builders never see a partial file
   finally:
     if os.path.exists(tmp):
       os.remove(tmp)
   return out
+
+
+def build(source: str) -> str:
+  """Compile csrc/<source> with nvcc unless its library exists; return its path."""
+  out = library_path(source)
+  if os.path.exists(out):
+    return out
+  return compile_library([find_nvcc(), *NVCC_FLAGS, os.path.join(CSRC_DIR, source)], out)
 
 
 def load(source: str) -> ctypes.CDLL:

@@ -136,8 +136,14 @@ def batched_em_call(prior: DeepFactorizedPrior, y: torch.Tensor,
   if training:
     sample = sample_unoise(y, noise, generator)
   else:
-    sample = round_st(y, offset)
+    sample = batched_em_quantize(y, offset)
   return sample, bits_from_log_prob(prior.log_prob_noisy(sample), coding_rank)
+
+
+def batched_em_quantize(y: torch.Tensor, offset: Optional[torch.Tensor]) -> torch.Tensor:
+  """tfc ContinuousBatchedEntropyModel.quantize: straight-through rounding
+  about the offset grid (entropy.py:233)."""
+  return round_st(y, offset)
 
 
 def normalize_indexes(indexes: torch.Tensor) -> torch.Tensor:
@@ -163,3 +169,9 @@ def indexed_em_call(y: torch.Tensor, indexes: torch.Tensor, loc: torch.Tensor,
     sample_c = round_st(centered)
   bits = bits_from_log_prob(noisy_normal_log_prob(sample_c, scales), coding_rank)
   return sample_c + loc, bits
+
+
+def indexed_em_quantize(y: torch.Tensor, loc: torch.Tensor) -> torch.Tensor:
+  """tfc LocationScaleIndexedEntropyModel.quantize: straight-through rounding
+  about `loc` (entropy.py:274)."""
+  return round_st(y, offset=loc)

@@ -76,17 +76,21 @@ def fold_index(k: int, c_in: int, c_out: int, device=None) -> torch.Tensor:
 @functools.lru_cache(maxsize=None)
 def _kernel_fn(dtype):
   fn = getattr(cuda_build.load(SOURCE), _SYMBOLS[dtype])
-  fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+  fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 6
+                 + [ctypes.c_void_p])
   fn.restype = ctypes.c_int
   return fn
 
 
 def final_deconv_plain(mid_p: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
                        c_in: int) -> torch.Tensor:
-  """The plain version: packed_conv_transpose(partial_depth_to_space(mid_p, 8, 8))."""
+  """The plain version: packed_conv_transpose(partial_depth_to_space(mid_p, 8, 8)),
+  the weights rounded to mid_p's type, products summed and the bias added in
+  float32, and one rounding to mid_p's type (as the Pallas kernel)."""
   del c_in
-  return fd.packed_conv_transpose(fd.partial_depth_to_space(mid_p, S1, S1),
-                                  kernel, bias, S2, S1)
+  out = fd.packed_conv_transpose(fd.partial_depth_to_space(mid_p, S1, S1).float(),
+                                 kernel.to(mid_p.dtype).float(), None, S2, S1)
+  return (out + bias.float()).to(mid_p.dtype)
 
 
 def final_deconv_cuda(mid_p: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
@@ -114,16 +118,18 @@ def final_deconv_cuda(mid_p: torch.Tensor, kernel: torch.Tensor, bias: torch.Ten
   if kernel.device != mid_p.device or bias.device != mid_p.device:
     raise ValueError("mid_p, kernel and bias must be on one device")
   b, h, w, _ = mid_p.shape
-  # Weights and bias in mid_p's type, as the plain version rounds them: a
-  # model in one type passes them on as they are, with no launch.
+  # Weights in mid_p's type, as the plain version rounds them; the bias in
+  # float32 or bfloat16 (a flag tells the kernel), added in float32. A model
+  # in one type passes both on as they are, with no launch.
   w_t = kernel.detach().to(mid_p.dtype).contiguous()
-  b_t = bias.detach().to(mid_p.dtype).contiguous()
+  b_t = bias.detach()
+  b_t = (b_t if b_t.dtype in _SYMBOLS else b_t.float()).contiguous()
   idx = fold_index(k, c_in, c_out, mid_p.device)
   out = torch.empty((b, SP * h, SP * w, c_out), dtype=mid_p.dtype, device=mid_p.device)
   stream = torch.cuda.current_stream(mid_p.device).cuda_stream
   rc = _kernel_fn(mid_p.dtype)(mid_p.data_ptr(), w_t.data_ptr(), idx.data_ptr(),
-                               b_t.data_ptr(), out.data_ptr(), b, h, w, c_in, c_out, k,
-                               stream)
+                               b_t.data_ptr(), int(b_t.dtype == torch.bfloat16),
+                               out.data_ptr(), b, h, w, c_in, c_out, k, stream)
   if rc != 0:
     raise RuntimeError(f"final_deconv kernel launch failed: CUDA error {rc}")
   STATS.launches += 1

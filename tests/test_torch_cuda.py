@@ -74,6 +74,25 @@ def test_final_deconv_kernel_matches_plain(cuda_device, b, h, w, dtype, k, c_in,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("b,h,w", [(8, 32, 48), (2, 3, 9)])
+def test_final_deconv_kernel_adds_a_float32_bias_to_bfloat16_mid(cuda_device, b, h, w):
+  """bfloat16 mid with float32 weights and bias: the kernel and the plain
+  version both add the bias in float32 before the one rounding, so they agree
+  at >= 99% of the outputs and within one bfloat16 ulp elsewhere. The biases
+  lie off the bfloat16 grid, where rounding them first moves ~30% of the
+  outputs by an ulp. mid is scaled by 0.05, so every output lies near its
+  bias, away from 0, where one ulp is no bound on a sum's rounding."""
+  mid, kernel, _ = _inputs(b * h + w, b, h, w, cuda_device, torch.bfloat16)
+  mid, kernel = (mid.float() * 0.05).bfloat16(), kernel.float()
+  bias = torch.tensor([1 + 3 * 2**-10, -2 + 5 * 2**-9, 0.5 + 2**-11], device=cuda_device)
+  out = tl.final_deconv_cuda(mid, kernel, bias, 12).float()
+  ref = tl.final_deconv_plain(mid, kernel, bias, 12).float()
+  ulp = torch.exp2(torch.floor(torch.log2(ref.abs())) - 7)
+  assert (out == ref).float().mean().item() >= 0.99
+  assert ((out - ref).abs() <= ulp).all().item()
+
+
+@pytest.mark.gpu
 def test_final_deconv_kernel_gradients_match_plain(cuda_device):
   mid, kernel, bias = _inputs(5, 2, 3, 4, cuda_device, torch.float32)
   cot = torch.randn(2, 48, 64, 3, device=cuda_device)
@@ -306,3 +325,53 @@ def test_eval_cli_on_the_card_matches_the_cpu(cuda_device, tmp_path, monkeypatch
   for key in ("latent_bpp", "psnr"):
     np.testing.assert_allclose(records["cuda"][key], records["cpu"][key], rtol=1e-3,
                                err_msg=key)
+
+
+def _small_codec(device):
+  """The codec of the flagship at narrow ELIC widths (the smoke config), seeded."""
+  from shallow_ntc_tpu_torch import configs, eval_lib
+  from shallow_ntc_tpu_torch.codec import api as codec_api
+
+  model = eval_lib.build_model(configs.TRAIN_CONFIGS["smoke"]["model_config"], init_seed=0,
+                               device=device)
+  return codec_api.make_codec(model)
+
+
+def _codec_image(seed, h, w):
+  rng = np.random.default_rng(seed)
+  return (rng.integers(0, 256, (h, w, 3)) / 255.0 - 0.5).astype(np.float32)
+
+
+@pytest.mark.gpu
+def test_codec_roundtrip_on_the_card_is_bit_exact(cuda_device):
+  """GPU encode -> GPU decode: the decoder's image is the encoder's, bit for
+  bit, at a size that pads (100x140) and one that does not; the synthesis
+  launches final_deconv_phase."""
+  codec = _small_codec(cuda_device)
+  launches = tl.STATS.launches
+  for seed, (h, w) in ((0, (100, 140)), (1, (128, 192))):
+    result = codec.compress(_codec_image(seed, h, w))
+    rec = codec.decompress(result.bitstring)
+    assert rec.dtype == np.uint8 and rec.shape == (h, w, 3)
+    np.testing.assert_array_equal(rec, result.reconstruction)
+  torch.cuda.synchronize()
+  assert tl.STATS.launches >= launches + 4
+
+
+@pytest.mark.gpu
+def test_codec_batch_paths_on_the_card_match_the_per_image_path(cuda_device):
+  """Byte-identical bitstreams and decoded latents; reconstructions equal
+  under strict=True and within +-1 otherwise (a batched synthesis may round
+  a pixel the other way)."""
+  codec = _small_codec(cuda_device)
+  xs = [_codec_image(i, 128, 192) for i in range(3)] + [_codec_image(3, 100, 140)]
+  singles = [codec.compress(x) for x in xs]
+  batch = codec.compress_batch(xs, reconstruct=True, chunk_size=2)
+  assert [b.bitstring for b in batch] == [s.bitstring for s in singles]
+  for b, s in zip(batch, singles):
+    assert np.abs(b.reconstruction.astype(int) - s.reconstruction).max() <= 1
+  blobs = [s.bitstring for s in singles]
+  for rec, s in zip(codec.decompress_batch(blobs, chunk_size=2, strict=True), singles):
+    np.testing.assert_array_equal(rec, s.reconstruction)
+  for rec, s in zip(codec.decompress_batch(blobs, chunk_size=2), singles):
+    assert np.abs(rec.astype(int) - s.reconstruction).max() <= 1

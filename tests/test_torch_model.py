@@ -31,6 +31,25 @@ def test_end_to_end_eval_matches_jax(small_models, hw):
   check_eval_matches_jax(*small_models, images(hw[0], hw))
 
 
+def test_eval_pass_computes_the_prior_offset_once(small_models, monkeypatch):
+  """evaluate_images runs the offset's bisection once per pass and passes it
+  down as frozen_offset; the per-image metrics of a 3-image pass equal, bit
+  for bit, those of the path that recomputes it for every image
+  (end_to_end_frame_loss)."""
+  port = small_models[2]
+  xs = np.concatenate([images(20 + i, (64, 64)) for i in range(3)])
+  with torch.no_grad():
+    per_image = [{k: float(v) for k, v in
+                  port.end_to_end_frame_loss(torch.from_numpy(xs[i : i + 1]))[1].items()}
+                 for i in range(3)]
+  calls = []
+  offset = port._prior.quantization_offset
+  monkeypatch.setattr(port._prior, "quantization_offset",
+                      lambda: calls.append(1) or offset())
+  assert list(eval_lib.evaluate_images(port, xs)) == per_image
+  assert len(calls) == 1
+
+
 def test_numpy_init_has_the_flax_tree():
   """init_params gives exactly the paths and shapes of the flax Model.init."""
   jax_model = jax_mshyper.Model(**SMALL_CONFIG)
@@ -112,7 +131,7 @@ def test_eval_cli_sets_tf32_by_matmul_precision(tmp_path, monkeypatch):
 
 
 def test_port_imports_no_jax():
-  """Importing every module of the port pulls in no JAX, flax or JAX-package module."""
+  """Importing every module of the port pulls in no JAX, flax, scipy or JAX-package module."""
   code = (
       "import importlib, pkgutil, sys\n"
       "import shallow_ntc_tpu_torch as p\n"
@@ -120,10 +139,11 @@ def test_port_imports_no_jax():
       "  importlib.import_module(m.name)\n"
       "bad = sorted(n for n in sys.modules if n.split('.')[0] in\n"
       "  ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'ml_collections', 'absl',\n"
-      "   'PIL', 'tensorflow', 'shallow_ntc_tpu'))\n"
+      "   'PIL', 'tensorflow', 'scipy', 'shallow_ntc_tpu'))\n"
       "names = {m.name for m in pkgutil.walk_packages(p.__path__, 'shallow_ntc_tpu_torch.')}\n"
       "need = {'shallow_ntc_tpu_torch.' + n for n in ('train_lib', 'train', 'ops.rb_chain',\n"
-      "        'ops.resblock', 'eval', 'models.mshyper', 'ops.jpegl_decode')}\n"
+      "        'ops.resblock', 'eval', 'models.mshyper', 'ops.jpegl_decode', 'codec.api',\n"
+      "        'codec.tables', 'codec.bindings', 'compress')}\n"
       "assert need <= names, need - names\n"
       "print(len(names), bad)\n"
       "assert not bad, bad\n")

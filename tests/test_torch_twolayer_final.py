@@ -116,3 +116,28 @@ def test_kernel_weight_folding_matches_plain_and_jax(k, c_in, c_out):
   assert out.shape == (2, 32, 48, c_out)
   np.testing.assert_allclose(to_numpy(out), to_numpy(plain), atol=ATOL)
   np.testing.assert_allclose(to_numpy(out), np.asarray(ref), atol=ATOL)
+
+
+def test_plain_adds_a_float32_bias_to_bfloat16_mid_as_the_jax_kernel():
+  """bfloat16 mid with float32 parameters, as a compute dtype below the
+  parameters' gives: the Pallas kernel (interpret mode) rounds the weights to
+  bfloat16, sums the products and adds the float32 bias in float32, and
+  rounds once. The plain version must equal it at >= 99% of the outputs and
+  lie within one bfloat16 ulp elsewhere (a sum in another order can round
+  across). The biases lie off the bfloat16 grid: rounding them first, as the
+  port did, leaves about 30% of these outputs one ulp away."""
+  rng = np.random.default_rng(11)
+  mid_p = (rng.standard_normal((2, 2, 3, 768)) * 0.05).astype(np.float32)
+  kernel = rand(rng, (5, 5, 12, 3), 0.1)
+  bias = np.array([1 + 3 * 2**-10, -2 + 5 * 2**-9, 0.5 + 2**-11], np.float32)
+  mid_bf16 = jnp.asarray(mid_p, jnp.bfloat16)
+  ref = jax_tl.final_deconv_phase(mid_bf16, kernel, bias, 12)
+  assert ref.dtype == jnp.bfloat16
+  ref = np.asarray(ref.astype(jnp.float32))
+  out = tl.final_deconv_phase(to_torch(np.asarray(mid_bf16.astype(jnp.float32))).bfloat16(),
+                              to_torch(kernel), to_torch(bias), 12)
+  assert out.dtype == torch.bfloat16
+  out = to_numpy(out.float())
+  ulp = 2.0 ** (np.floor(np.log2(np.abs(ref))) - 7)
+  assert np.mean(out == ref) >= 0.99
+  assert np.all(np.abs(out - ref) <= ulp)
