@@ -55,7 +55,23 @@ Phases, one flushed line each with its seconds (TF32 off throughout):
                kernel, its plain version and (where one exists) one PyTorch
                library call computing the same function, by CUDA events,
                beside its bound (final_deconv_phase at the decode, eval and
-               train shapes).
+               train shapes, and at B=1 bf16, the SGA step's with bf16
+               transforms).
+ 12. itinf     SGA iterative inference of the flagship (configs.ITINF) on one
+               512x768 image at full width, seeded weights: 3 SGA steps on
+               the card against the port's CPU step (plain versions), float32,
+               TF32 off, the same logistic draws, from the same latents
+               (latents, rd_loss, bpp, PSNR); ms per SGA step by CUDA events
+               (float32 and bf16 transforms, TF32 off and on) beside the
+               device time of its kernels (torch.profiler); the config's run through
+               itinf_lib.itinf_on_data_batch (3000 steps, or 1000 if a step
+               takes over 10 ms) with float32 transforms and
+               SNTC_FUSED_RB_CHAIN=1: its val rd_loss at or below the
+               amortized eval's, final_deconv_phase launched once per step
+               and once per val pass, the chain 7 times (the init's
+               analysis); 300 steps with bf16 transforms (val rd_loss within
+               1.05x the amortized); an init with the chain against the cuDNN
+               init (z and y).
 Then one JSON line of kernels, the nvidia-smi line, and the last line
 {"ok": true, "device": {...}}. Any failed phase exits non-zero before that
 line. Without CUDA, or without the port beside this script, it exits 1.
@@ -459,6 +475,226 @@ def codec_phase(model, model_cpu, images, zero_counts, read_counts, smi):
   return summary
 
 
+ITINF_REFERENCE_STEPS = 3
+ITINF_BF16_STEPS = 300
+
+
+def itinf_phase(image, zero_counts, read_counts, smi):
+  """Phase 12: SGA iterative inference of the flagship (configs.ITINF) on one
+  512x768 image at full width, seeded weights: the card against the CPU for
+  3 steps; ms per step; the config's run; 300 steps with bf16 transforms;
+  an init with the chain kernel. Returns the launch counts and times."""
+  import itertools
+
+  import torch
+  from shallow_ntc_tpu_torch import configs, eval_lib, itinf_lib
+  from shallow_ntc_tpu_torch.ops import rb_chain as rb
+  from shallow_ntc_tpu_torch.ops import twolayer_final as tl
+
+  phase = "itinf"
+  cfg = copy.deepcopy(configs.ITINF)
+  opt_cfg = cfg["model_config"]["optimizer_config"]
+  te = cfg["train_eval_config"]
+  x_np = image[None]
+  t = time.time()
+  models = {d: eval_lib.build_model(cfg["model_config"], init_seed=0, device=d)
+            for d in ("cuda", "cpu")}
+  model = models["cuda"]
+  xs = {d: torch.from_numpy(x_np).to(d) for d in models}
+
+  # GPU against CPU: 3 SGA steps from the CPU's latents with the same
+  # logistic draws, float32, TF32 off. Latents: each element within 0.05 *
+  # the sum of the steps' lr (Adam moves an element by ~lr whatever the size
+  # of its gradient, so a gradient whose last bits differ moves it by a
+  # fraction of lr), or else, listed, the difference's L2 within 1e-2 of the
+  # L2 of the latent's movement (a gradient within rounding of 0 may take
+  # the other sign on the other device, and Adam's first step moves that
+  # element by lr either way); rd_loss, bpp and PSNR of each step rtol 1e-4.
+  fns = {d: itinf_lib.make_itinf_functions(m, opt_cfg, te["num_steps"])
+         for d, m in models.items()}
+  state = {d: fns[d].init(xs[d]) for d in models}
+  failures = []
+  for name, a, b in zip(("z", "y"), state["cuda"][0].uq, state["cpu"][0].uq):
+    err = (a.loc.detach().cpu() - b.loc.detach()).abs().max().item()
+    scale = b.loc.abs().max().item()
+    log(phase, f"init {name}: max|gpu-cpu| {err:.3e}, max|cpu| {scale:.3f} "
+        "(tol 1e-4 * max(1, max|cpu|))")
+    if err > 1e-4 * max(1.0, scale):
+      failures.append(f"init {name}")
+  with torch.no_grad():
+    for a, b in zip(state["cuda"][0].uq, state["cpu"][0].uq):
+      a.loc.copy_(b.loc)
+  init = [rv.loc.detach().clone() for rv in state["cpu"][0].uq]
+  draw_rng = np.random.default_rng(21)
+  lr_sum = 0.0
+  for step in range(ITINF_REFERENCE_STEPS):
+    draws = [draw_rng.logistic(size=tuple(v.shape)).astype(np.float32) for v in init]
+    m = {d: fns[d].step(xs[d], *state[d], step, None,
+                        noise=tuple(torch.from_numpy(n).to(d) for n in draws))
+         for d in models}
+    lr_sum += float(m["cpu"]["scheduled_lr"])
+    for key in ("rd_loss", "bpp", "psnr"):
+      gpu_v, cpu_v = float(m["cuda"][key]), float(m["cpu"][key])
+      rel = abs(gpu_v - cpu_v) / abs(cpu_v)
+      log(phase, f"step {step} {key}: gpu {gpu_v:.6f} cpu {cpu_v:.6f} rel {rel:.2e} (tol 1e-4)")
+      if rel > 1e-4:
+        failures.append(f"step {step} {key}")
+    for name, a, b, b0 in zip(("z", "y"), state["cuda"][0].uq, state["cpu"][0].uq, init):
+      diff = (a.loc.detach().cpu() - b.loc.detach()).abs()
+      tol = 0.05 * lr_sum
+      beyond = int((diff > tol).sum())
+      l2_rel = (diff.norm() / (b.loc.detach() - b0).norm()).item()
+      log(phase, f"step {step} latent {name}: max|gpu-cpu| {diff.max().item():.3e} (tol "
+          f"{tol:.3e}); {beyond} of {diff.numel()} elements past it, L2 of the difference / "
+          f"L2 of the movement {l2_rel:.2e} (fallback tol 1e-2)")
+      if beyond and l2_rel > 1e-2:
+        failures.append(f"step {step} latent {name}")
+  log(phase, f"GPU against CPU, {ITINF_REFERENCE_STEPS} steps at {EVAL_HW[0]}x{EVAL_HW[1]} "
+      f"f32: done in {time.time() - t:.1f}s")
+  check(not failures, f"the GPU SGA steps disagree with the CPU's: {failures}")
+  del models["cpu"], fns, state
+
+  # ms per SGA step by CUDA events, what a caller waits, beside the device
+  # time of its kernels summed by torch.profiler over 5 steps. (cuda_ms's
+  # host_ahead cannot hold the host ahead of ~500 launches a step: the
+  # CUDA launch queue fills, and the host waits for the device.)
+  def kernels_ms(fn, iters=5):
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+      for _ in range(iters):
+        fn()
+      torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type.name == "CUDA") / 1e3 / iters
+
+  def time_step(dtype, tf32):
+    model.transforms_dtype = dtype
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = tf32
+    try:
+      f = itinf_lib.make_itinf_functions(model, opt_cfg, te["num_steps"])
+      latents, optimizer = f.init(xs["cuda"])
+      gen = torch.Generator(device=xs["cuda"].device)
+      count = itertools.count()
+
+      def one_step():
+        s = next(count)
+        f.step(xs["cuda"], latents, optimizer, s, None,
+               generator=itinf_lib.seed_step(gen, 0, s))
+
+      call = cuda_ms(torch, one_step, iters=30, warmup=5)
+      device = kernels_ms(one_step)
+    finally:
+      model.transforms_dtype = None
+      torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    return dict(ms=call, device_ms=device)
+
+  step_times = {}
+  for dtype_name, dtype in (("float32", None), ("bfloat16", torch.bfloat16)):
+    for tf32 in (False, True):
+      key = f"{dtype_name} transforms, TF32 {'on' if tf32 else 'off'}"
+      step_times[key] = time_step(dtype, tf32)
+      log(phase, f"SGA step {EVAL_HW[0]}x{EVAL_HW[1]} {key}: {step_times[key]['ms']:.4f} ms "
+          f"a step by CUDA events; its kernels {step_times[key]['device_ms']:.4f} ms (busy "
+          f"share {step_times[key]['device_ms'] / step_times[key]['ms']:.3f})  [{smi}]")
+
+  # The config's run: float32 transforms, TF32 off, the chain kernel in the
+  # init's analysis. 3000 steps, or 1000 (with the schedules over 1000) if a
+  # step takes over 10 ms.
+  f32_ms = step_times["float32 transforms, TF32 off"]["ms"]
+  n_steps = te["num_steps"] if f32_ms <= 10.0 else 1000
+  if n_steps != te["num_steps"]:
+    model.scheduled_num_steps = n_steps
+    log(phase, f"a float32 step takes {f32_ms:.3f} ms > 10 ms: the config's run takes "
+        f"{n_steps} steps, scheduled over {n_steps}")
+  run_cfg = dict(te, num_steps=n_steps)
+  val_passes = -(-n_steps // run_cfg["eval_every_steps"])
+  # The amortized eval at a step past the rd-lambda warm-up (which SGA never
+  # takes), so both rd_losses weigh the distortion by the same lambda.
+  amortized_m = next(eval_lib.evaluate_images(model, x_np, step=model.scheduled_num_steps))
+  amortized = amortized_m["rd_loss"]
+  with tempfile.TemporaryDirectory(prefix="chip_smoke_itinf_") as workdir:
+    zero_counts()
+    t = time.time()
+    with switch_on("SNTC_FUSED_RB_CHAIN"):
+      train_m, val_m, itinf_vars = itinf_lib.itinf_on_data_batch(
+          model, x_np, run_cfg, opt_cfg, workdir=workdir, seed=0)
+    torch.cuda.synchronize()
+    run_s = time.time() - t
+    counts = read_counts()
+    with open(os.path.join(workdir, "train", "record.jsonl")) as f:
+      rows = [json.loads(line) for line in f]
+  for r in rows:
+    log(phase, f"step {r['step']}: rd_loss {r['rd_loss']:.5f} bpp {r['bpp']:.5f} "
+        f"psnr {r['psnr']:.4f} tau {r['tau']:.5f} scheduled_lr {r['scheduled_lr']:.2e}")
+  log(phase, f"the config's run, {n_steps} steps of {EVAL_HW[0]}x{EVAL_HW[1]} f32 in "
+      f"{run_s:.2f}s (init, steps, {val_passes} val pass): val rd_loss {val_m['rd_loss']:.5f} "
+      f"bpp {val_m['bpp']:.5f} psnr {val_m['psnr']:.4f} msssim {val_m['msssim']:.5f} against "
+      f"the amortized rd_loss {amortized:.5f}; launches {counts}  [{smi}]")
+  log_every = run_cfg["log_metrics_every_steps"]
+  check(all(np.isfinite(v) for r in rows + [val_m] for v in r.values())
+        and [r["step"] for r in rows] == [min((i + 1) * log_every, n_steps)
+                                          for i in range(-(-n_steps // log_every))],
+        "the SGA log rows are missing or not finite")
+  check(all(v.dtype == np.float32 for v in itinf_vars.values()), "the latents are not float32")
+  check(amortized_m["sched_rd_lambda"] == val_m["sched_rd_lambda"],
+        f"the amortized eval's lambda {amortized_m['sched_rd_lambda']} is not SGA's")
+  check(val_m["rd_loss"] <= amortized,
+        f"SGA did not improve on the amortized rd_loss: {val_m['rd_loss']} > {amortized}")
+  check(counts[tl.STATS.name] == n_steps + val_passes,
+        f"final_deconv_phase ran {counts[tl.STATS.name]} times in {n_steps} steps and "
+        f"{val_passes} val passes")
+  check(counts[rb.STATS.name] == CHAINS_PER_FORWARD,
+        f"the init's analysis ran the chain kernel {counts[rb.STATS.name]} times")
+  model.scheduled_num_steps = cfg["model_config"]["scheduled_num_steps"]
+
+  # 300 steps with bf16 transforms: val rd_loss within 1.05x the amortized
+  # (bf16) rd_loss, as the JAX package's bf16 test holds it.
+  model.transforms_dtype = torch.bfloat16
+  amortized_bf16 = next(eval_lib.evaluate_images(
+      model, x_np, step=model.scheduled_num_steps))["rd_loss"]
+  zero_counts()
+  t = time.time()
+  _, val_bf16, _ = itinf_lib.itinf_on_data_batch(
+      model, x_np, dict(te, num_steps=ITINF_BF16_STEPS), opt_cfg, seed=0)
+  torch.cuda.synchronize()
+  bf16_s = time.time() - t
+  bf16_counts = read_counts()
+  model.transforms_dtype = None
+  log(phase, f"{ITINF_BF16_STEPS} steps with bf16 transforms in {bf16_s:.2f}s: val rd_loss "
+      f"{val_bf16['rd_loss']:.5f} against the amortized {amortized_bf16:.5f} (tol x1.05); "
+      f"launches {bf16_counts}")
+  check(val_bf16["rd_loss"] <= 1.05 * amortized_bf16,
+        f"bf16 SGA: {val_bf16['rd_loss']} > 1.05 x {amortized_bf16}")
+  check(bf16_counts[tl.STATS.name] == ITINF_BF16_STEPS + 1,
+        f"bf16 SGA launched final_deconv_phase {bf16_counts[tl.STATS.name]} times")
+
+  # An init with the chain kernel against the cuDNN init: z and y within
+  # 1e-4 * max(1, max|cudnn|), as phase 4 holds them.
+  f = itinf_lib.make_itinf_functions(model, opt_cfg, te["num_steps"])
+  zero_counts()
+  with switch_on("SNTC_FUSED_RB_CHAIN"):
+    chain_latents, _ = f.init(xs["cuda"])
+  chain_counts = read_counts()
+  cudnn_latents, _ = f.init(xs["cuda"])
+  for name, a, b in zip(("z", "y"), chain_latents.uq, cudnn_latents.uq):
+    err = (a.loc - b.loc).abs().max().item()
+    scale = b.loc.abs().max().item()
+    log(phase, f"init {name}: chain vs cudnn max|err| {err:.3e}, max|cudnn| {scale:.3f} "
+        "(tol 1e-4 * max(1, max|cudnn|))")
+    check(err <= 1e-4 * max(1.0, scale), f"the chain init disagrees on {name}")
+  check(chain_counts[rb.STATS.name] == CHAINS_PER_FORWARD,
+        f"an init with SNTC_FUSED_RB_CHAIN=1 launched {chain_counts}")
+  summary = dict(steps=n_steps, val_passes=val_passes, launches=counts,
+                 bf16_launches=bf16_counts, chain_init_launches=chain_counts,
+                 step_ms=step_times, seconds_per_image=run_s, bf16_seconds=bf16_s,
+                 val_rd_loss=val_m["rd_loss"], amortized_rd_loss=amortized,
+                 val_rd_loss_bf16=val_bf16["rd_loss"], amortized_rd_loss_bf16=amortized_bf16,
+                 nvidia_smi=smi)
+  log(phase, "summary " + json.dumps(summary))
+  return summary
+
+
 def main():
   import torch
   if not torch.cuda.is_available():
@@ -537,6 +773,9 @@ def main():
                (2, 3, 5, torch.bfloat16, 5, 5, 5), (1, 2, 10, torch.bfloat16, 3, 16, 8),
                (3, 1, 17, torch.float32, 7, 16, 3), (2, 2, 9, torch.bfloat16, 5, 6, 4),
                (1, 2, 9, torch.float32, 5, 6, 4), fd_train]
+  # The SGA step's shape with bf16 transforms (phase 12).
+  fd_itinf_bf16 = (1, mh, mw, torch.bfloat16, 5, 12, 3)
+  new_cases.append(fd_itinf_bf16)
   fd_rng = np.random.default_rng(9)
   errs = {}
   for case in cases + new_cases:
@@ -1118,6 +1357,7 @@ def main():
   decode_t = time_final(DECODE_BATCH, mh, mw, torch.bfloat16)
   eval_t = time_final(1, mh, mw, torch.float32)
   train_fd_t = time_final(*fd_train[:4])
+  itinf_bf16_t = time_final(*fd_itinf_bf16[:4])
   del model_bf16
 
   # The JPEG-like decode at the same shape: k18 (cuDNN) and K16 (the kernel).
@@ -1171,14 +1411,19 @@ def main():
 
   jl_decode_t = time_jpegl(jl_decode)
   jl_eval_t = time_jpegl(jl_eval)
+
+  # --- 12. itinf: SGA iterative inference of the flagship ----------------
+  itinf = itinf_phase(images[0], zero_counts, read_counts, smi)
   codec_fd = sum(codec_counts[k][tl.STATS.name]
                  for k in ("flagship_compress", "flagship_decompress"))
   codec_k16 = sum(codec_counts[k][jd.STATS.name] for k in ("k16_compress", "k16_decompress"))
+  itinf_fd = itinf["launches"][tl.STATS.name]
   kernels = [dict(
       name=tl.STATS.name, route="cuda",
       source="shallow_ntc_tpu_torch/csrc/final_deconv.cu",
       replaces="shallow_ntc_tpu/ops/pallas/twolayer_final.py:273",
-      launches=codec_fd, path="codec: compress + decompress of image 0",
+      launches=itinf_fd,
+      path=f"itinf: SGA of image 0, {itinf['steps']} steps and {itinf['val_passes']} val pass",
       max_abs_err=errs[("final_deconv_phase", cases[1])],
       **decode_t,
       shape=f"B={DECODE_BATCH} mid {mh}x{mw}x768 bf16 (decode)",
@@ -1186,22 +1431,28 @@ def main():
                       max_abs_err=errs[("final_deconv_phase", cases[0])], **eval_t),
       train_shape=dict(shape=f"B={fd_train[0]} mid {fd_train[1]}x{fd_train[2]}x768 f32 (train)",
                        max_abs_err=errs[("final_deconv_phase", fd_train)], **train_fd_t),
+      itinf_bf16_shape=dict(shape=f"B=1 mid {mh}x{mw}x768 bf16 (SGA step, bf16 transforms)",
+                            max_abs_err=errs[("final_deconv_phase", fd_itinf_bf16)],
+                            **itinf_bf16_t),
       decode_mpx_per_s=pixels / decode_ms / 1e3)]
-  # Launches: this slice's main path is the codec (phase 6): one compress and
-  # one decompress of image 0, the chain in a compress with
-  # SNTC_FUSED_RB_CHAIN=1, jpegl_synthesize in the JPEGL_K16 round trip. The
-  # earlier slices' paths beside them: the training run of phase 7 (4 steps
-  # and the final eval), the eval of image 0 with SNTC_FUSED_RESBLOCK=1
-  # (fused_resblock's own path, phase 4), the K16 eval of phase 9. The
-  # chain's times are at train stage 1 in f32.
-  kernels[0]["launches_by_path"] = {"codec": codec_fd, "eval+decode": launches,
-                                    "train": train_counts[tl.STATS.name]}
+  # Launches: this slice's main path is SGA (phase 12): the config's run on
+  # image 0, final_deconv_phase once per step and per val pass, the chain in
+  # the init's analysis with SNTC_FUSED_RB_CHAIN=1. The earlier slices' paths
+  # beside them: the codec of phase 6 (one compress and one decompress of
+  # image 0, a compress with the chain, the JPEGL_K16 round trip), the
+  # training run of phase 7 (4 steps and the final eval), the eval of image 0
+  # with SNTC_FUSED_RESBLOCK=1 (fused_resblock's own path, phase 4), the K16
+  # eval of phase 9. The chain's times are at train stage 1 in f32.
+  kernels[0]["launches_by_path"] = {
+      "itinf": itinf_fd, "itinf bf16": itinf["bf16_launches"][tl.STATS.name],
+      "codec": codec_fd, "eval+decode": launches, "train": train_counts[tl.STATS.name]}
   kernels.append(dict(
       name=rb.STATS.name, route="cuda", source="shallow_ntc_tpu_torch/csrc/rb_chain.cu",
       replaces="shallow_ntc_tpu/ops/pallas/rb_chain.py:263",
-      launches=codec_counts["chain_compress"][rb.STATS.name],
-      path="codec: compress with SNTC_FUSED_RB_CHAIN=1",
-      launches_by_path={"codec": codec_counts["chain_compress"][rb.STATS.name],
+      launches=itinf["launches"][rb.STATS.name],
+      path="itinf: the init's analysis with SNTC_FUSED_RB_CHAIN=1",
+      launches_by_path={"itinf": itinf["launches"][rb.STATS.name],
+                        "codec": codec_counts["chain_compress"][rb.STATS.name],
                         "train": train_counts[rb.STATS.name]},
       **chain_t["train f32"], other_shapes={k: v for k, v in chain_t.items() if k != "train f32"}))
   kernels.append(dict(
@@ -1210,6 +1461,7 @@ def main():
       launches=ways["resblock"][1][resblock.STATS.name], path="eval image 0, SNTC_FUSED_RESBLOCK=1",
       **block_t["train f32"], other_shapes={"train bf16": block_t["train bf16"]}))
   kernels[1]["train_step_ms"] = train_step_ms
+  kernels[0]["itinf_step_ms"] = itinf["step_ms"]
   # jpegl_synthesize's times at the decode shape (B=8 bf16), the eval shape
   # beside them. ms is the device time of the kernel alone: weights and bias
   # in z's type.

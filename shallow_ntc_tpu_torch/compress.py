@@ -19,7 +19,6 @@ the encoder's bit for bit and prints bpp, PSNR and the byte count.
 """
 
 import argparse
-import os
 from typing import Optional, Sequence
 
 import numpy as np
@@ -42,22 +41,11 @@ def load_image(path: str) -> np.ndarray:
 
 def load_model(args) -> Model:
   model_config, _ = configs.eval_config(args.config)
-  if args.workdir is None:
-    params = None
-    if args.params is not None:
-      with np.load(args.params) as npz:
-        params = {k: npz[k] for k in npz.files if k != "step"}
-    return eval_lib.build_model(model_config, params=params, init_seed=args.init_seed,
-                                device=args.device)
-  step = train_lib.latest_checkpoint_step(args.workdir)
-  if step is None:
-    raise FileNotFoundError(f"no checkpoint under {train_lib.checkpoint_dir(args.workdir)}")
-  device = eval_lib.resolve_device(args.device)
-  path = os.path.join(train_lib.checkpoint_dir(args.workdir), f"ckpt_{step}.pt")
-  payload = torch.load(path, map_location="cpu", weights_only=True)
-  model = Model(**{k: v for k, v in model_config.items() if k != "optimizer_config"})
-  model.load_state_dict(payload["model"])
-  return model.to(device).eval()
+  if args.workdir is not None:
+    return train_lib.model_from_checkpoint(args.workdir, model_config, args.device)
+  params = eval_lib.read_params(args.params)[0] if args.params is not None else None
+  return eval_lib.build_model(model_config, params=params, init_seed=args.init_seed,
+                              device=args.device)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> str:

@@ -24,6 +24,14 @@ optimizer_config, the data configs and train_eval_config):
   smoke             mshyper/configs/smoke.py's schedule (20 steps, lr 1e-3,
                     no warmup, B=2 64x64) with the flagship transforms at
                     narrow ELIC widths: for tests and CPU runs.
+
+ITINF is mshyper/configs/itinf.py, SGA iterative inference on the flagship:
+model_config is TWO_LAYER_SYN_RD with itinf.py's overrides (the SGA
+relaxation, offset heuristic off, its optimizer), and train_eval_config its
+schedule and transforms dtype. The Kodak set is not in the repository, so
+data_config names the synthetic source (the itinf CLI takes --images), and
+the warm-start keys are the CLI's weights flags. step_dispatch is a TPU
+dispatch tactic that the port accepts and ignores.
 """
 
 import copy
@@ -110,3 +118,17 @@ TRAIN_CONFIGS = {
 }
 TRAIN_CONFIGS["smoke"]["model_config"]["transform_config"]["analysis"]["channels"] = (
     8, 8, 8, 16)
+
+ITINF = dict(
+    model_config=dict(
+        copy.deepcopy(TWO_LAYER_SYN_RD),
+        scheduled_num_steps=3000,
+        optimizer_config=dict(learning_rate=5e-3, reduce_lr_after=0.9, reduce_lr_factor=0.1,
+                              global_clipnorm=None, warmup_until=0.0),
+        latent_config=dict(uq=dict(method="sga", tau_r=5e-4, tau_ub=0.5, tau_t0=200)),
+        offset_heuristic=False,
+    ),
+    data_config=dict(dataset="synthetic", batchsize=1, patchsize=None),
+    train_eval_config=dict(num_steps=3000, log_metrics_every_steps=300, eval_every_steps=3000,
+                           transforms_dtype="bfloat16", step_dispatch="auto"),
+)

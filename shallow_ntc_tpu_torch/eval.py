@@ -18,7 +18,6 @@ import argparse
 import os
 from typing import Optional, Sequence
 
-import numpy as np
 import torch
 
 from shallow_ntc_tpu_torch import configs
@@ -52,9 +51,7 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
 
   step = 0
   if args.params is not None:
-    with np.load(args.params) as npz:
-      params = {k: npz[k] for k in npz.files}
-    step = int(params.pop("step", 0))
+    params, step = eval_lib.read_params(args.params)
     model = eval_lib.build_model(model_config, params=params, device=args.device)
     xid = os.path.splitext(os.path.basename(args.params))[0]
   else:

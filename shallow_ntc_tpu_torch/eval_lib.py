@@ -43,6 +43,13 @@ def build_model(model_config: Optional[Mapping] = None,
   return model.to(device).eval()
 
 
+def read_params(path: str):
+  """(flat {flax path: array} params, step) of an .npz; step 0 without a "step" entry."""
+  with np.load(path) as npz:
+    params = {k: npz[k] for k in npz.files}
+  return params, int(params.pop("step", 0))
+
+
 def evaluate_images(model: Model, images: Iterable, step: int = 0) -> Iterator[Dict[str, float]]:
   """Yield one metrics dict per image.
 

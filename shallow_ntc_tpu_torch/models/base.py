@@ -3,10 +3,12 @@
 import math
 from typing import Dict, Mapping, Optional
 
+import numpy as np
 import torch
 
 from shallow_ntc_tpu_torch import schedule
 from shallow_ntc_tpu_torch.ops import metrics_ops
+from shallow_ntc_tpu_torch.ops import rounding
 
 
 def normalize_image(image):
@@ -25,11 +27,20 @@ def floats_to_pixels(x: torch.Tensor, training: bool) -> torch.Tensor:
   return x
 
 
-def resolve_uq_config(latent_config: Mapping) -> Dict:
-  """Copy of latent_config['uq']; only the 'unoise' method is ported."""
+def resolve_uq_config(latent_config: Mapping, step: int = 0) -> Dict:
+  """Copy of latent_config['uq'] with the SGA temperature of `step` injected
+  (models/base.py:49-66; its `itinf` argument is unused there): for method
+  'sga', tau = sga_schedule_at_step(step, tau_r, tau_ub, tau_lb, tau_t0,
+  tau_scheme). 'unoise', 'sga' and 'soft_round' are ported; 'mixedq' is not.
+  """
   cfg = dict(latent_config.get("uq", {"method": "unoise"}))
-  if cfg.get("method", "unoise") != "unoise":
-    raise NotImplementedError(f"uq method {cfg['method']!r} is not ported yet")
+  method = cfg.get("method", "unoise")
+  if method not in ("unoise", "sga", "soft_round"):
+    raise NotImplementedError(f"uq method {method!r} is not ported yet")
+  if method == "sga":
+    cfg["tau"] = rounding.sga_schedule_at_step(
+        step, r=cfg["tau_r"], ub=cfg["tau_ub"], lb=cfg.get("tau_lb", 1e-8),
+        t0=cfg["tau_t0"], scheme=cfg.pop("tau_scheme", "exp"))
   return cfg
 
 
@@ -49,23 +60,32 @@ def distortion_metrics(image_batch: torch.Tensor, reconstruction: torch.Tensor,
 
 def assemble_rd_loss(bpp_terms: Dict[str, torch.Tensor], mse: torch.Tensor,
                      psnr: torch.Tensor, rd_lambda_value: float, step: int,
-                     scheduled_num_steps: int,
+                     scheduled_num_steps: int, itinf: bool = False,
+                     uq_cfg: Optional[Mapping] = None,
                      extra_metrics: Optional[Dict[str, torch.Tensor]] = None):
-  """rd_loss = bpp + scheduled_lambda * mse, plus the reference's scalar set."""
+  """rd_loss = bpp + scheduled_lambda * mse, plus the reference's scalar set
+  (and the SGA temperature `tau` for method 'sga').
+
+  The schedule's scalars are host values: lambda enters rd_loss as a Python
+  float (a float32 value, so the product is JAX's), and the metrics
+  sched_rd_lambda and tau are float32 CPU tensors, so that no step copies a
+  scalar to the device and waits for it.
+  """
   bpp = sum(bpp_terms.values())
-  sched_lambda = torch.tensor(
-      schedule.scheduled_rd_lambda(rd_lambda_value, step, scheduled_num_steps),
-      dtype=torch.float32, device=mse.device)
-  rd_loss = bpp + sched_lambda * mse
+  sched_lambda = np.float32(schedule.scheduled_rd_lambda(
+      rd_lambda_value, step, scheduled_num_steps, itinf=itinf))
+  rd_loss = bpp + float(sched_lambda) * mse
   metrics = {
       "rd_loss": rd_loss,
       "bpp": bpp,
       "mse": mse,
       "psnr": psnr,
-      "sched_rd_lambda": sched_lambda,
+      "sched_rd_lambda": torch.tensor(sched_lambda),
   }
   if len(bpp_terms) > 1:
     metrics.update({f"{k}_bpp": v for k, v in bpp_terms.items()})
+  if uq_cfg is not None and uq_cfg.get("method") == "sga":
+    metrics["tau"] = torch.tensor(np.float32(uq_cfg["tau"]))
   if extra_metrics:
     metrics.update(extra_metrics)
   return rd_loss, metrics

@@ -7,9 +7,17 @@ Mirrors shallow_ntc_tpu/models/mshyper.py:
   y -> [64-scale indexed noisy Gaussian, loc=mu] -> y_hat, bits(y)
   y_hat -> synthesis -> x_hat -> unpad
   rd_loss = bpp + scheduled_lambda * mse (255 scale)
-Only the 'unoise' branch is ported (training and eval); mixedq and SGA come
-later. In training, z and y get additive U(-.5, .5) noise: given as
-noise=(u_z, u_y), or drawn from a torch.Generator, z's first.
+Two of the reference's three relaxation branches are ported: 'unoise'
+(training and eval) and the explicit sampling of iterative inference
+('sga', 'soft_round'); 'mixedq' is not. In training the latents' noise
+(uniform for unoise, logistic for sga) is given as noise=(n_z, n_y), or
+drawn from a torch.Generator, z's first.
+
+transforms_dtype (None, or torch.bfloat16 for iterative inference) is the
+computation type of the analysis, the hyper pair and the synthesis, as the
+flax model's `dtype`: each transform's input is cast to it, and the
+transforms compute in their input's type. Parameters, the entropy models and
+the latents stay float32.
 """
 
 from typing import Any, Mapping, Optional, Tuple
@@ -29,13 +37,15 @@ class Model(nn.Module):
 
   def __init__(self, transform_config: Mapping[str, Any], scheduled_num_steps: int = 1_500_000,
                rd_lambda: float = 0.01, offset_heuristic: bool = True,
-               latent_config: Optional[Mapping[str, Any]] = None):
+               latent_config: Optional[Mapping[str, Any]] = None,
+               transforms_dtype: Optional[torch.dtype] = None):
     super().__init__()
     self.scheduled_num_steps = scheduled_num_steps
     self.rd_lambda = rd_lambda
     self.offset_heuristic = offset_heuristic
     self.latent_config = dict(latent_config or {"uq": {"method": "unoise"}})
     base.resolve_uq_config(self.latent_config)  # raises for unported methods
+    self.transforms_dtype = transforms_dtype
     tc = transform_config
     self._analysis = build_transform(tc["analysis"], 3)
     bottleneck = self._analysis.output_depth
@@ -51,9 +61,12 @@ class Model(nn.Module):
     self.downsample_factor = (self._analysis.downsample_factor
                               * self._hyper_analysis.downsample_factor)
 
+  def _in_transforms_dtype(self, x: torch.Tensor) -> torch.Tensor:
+    return x if self.transforms_dtype is None else x.to(self.transforms_dtype)
+
   def infer_latent_rvs(self, x: torch.Tensor) -> LatentRVCollection:
     x = metrics_ops.pad_images(x, self.downsample_factor)
-    y = self._analysis(x)
+    y = self._analysis(self._in_transforms_dtype(x))
     z = self._hyper_analysis(y)
     return LatentRVCollection(uq=(UQLatentRV(loc=z), UQLatentRV(loc=y)))
 
@@ -64,11 +77,12 @@ class Model(nn.Module):
     algorithm by the memory layout too, so a view of the analysis's output
     and the codec's decoded z_hat would round mu differently. One layout is
     one program for every caller (codec/api.py's determinism contract)."""
-    mu, raw = torch.chunk(self._hyper_synthesis(z_hat.contiguous()), 2, dim=-1)
+    z_hat = self._in_transforms_dtype(z_hat).contiguous()
+    mu, raw = torch.chunk(self._hyper_synthesis(z_hat), 2, dim=-1)
     return mu, torch.exp(raw)
 
   def synthesize(self, y_hat: torch.Tensor) -> torch.Tensor:
-    return self._synthesis(y_hat)
+    return self._synthesis(self._in_transforms_dtype(y_hat))
 
   def prior_quantization_offset(self) -> Optional[torch.Tensor]:
     return self._prior.quantization_offset() if self.offset_heuristic else None
@@ -78,28 +92,40 @@ class Model(nn.Module):
                                   step: int = 0,
                                   noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                                   generator: Optional[torch.Generator] = None,
-                                  frozen_offset: Optional[torch.Tensor] = None):
+                                  frozen_offset: Optional[torch.Tensor] = None,
+                                  itinf: bool = False):
     """Returns (rd_loss, metrics, reconstruction on the 255 scale).
 
-    In training the offset-heuristic bisection is skipped: the noisy sample
-    does not read it, and JAX's values and gradients do not depend on it.
-    The offset is a function of the prior's parameters alone, so a caller
-    that holds them fixed (an eval pass, the codec) computes it once with
-    prior_quantization_offset() and passes it as `frozen_offset`.
+    The offset heuristic's grid is a function of the prior's parameters
+    alone, so a caller that holds them fixed (an eval pass, the codec,
+    iterative inference) computes it once with prior_quantization_offset()
+    and passes it as `frozen_offset`. The unoise branch in training skips
+    it: its noisy sample does not read it. The SGA sample is taken about it
+    in training too.
     """
+    uq_cfg = base.resolve_uq_config(self.latent_config, step)
+    method = uq_cfg.get("method", "unoise")
     z_rv, y_rv = latent_rvs.uq
-    u_z, u_y = noise if noise is not None else (None, None)
-    if training or not self.offset_heuristic:
+    n_z, n_y = noise if noise is not None else (None, None)
+    if not self.offset_heuristic or (training and method == "unoise"):
       offset = None
     elif frozen_offset is not None:
       offset = frozen_offset
     else:
       offset = self.prior_quantization_offset()
-    z_hat, z_bits = entropy.batched_em_call(
-        self._prior, z_rv.loc, offset, training=training, noise=u_z, generator=generator)
-    mu, indexes = self.hyper_synthesize(z_hat)
-    y_hat, y_bits = entropy.indexed_em_call(
-        y_rv.loc, indexes, mu, training=training, noise=u_y, generator=generator)
+    if method == "unoise":
+      z_hat, z_bits = entropy.batched_em_call(
+          self._prior, z_rv.loc, offset, training=training, noise=n_z, generator=generator)
+      mu, indexes = self.hyper_synthesize(z_hat)
+      y_hat, y_bits = entropy.indexed_em_call(
+          y_rv.loc, indexes, mu, training=training, noise=n_y, generator=generator)
+    else:  # explicit sampling (sga, soft_round) for iterative inference
+      z_hat = z_rv.sample(training, offset=offset, noise=n_z, generator=generator, **uq_cfg)
+      z_bits = entropy.bits_from_log_prob(self._prior.log_prob_noisy(z_hat))
+      mu, indexes = self.hyper_synthesize(z_hat)
+      y_hat = y_rv.sample(training, offset=mu, noise=n_y, generator=generator, **uq_cfg)
+      y_bits = entropy.bits_from_log_prob(
+          entropy.indexed_em_log_prob_centered(y_hat, indexes, mu))
     reconstruction = metrics_ops.unpad_images(self.synthesize(y_hat), image_batch.shape)
 
     num_pixels = float(image_batch.shape[1] * image_batch.shape[2])
@@ -109,7 +135,8 @@ class Model(nn.Module):
     }
     mse, psnr, extra, rec255 = base.distortion_metrics(image_batch, reconstruction, training)
     rd_loss, metrics = base.assemble_rd_loss(
-        bpp_terms, mse, psnr, self.rd_lambda, step, self.scheduled_num_steps, extra)
+        bpp_terms, mse, psnr, self.rd_lambda, step, self.scheduled_num_steps, itinf, uq_cfg,
+        extra)
     return rd_loss, metrics, rec255
 
   def end_to_end_frame_loss(self, image_batch: torch.Tensor, training: bool = False,

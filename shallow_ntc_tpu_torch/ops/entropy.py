@@ -1,7 +1,8 @@
 """Entropy models (mirrors shallow_ntc_tpu/ops/entropy.py).
 
 The entropy-model calls take the training-mode uniform noise explicitly
-(`noise`) or draw it from a torch.Generator (`generator`).
+(`noise`) or draw it from a torch.Generator (`generator`). The SGA branch
+samples its latents itself (latents.py) and evaluates them here.
 
 DeepFactorizedPrior is the side prior (tfc.NoisyDeepFactorized); the main
 latent is coded under a 64-scale indexed noisy Gaussian. Parameter names
@@ -80,7 +81,9 @@ class DeepFactorizedPrior(nn.Module):
     orig_shape = x.shape
     if orig_shape[-1] != self.channels:
       raise ValueError(f"expected {self.channels} channels, got {tuple(orig_shape)}")
-    logits = x.reshape(-1, self.channels).t()[:, None, :]  # (C, 1, N)
+    # (C, 1, N), in float32: a bfloat16 x (the eval of a model whose
+    # transforms compute in bfloat16) promotes, as in the JAX einsum.
+    logits = x.reshape(-1, self.channels).t()[:, None, :].float()
     n_layers = len(self.num_filters) + 1
     for i in range(n_layers):
       m = F.softplus(getattr(self, f"matrix_{i}"))
@@ -169,6 +172,15 @@ def indexed_em_call(y: torch.Tensor, indexes: torch.Tensor, loc: torch.Tensor,
     sample_c = round_st(centered)
   bits = bits_from_log_prob(noisy_normal_log_prob(sample_c, scales), coding_rank)
   return sample_c + loc, bits
+
+
+def indexed_em_log_prob_centered(sample: torch.Tensor, indexes: torch.Tensor,
+                                 loc: torch.Tensor) -> torch.Tensor:
+  """log p of an explicit (SGA) sample under the indexed prior: the sample is
+  centered by `loc` before it is evaluated under the zero-mean Gaussian
+  (entropy.py:279-288)."""
+  scales = scale_fn(normalize_indexes(indexes))
+  return noisy_normal_log_prob(sample - loc, scales)
 
 
 def indexed_em_quantize(y: torch.Tensor, loc: torch.Tensor) -> torch.Tensor:

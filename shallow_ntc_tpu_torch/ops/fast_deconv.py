@@ -131,6 +131,18 @@ def _packed_geometry(k: int, s: int, p: int):
   return min(deltas), max(deltas) - min(deltas) + 1, tuple(entries)
 
 
+@functools.lru_cache(maxsize=None)
+def _packed_taps(k: int, s: int, p: int, device: torch.device) -> Tuple[torch.Tensor, int, int]:
+  """(0/1 tensor [Tp, p, s*p, k] of _packed_geometry's entries on `device`,
+  delta_min, Tp), made once per geometry and device: a copy to the device
+  per call would wait for the device each time."""
+  dmin, tp, entries = _packed_geometry(k, s, p)
+  kh = np.zeros((tp, p, s * p, k), np.float32)
+  for d, a, t, ph in entries:
+    kh[d - dmin, a, ph, t] = 1.0
+  return torch.as_tensor(kh, device=device), dmin, tp
+
+
 def packed_conv_transpose(x_packed: torch.Tensor, kernel: torch.Tensor,
                           bias: Optional[torch.Tensor], stride: int,
                           pack: int) -> torch.Tensor:
@@ -139,11 +151,7 @@ def packed_conv_transpose(x_packed: torch.Tensor, kernel: torch.Tensor,
   s, p = stride, pack
   k = kernel.shape[0]
   c_in, c_out = kernel.shape[2], kernel.shape[3]
-  dmin, tp, entries = _packed_geometry(k, s, p)
-  kh = np.zeros((tp, p, s * p, k), np.float32)
-  for d, a, t, ph in entries:
-    kh[d - dmin, a, ph, t] = 1.0
-  khj = torch.as_tensor(kh, device=kernel.device)
+  khj, dmin, tp = _packed_taps(k, s, p, kernel.device)
   w_full = torch.einsum("dapt,ebqu,tuio->deabipqo", khj, khj, kernel.float())
   w_full = w_full.reshape(tp, tp, p * p * c_in, (s * p) * (s * p) * c_out)
   out_small = conv_s1(x_packed, w_full.to(x_packed.dtype), -dmin, tp - 1 + dmin)

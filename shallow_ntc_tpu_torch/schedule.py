@@ -2,8 +2,8 @@
 
 Scalar functions of an integer step, evaluated in float32 as the JAX
 package evaluates them, so the port's learning rate and rd-lambda equal
-JAX's bit for bit. Only the piecewise-constant interpolation is ported (the
-sine one serves SGA, which is not ported yet).
+JAX's bit for bit. Only the piecewise-constant interpolation is ported: the
+JAX package's piecewise_sine_schedule has no caller there.
 """
 
 from typing import Callable, Optional, Sequence
@@ -55,12 +55,14 @@ def compression_schedule(base_learning_rate: float, total_num_steps: int,
   return lr_fn
 
 
-def scheduled_rd_lambda(rd_lambda: float, step: int, scheduled_num_steps: int) -> float:
-  """10x rd_lambda during the first 20% of training when lambda <= 0.01.
+def scheduled_rd_lambda(rd_lambda: float, step: int, scheduled_num_steps: int,
+                        itinf: bool = False) -> float:
+  """10x rd_lambda during the first 20% of training when lambda <= 0.01;
+  never during iterative inference (itinf).
 
-  The product is taken in float32, as the JAX package takes it. (Iterative
-  inference, which disables the warm-up, is not ported yet.)
+  The product is taken in float32, as the JAX package takes it.
   """
-  if rd_lambda <= 0.01 and step < int(scheduled_num_steps * HIGHER_LAMBDA_UNTIL):
+  if (rd_lambda <= 0.01 and not itinf
+      and step < int(scheduled_num_steps * HIGHER_LAMBDA_UNTIL)):
     return float(np.float32(rd_lambda) * np.float32(HIGHER_LAMBDA_FACTOR))
   return rd_lambda

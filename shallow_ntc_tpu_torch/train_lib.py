@@ -217,6 +217,21 @@ def latest_checkpoint_step(workdir: str) -> Optional[int]:
   return steps[-1] if steps else None
 
 
+def model_from_checkpoint(workdir: str, model_config: Mapping[str, Any],
+                          device: Optional[str] = "cuda") -> Model:
+  """The model of `model_config` with the params of the newest checkpoint under
+  `workdir`, on `device` in eval mode."""
+  step = latest_checkpoint_step(workdir)
+  if step is None:
+    raise FileNotFoundError(f"no checkpoint under {checkpoint_dir(workdir)}")
+  device = eval_lib.resolve_device(device)
+  payload = torch.load(os.path.join(checkpoint_dir(workdir), f"ckpt_{step}.pt"),
+                       map_location="cpu", weights_only=True)
+  model = Model(**{k: v for k, v in model_config.items() if k != "optimizer_config"})
+  model.load_state_dict(payload["model"])
+  return model.to(device).eval()
+
+
 def restore_checkpoint(workdir: str, state: TrainState) -> TrainState:
   """Load the newest checkpoint under `workdir` into `state` (in place)."""
   step = latest_checkpoint_step(workdir)

@@ -375,3 +375,68 @@ def test_codec_batch_paths_on_the_card_match_the_per_image_path(cuda_device):
     np.testing.assert_array_equal(rec, s.reconstruction)
   for rec, s in zip(codec.decompress_batch(blobs, chunk_size=2), singles):
     assert np.abs(rec.astype(int) - s.reconstruction).max() <= 1
+
+
+def _small_itinf(device):
+  """configs.ITINF's model at narrow ELIC widths (the smoke config), seeded,
+  float32 transforms, and its SGA functions."""
+  from shallow_ntc_tpu_torch import configs, eval_lib, itinf_lib
+
+  cfg = dict(configs.ITINF["model_config"],
+             transform_config=configs.TRAIN_CONFIGS["smoke"]["model_config"]["transform_config"])
+  model = eval_lib.build_model(cfg, init_seed=0, device=device)
+  return model, itinf_lib.make_itinf_functions(model, cfg["optimizer_config"], 3000)
+
+
+@pytest.mark.gpu
+def test_sga_steps_on_the_card_match_the_cpu(cuda_device):
+  """3 SGA steps of a 128x192 image on the card and on the CPU from the same
+  latents with the same logistic draws: rd_loss, bpp and PSNR rtol 1e-4; the
+  latents within 0.05 * the summed lr elementwise, or else the difference's
+  L2 within 1e-2 of the L2 of the latents' movement (Adam moves an element
+  whose gradient is within rounding of 0 by lr either way; chip_smoke.py
+  phase 12 holds the full width so). Each step launches final_deconv_phase
+  once."""
+  x = _codec_image(5, 128, 192)[None]
+  runs = {d: _small_itinf(d) for d in ("cpu", "cuda")}
+  state = {d: fns.init(torch.from_numpy(x).to(d)) for d, (_, fns) in runs.items()}
+  with torch.no_grad():
+    for a, b in zip(state["cuda"][0].uq, state["cpu"][0].uq):
+      a.loc.copy_(b.loc)
+  init = [rv.loc.detach().clone() for rv in state["cpu"][0].uq]
+  rng = np.random.default_rng(1)
+  lr_sum = 0.0
+  for step in range(3):
+    draws = [rng.logistic(size=tuple(v.shape)).astype(np.float32) for v in init]
+    metrics = {}
+    for d, (_, fns) in runs.items():
+      launches = tl.STATS.launches
+      metrics[d] = fns.step(torch.from_numpy(x).to(d), *state[d], step, None,
+                            noise=tuple(torch.from_numpy(n).to(d) for n in draws))
+      if d == "cuda":
+        torch.cuda.synchronize()
+        assert tl.STATS.launches == launches + 1
+    lr_sum += float(metrics["cpu"]["scheduled_lr"])
+    for key in ("rd_loss", "bpp", "psnr"):
+      np.testing.assert_allclose(float(metrics["cuda"][key]), float(metrics["cpu"][key]),
+                                 rtol=1e-4, err_msg=f"step {step} {key}")
+    for a, b, b0 in zip(state["cuda"][0].uq, state["cpu"][0].uq, init):
+      diff = (a.loc.detach().cpu() - b.loc.detach()).abs()
+      if diff.max() > 0.05 * lr_sum:
+        assert diff.norm() <= 1e-2 * (b.loc.detach() - b0).norm(), step
+
+
+@pytest.mark.gpu
+def test_sga_run_launches_final_deconv_once_per_step_and_val_pass(cuda_device):
+  """itinf_on_data_batch with 4 steps and a val pass every 2: 4 + 2 launches;
+  the latents come back float32."""
+  from shallow_ntc_tpu_torch import itinf_lib
+
+  model, fns = _small_itinf(cuda_device)
+  launches = tl.STATS.launches
+  _, val, itinf_vars = itinf_lib.itinf_on_data_batch(
+      model, _codec_image(6, 128, 192)[None],
+      dict(num_steps=4, log_metrics_every_steps=2, eval_every_steps=2), {}, fns=fns)
+  torch.cuda.synchronize()
+  assert tl.STATS.launches == launches + 6
+  assert all(v.dtype == np.float32 for v in itinf_vars.values()) and np.isfinite(val["rd_loss"])
