@@ -72,6 +72,26 @@ Phases, one flushed line each with its seconds (TF32 off throughout):
                analysis); 300 steps with bf16 transforms (val rd_loss within
                1.05x the amortized); an init with the chain against the cuDNN
                init (z and y).
+ 13. factorized  the factorized family (bls2017_rd, 192 filters) at full
+               width, seeded weights: eval of three 512x768 f32 images, a B=8
+               bf16 decode, GPU against CPU on a 192x256 crop (y and the
+               prior's CDF logits to 1e-4, PSNR rtol 1e-3; the bpp and the
+               count of elements where the prior's lo + up == 0 reported), 2
+               train steps through train_lib.train_and_eval at B=8 256x256 and
+               the train step's time, codec round trips of the three images
+               bit-exact GPU to GPU, also across two processes through the
+               CLI, the batch paths, the codec's times, and ITINF_FACTORIZED's
+               SGA run (3000 steps, or 1000 if a step takes over 10 ms; f32
+               transforms) with its val rd_loss at or below the amortized
+               eval's. The family runs no Pallas kernel in JAX: none launches.
+ 14. families  two_layer_syn2 (CNN analysis 256 -> 320, TwoLayerSynthesis,
+               mixedq) and mbt2018 at full width, seeded weights: eval of three
+               images, a codec round trip, GPU against CPU on the 192x256 crop;
+               two_layer_syn2's B=8 bf16 decode and 2 mixedq train steps.
+               final_deconv_phase's count, zeroed and read around each path,
+               equals two_layer_syn2's forwards; mbt2018 launches no kernel.
+Phase 11 also times the B=8 bf16 decodes of bls2017_rd, two_layer_syn2 and
+mbt2018.
 Then one JSON line of kernels, the nvidia-smi line, and the last line
 {"ok": true, "device": {...}}. Any failed phase exits non-zero before that
 line. Without CUDA, or without the port beside this script, it exits 1.
@@ -695,6 +715,448 @@ def itinf_phase(image, zero_counts, read_counts, smi):
   return summary
 
 
+def make_reference(small, zero_counts, read_counts):
+  """The GPU-against-CPU check of phases 5, 9, 13 and 14 on the crop `small`."""
+  import torch
+  from shallow_ntc_tpu_torch.latents import LatentRVCollection, UQLatentRV
+
+  dev = torch.device("cuda")
+
+  def reference(phase, model_gpu, model_cpu):
+    """GPU eval of the 192x256 crop against the CPU eval; return the GPU
+    launch counts of the part from the same latents on. Either family: the
+    prior's latent is z for mshyper and y for factorized, whose total rate
+    is the prior's and so only reported; where the offset heuristic is off
+    the prior's grid is the integers."""
+    t = time.time()
+    failures = []
+
+    def compare(name, gpu_t, cpu_t):
+      err = (gpu_t.cpu() - cpu_t).abs().max().item()
+      scale = cpu_t.abs().max().item()
+      log(phase, f"192x256 {name}: max|gpu-cpu| {err:.3e}, max|cpu| {scale:.3f} "
+          f"(tol 1e-4 * max(1, max|cpu|))")
+      if err > 1e-4 * max(1.0, scale):
+        failures.append(name)
+
+    with torch.no_grad():
+      rv_cpu = model_cpu.infer_latent_rvs(small)
+      rv_gpu = model_gpu.infer_latent_rvs(small.to(dev))
+      names = ("z", "y")[-len(rv_cpu.uq):]
+      for name, a, b in zip(names, rv_gpu.uq, rv_cpu.uq):
+        compare(name, a.loc, b.loc)
+      z_off = model_cpu.prior_quantization_offset()
+      z_q = torch.round(rv_cpu.uq[0].loc - (0.0 if z_off is None else z_off))
+      z_q = z_q if z_off is None else z_q + z_off
+      sums = []
+      for shift in (-0.5, 0.5):
+        logits = (model_gpu._prior.logits_cdf(z_q.to(dev) + shift).cpu(),
+                  model_cpu._prior.logits_cdf(z_q + shift))
+        compare(f"prior logits at {names[0]}_hat{shift:+.1f}", *logits)
+        sums.append(logits)
+      floored = [int(((sums[0][i] + sums[1][i]) == 0).sum()) for i in (0, 1)]
+      log(phase, f"192x256 elements of {names[0]}_hat where the prior's lo + up == 0 (the sign "
+          f"trick's floor): gpu {floored[0]}, cpu {floored[1]} of {z_q.numel()}")
+      same = LatentRVCollection(uq=tuple(UQLatentRV(loc=r.loc.to(dev)) for r in rv_cpu.uq))
+      zero_counts()
+      _, m_gpu, rec_gpu = model_gpu.frame_loss_given_latent_rvs(small.to(dev), same)
+      counts = read_counts()
+      _, m_cpu, rec_cpu = model_cpu.frame_loss_given_latent_rvs(small, rv_cpu)
+    for key in ("latent_bpp", "psnr", "hyper_latent_bpp", "bpp"):
+      if key not in m_cpu:
+        continue
+      gpu_v, cpu_v = float(m_gpu[key]), float(m_cpu[key])
+      rel = abs(gpu_v - cpu_v) / abs(cpu_v)
+      held = key in ("latent_bpp", "psnr")
+      log(phase, f"192x256 {key}: gpu {gpu_v:.6f} cpu {cpu_v:.6f} rel {rel:.2e} "
+          + ("(tol 1e-3)" if held else "(reported: includes the floored elements)"))
+      if held and rel > 1e-3:
+        failures.append(key)
+    same_px = (rec_gpu.cpu() == rec_cpu).float().mean().item()
+    log(phase, f"192x256 reconstruction: {same_px:.6f} of pixels equal on the 255 grid "
+        f"(tol 0.99); GPU launches from the latents on {counts}; done in {time.time() - t:.1f}s")
+    check(same_px >= 0.99 and not failures, f"GPU eval disagrees with the CPU eval: {failures}")
+    return counts
+
+  return reference
+
+
+def make_decode(model, y_hat, z_hat):
+  """The B=8 decode of a model as a function: the hyper-synthesis of z_hat
+  (mshyper) and the synthesis of y_hat."""
+  import torch
+
+  def decode():
+    with torch.no_grad():
+      if hasattr(model, "hyper_synthesize"):
+        mu, idx = model.hyper_synthesize(z_hat)
+        return mu, idx, model.synthesize(y_hat)
+      return None, None, model.synthesize(y_hat)
+
+  return decode
+
+
+def check_decode(name, out, y_hat):
+  import torch
+
+  mu, idx, rec = out
+  b, h, w, _ = y_hat.shape
+  check(rec.shape == (b, 16 * h, 16 * w, 3) and torch.isfinite(rec).all().item()
+        and (mu is None or (mu.shape == y_hat.shape and torch.isfinite(idx).all().item())),
+        f"the {name} decode output has the wrong shape or is not finite")
+
+
+def train_two_steps(phase, name, family, zero_counts, read_counts, steps, all_move=True):
+  """`steps` steps of a TRAIN_CONFIGS entry through train_lib.train_and_eval at
+  B=8 256x256 f32 and its final eval: losses finite, every parameter moved
+  (with all_move=False: some moved, the rest listed). Returns (launch
+  counts, number of forwards)."""
+  import torch
+  from shallow_ntc_tpu_torch import configs, train_lib
+
+  cfg = copy.deepcopy(configs.TRAIN_CONFIGS[name])
+  cfg["train_eval_config"]["log_metrics_every_steps"] = 1
+  with tempfile.TemporaryDirectory(prefix=f"chip_smoke_train_{name}_") as workdir:
+    zero_counts()
+    t = time.time()
+    state = train_lib.train_and_eval(cfg, workdir, device="cuda", init_seed=0, num_steps=steps)
+    counts = read_counts()
+    with open(os.path.join(workdir, "train", "record.jsonl")) as f:
+      rows = [json.loads(line) for line in f]
+    with open(os.path.join(workdir, "val", "record.jsonl")) as f:
+      val = [json.loads(line) for line in f]
+  for r in rows:
+    log(phase, f"{name} step {r['step']}: rd_loss {r['rd_loss']:.5f} bpp {r['bpp']:.5f} "
+        f"psnr {r['psnr']:.4f} steps/s {r['steps_per_sec']:.3f}")
+  forwards = steps + cfg["train_eval_config"]["max_validation_steps"]
+  log(phase, f"{name}: val rd_loss {val[-1]['rd_loss']:.5f}; {steps} steps of B={TRAIN_BATCH} "
+      f"{TRAIN_HW}x{TRAIN_HW} f32 + val ({forwards} forwards) in {time.time() - t:.1f}s; "
+      f"launches {counts}")
+  check([r["step"] for r in rows] == list(range(1, steps + 1))
+        and all(np.isfinite(v) for r in rows + val for v in r.values()),
+        f"a {name} train step's metrics are missing or not finite")
+  init, _ = train_lib.build_model(cfg["model_config"], init_seed=0, device="cuda", family=family)
+  unmoved = [k for k, v in init.state_dict().items()
+             if torch.equal(v, state.model.state_dict()[k])]
+  log(phase, f"{name}: {len(unmoved)} of {len(init.state_dict())} parameter tensors unchanged"
+      + (f" ({unmoved})" if unmoved else ""))
+  check(not unmoved or (not all_move and len(unmoved) < len(init.state_dict())),
+        f"{name} parameters did not move: {unmoved[:5]}")
+  return counts, forwards
+
+
+def timed_factorized_compress(codec, x):
+  """FactorizedCodec.compress step by step: (blob, device-leg seconds, host
+  rANS seconds), as timed_compress."""
+  h, w = x.shape[1], x.shape[2]
+  t0 = time.perf_counter()
+  (y,) = codec._fetch(codec._analyze(x))()
+  t1 = time.perf_counter()
+  blob, y_hat = codec._encode_host(y, h, w)
+  t2 = time.perf_counter()
+  codec._reconstruct(y_hat, h, w)
+  t3 = time.perf_counter()
+  return blob, (t1 - t0) + (t3 - t2), t2 - t1
+
+
+def timed_factorized_decompress(codec, blob):
+  t0 = time.perf_counter()
+  h, w, y_hat = codec.decode_latent(blob)
+  t1 = time.perf_counter()
+  rec = codec._reconstruct(y_hat, h, w)
+  t2 = time.perf_counter()
+  return rec, t2 - t1, t1 - t0
+
+
+def cli_roundtrip(phase, config, raw, dev):
+  """Compress in one process and decompress in another through the codec
+  CLI (--init_seed 0); returns (blob, image)."""
+  root = os.path.dirname(os.path.abspath(__file__))
+  with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+    np.save(os.path.join(tmp, "img.npy"), raw)
+    t = time.time()
+    for argv in (["compress", "--input", "img.npy", "--output", "img.sntc"],
+                 ["decompress", "--input", "img.sntc", "--output", "rec.npy"]):
+      proc = subprocess.run([sys.executable, "-m", "shallow_ntc_tpu_torch.compress", *argv,
+                             "--config", config, "--init_seed", "0", "--device", dev.type],
+                            cwd=tmp, capture_output=True, text=True, timeout=300,
+                            env=dict(os.environ, PYTHONPATH=root))
+      check(proc.returncode == 0, f"the compress CLI failed: {proc.stderr[-2000:]}")
+      log(phase, f"CLI --config {config} {argv[0]}: {proc.stdout.strip()}")
+    with open(os.path.join(tmp, "img.sntc"), "rb") as f:
+      blob = f.read()
+    rec = np.load(os.path.join(tmp, "rec.npy"))
+  log(phase, f"CLI in two processes: {time.time() - t:.1f}s")
+  return blob, rec
+
+
+FACTORIZED_TRAIN_STEPS = 2
+
+
+def factorized_phase(images, zero_counts, read_counts, smi, reference):
+  """Phase 13: the factorized family at full width (bls2017_rd, 192 filters),
+  seeded weights: eval of three 512x768 f32 images, a B=8 bf16 decode, GPU
+  against CPU on a 192x256 crop, 2 train steps through train_and_eval and
+  the train step's time, codec round trips (also through the CLI in two
+  processes) and their times, and ITINF_FACTORIZED's SGA run. The family
+  runs no Pallas kernel in JAX, so no kernel of the port launches here.
+  Returns the phase's numbers."""
+  import itertools
+
+  import torch
+  from shallow_ntc_tpu_torch import configs, eval_lib, itinf_lib, train_lib
+  from shallow_ntc_tpu_torch.codec import api as codec_api
+  from shallow_ntc_tpu_torch.models import base as models_base
+
+  phase = "factorized"
+  dev = torch.device("cuda")
+  cfg, _, family = configs.eval_config("bls2017_rd")
+  model = eval_lib.build_model(cfg, init_seed=0, device="cuda", family=family)
+  n_params = sum(p.numel() for p in model.parameters())
+  zero_counts()
+  t = time.time()
+  records = list(eval_lib.evaluate_images(model, images))
+  torch.cuda.synchronize()
+  eval_s = time.time() - t
+  counts = {"eval": read_counts()}
+  for i, r in enumerate(records):
+    log(phase, f"bls2017_rd image {i} {EVAL_HW[0]}x{EVAL_HW[1]}: bpp {r['bpp']:.5f} psnr "
+        f"{r['psnr']:.4f} msssim {r['msssim']:.5f} rd_loss {r['rd_loss']:.5f}")
+  log(phase, f"bls2017_rd, {n_params} params: {len(records)} images in {eval_s:.2f}s; launches "
+      f"{counts['eval']}")
+  check(all(np.isfinite(r[k]) for r in records for k in ("bpp", "psnr", "msssim", "rd_loss"))
+        and "latent_bpp" not in records[0], "bls2017_rd eval metrics not finite, or two rates")
+
+  d_rng = np.random.default_rng(14)
+  mh, mw = EVAL_HW[0] // 16, EVAL_HW[1] // 16
+  y_hat = torch.from_numpy(d_rng.integers(-8, 8, (DECODE_BATCH, mh, mw, 192))).to(
+      dev, torch.bfloat16)
+  m16 = eval_lib.build_model(cfg, init_seed=0, device="cuda", family=family).to(torch.bfloat16)
+  zero_counts()
+  check_decode("bls2017_rd", make_decode(m16, y_hat, None)(), y_hat)
+  counts["decode"] = read_counts()
+  log(phase, f"bls2017_rd decode B={DECODE_BATCH} {EVAL_HW[0]}x{EVAL_HW[1]} bf16: shape and "
+      f"values held; launches {counts['decode']}")
+  del m16
+
+  model_cpu = eval_lib.build_model(cfg, init_seed=0, device="cpu", family=family)
+  reference(phase, model, model_cpu)
+
+  counts["train"], _ = train_two_steps(phase, "bls2017_rd", family, zero_counts, read_counts,
+                                       FACTORIZED_TRAIN_STEPS)
+  t_model, opt_cfg = train_lib.build_model(configs.TRAIN_CONFIGS["bls2017_rd"]["model_config"],
+                                           init_seed=0, device="cuda", family=family)
+  t_state, lr_fn = train_lib.create_train_state(t_model, opt_cfg)
+  t_step = train_lib.make_train_step(t_model, t_state.optimizer, lr_fn)
+  t_batch = torch.from_numpy((d_rng.integers(0, 256, (TRAIN_BATCH, TRAIN_HW, TRAIN_HW, 3))
+                              / 255.0 - 0.5).astype(np.float32)).to(dev)
+  train_step_ms = [cuda_ms(torch, lambda: t_step(t_state, t_batch), iters=8, warmup=2)
+                   for _ in range(2)]
+  log(phase, f"bls2017_rd train step B={TRAIN_BATCH} {TRAIN_HW}x{TRAIN_HW} f32: "
+      + " / ".join(f"{x:.3f}" for x in train_step_ms) + f" ms  [{smi}]")
+  del t_model, t_state, t_step, t_batch
+
+  # The codec: two 512x768 images and a 500x740 one, bit-exact GPU to GPU.
+  codec = codec_api.make_codec(model)
+  check(isinstance(codec, codec_api.FactorizedCodec), "make_codec gave no FactorizedCodec")
+  xs = [images[0], images[1], images[2][:500, :740]]
+  results = []
+  for x, r in zip(xs, records):
+    zero_counts()
+    result = codec.compress(x)
+    rec = codec.decompress(result.bitstring)
+    c = read_counts()
+    exact = rec.shape == x.shape and np.array_equal(rec, result.reconstruction)
+    results.append(result)
+    log(phase, f"codec {x.shape[0]}x{x.shape[1]}: {len(result.bitstring)} bytes, bpp "
+        f"{result.bpp:.5f} (the full image's likelihood: {r['bpp']:.5f}); streams "
+        f"{codec_api.stream_counts(result.bitstring)}; bit-exact {exact}; launches {c}")
+    check(exact, f"factorized {x.shape[:2]}: the decoder's image differs from the encoder's")
+  raw = np.round((images[0] + 0.5) * 255.0).astype(np.uint8)
+  cli_blob, cli_rec = cli_roundtrip(phase, "bls2017_rd", raw, dev)
+  ref = codec.compress(models_base.normalize_image(raw.astype(np.float32)))
+  same = cli_blob == ref.bitstring and np.array_equal(cli_rec, ref.reconstruction)
+  log(phase, f"CLI bytes and image equal to this process's: {same}")
+  check(same, "the factorized CLI's two processes disagree with the in-process codec")
+  blobs = [r.bitstring for r in results]
+  batch = codec.compress_batch(xs, reconstruct=True)
+  strict = codec.decompress_batch(blobs, strict=True)
+  held = ([b.bitstring for b in batch] == blobs
+          and all(np.array_equal(d, r.reconstruction) for d, r in zip(strict, results))
+          and all(np.abs(b.reconstruction.astype(int) - r.reconstruction).max() <= 1
+                  for b, r in zip(batch, results)))
+  log(phase, f"batch paths against the per-image path: {held}")
+  check(held, "the factorized batch paths disagree with the per-image path")
+  reps = 10
+  for _ in range(2):
+    codec.decompress(codec.compress(xs[0]).bitstring)
+  c_parts = [timed_factorized_compress(codec, xs[0][None]) for _ in range(reps)]
+  d_parts = [timed_factorized_decompress(codec, blobs[0]) for _ in range(reps)]
+  check(all(p[0] == blobs[0] for p in c_parts)
+        and all(np.array_equal(p[0], results[0].reconstruction) for p in d_parts),
+        "the timed steps differ from compress / decompress")
+  t = time.perf_counter()
+  for _ in range(reps):
+    codec.compress(xs[0])
+  c_ms = (time.perf_counter() - t) / reps * 1e3
+  t = time.perf_counter()
+  for _ in range(reps):
+    codec.decompress(blobs[0])
+  d_ms = (time.perf_counter() - t) / reps * 1e3
+  timing = dict(compress_ms=c_ms, decompress_ms=d_ms,
+                compress_device_ms=float(np.mean([p[1] for p in c_parts])) * 1e3,
+                compress_host_rans_ms=float(np.mean([p[2] for p in c_parts])) * 1e3,
+                decompress_device_ms=float(np.mean([p[1] for p in d_parts])) * 1e3,
+                decompress_host_rans_ms=float(np.mean([p[2] for p in d_parts])) * 1e3)
+  log(phase, f"codec {EVAL_HW[0]}x{EVAL_HW[1]}, mean of {reps} after a warm-up: compress "
+      f"{c_ms:.2f} ms (device "
+      f"legs {timing['compress_device_ms']:.2f}, host rANS {timing['compress_host_rans_ms']:.2f}),"
+      f" decompress {d_ms:.2f} ms (device legs {timing['decompress_device_ms']:.2f}, host rANS "
+      f"{timing['decompress_host_rans_ms']:.2f})  [{smi}]")
+  del model, model_cpu, codec
+
+  # SGA: ITINF_FACTORIZED on image 0. ms per step (float32 and bf16
+  # transforms, TF32 off), then the config's run with float32 transforms:
+  # 3000 steps, or 1000 (scheduled over 1000) if a step takes over 10 ms.
+  icfg = copy.deepcopy(configs.ITINF_FACTORIZED)
+  opt_cfg = icfg["model_config"]["optimizer_config"]
+  te = icfg["train_eval_config"]
+  smodel = eval_lib.build_model(icfg["model_config"], init_seed=0, device="cuda",
+                                family=icfg["model_family"])
+  x_np = images[0][None]
+  x_dev = torch.from_numpy(x_np).to(dev)
+  step_ms = {}
+  for name, dtype in (("float32", None), ("bfloat16", torch.bfloat16)):
+    smodel.transforms_dtype = dtype
+    f = itinf_lib.make_itinf_functions(smodel, opt_cfg, te["num_steps"])
+    latents, optimizer = f.init(x_dev)
+    gen = torch.Generator(device=dev)
+    count = itertools.count()
+
+    def one_step():
+      s = next(count)
+      f.step(x_dev, latents, optimizer, s, None, generator=itinf_lib.seed_step(gen, 0, s))
+
+    step_ms[name] = cuda_ms(torch, one_step, iters=30, warmup=5)
+    log(phase, f"SGA step {EVAL_HW[0]}x{EVAL_HW[1]} {name} transforms, TF32 off: "
+        f"{step_ms[name]:.4f} ms  [{smi}]")
+  smodel.transforms_dtype = None
+  n_steps = te["num_steps"] if step_ms["float32"] <= 10.0 else 1000
+  if n_steps != te["num_steps"]:
+    smodel.scheduled_num_steps = n_steps
+  run_cfg = dict(te, num_steps=n_steps)
+  amortized_m = next(eval_lib.evaluate_images(smodel, x_np, step=smodel.scheduled_num_steps))
+  zero_counts()
+  t = time.time()
+  _, val_m, itinf_vars = itinf_lib.itinf_on_data_batch(smodel, x_np, run_cfg, opt_cfg, seed=0)
+  torch.cuda.synchronize()
+  run_s = time.time() - t
+  counts["itinf"] = read_counts()
+  log(phase, f"ITINF_FACTORIZED, {n_steps} steps of {EVAL_HW[0]}x{EVAL_HW[1]} f32 in "
+      f"{run_s:.2f}s: val rd_loss {val_m['rd_loss']:.5f} bpp {val_m['bpp']:.5f} psnr "
+      f"{val_m['psnr']:.4f} against the amortized rd_loss {amortized_m['rd_loss']:.5f}; "
+      f"launches {counts['itinf']}  [{smi}]")
+  check(set(itinf_vars) == {"uq_0_loc"} and itinf_vars["uq_0_loc"].dtype == np.float32
+        and all(np.isfinite(v) for v in val_m.values()), "the factorized SGA run's output")
+  check(amortized_m["sched_rd_lambda"] == val_m["sched_rd_lambda"],
+        "the amortized eval's lambda is not SGA's")
+  check(val_m["rd_loss"] <= amortized_m["rd_loss"],
+        f"factorized SGA did not improve on the amortized rd_loss: {val_m['rd_loss']} > "
+        f"{amortized_m['rd_loss']}")
+  check(all(sum(c.values()) == 0 for c in counts.values()),
+        f"the factorized family launched a kernel: {counts}")
+  summary = dict(eval_seconds=eval_s, train_step_ms=train_step_ms, codec=timing,
+                 bpp=[r.bpp for r in results], sga_step_ms=step_ms, sga_steps=n_steps,
+                 sga_seconds=run_s, val_rd_loss=val_m["rd_loss"],
+                 amortized_rd_loss=amortized_m["rd_loss"], launches=counts, nvidia_smi=smi)
+  log(phase, "summary " + json.dumps(summary))
+  return summary
+
+
+def families_phase(images, zero_counts, read_counts, smi, reference):
+  """Phase 14: two_layer_syn2 (CNN 256 -> 320, TwoLayerSynthesis, mixedq) and
+  mbt2018 at full width, seeded weights: eval of three images, a codec round
+  trip and GPU against CPU on a 192x256 crop each; for two_layer_syn2 also
+  the B=8 bf16 decode and 2 mixedq train steps. final_deconv_phase's count is
+  zeroed and read around each of two_layer_syn2's paths and must equal its
+  forwards; mbt2018 launches no kernel. Returns the launch counts."""
+  import torch
+  from shallow_ntc_tpu_torch import configs, eval_lib
+  from shallow_ntc_tpu_torch.codec import api as codec_api
+  from shallow_ntc_tpu_torch.ops import twolayer_final as tl
+
+  phase = "families"
+  dev = torch.device("cuda")
+  mh, mw = EVAL_HW[0] // 16, EVAL_HW[1] // 16
+  f_rng = np.random.default_rng(16)
+  y_hat = torch.from_numpy(f_rng.integers(-8, 8, (DECODE_BATCH, mh, mw, 320))).to(
+      dev, torch.bfloat16)
+  z_hat = torch.from_numpy(f_rng.integers(-8, 8, (DECODE_BATCH, mh // 4, mw // 4, 320))).to(
+      dev, torch.bfloat16)
+  launches = {}
+  for name in ("two_layer_syn2", "mbt2018"):
+    cfg, _, family = configs.eval_config(name)
+    model = eval_lib.build_model(cfg, init_seed=0, device="cuda", family=family)
+    n_params = sum(p.numel() for p in model.parameters())
+    expect = (lambda n: n) if name == "two_layer_syn2" else (lambda n: 0)
+    counts = {}
+    zero_counts()
+    t = time.time()
+    records = list(eval_lib.evaluate_images(model, images))
+    counts["eval"] = read_counts()
+    for i, r in enumerate(records):
+      log(phase, f"{name} image {i} {EVAL_HW[0]}x{EVAL_HW[1]}: bpp {r['bpp']:.5f} psnr "
+          f"{r['psnr']:.4f} msssim {r['msssim']:.5f} rd_loss {r['rd_loss']:.5f}")
+    log(phase, f"{name}, {n_params} params, offset heuristic {model.offset_heuristic}: "
+        f"{len(records)} images in {time.time() - t:.2f}s; launches {counts['eval']}")
+    check(all(np.isfinite(r[k]) for r in records for k in ("bpp", "psnr", "msssim", "rd_loss")),
+          f"{name} eval metrics not finite")
+    counts["reference"] = reference(phase, model,
+                                    eval_lib.build_model(cfg, init_seed=0, device="cpu",
+                                                         family=family))
+    codec = codec_api.make_codec(model)
+    zero_counts()
+    result = codec.compress(images[0])
+    counts["compress"] = read_counts()
+    zero_counts()
+    rec = codec.decompress(result.bitstring)
+    counts["decompress"] = read_counts()
+    exact = np.array_equal(rec, result.reconstruction)
+    log(phase, f"{name} codec {EVAL_HW[0]}x{EVAL_HW[1]}: {len(result.bitstring)} bytes, bpp "
+        f"{result.bpp:.5f} "
+        f"(likelihood {records[0]['bpp']:.5f}); bit-exact {exact}; launches compress "
+        f"{counts['compress']}, decompress {counts['decompress']}")
+    check(exact, f"{name}: the decoder's image differs from the encoder's")
+    forwards = {"eval": len(images), "reference": 1, "compress": 1, "decompress": 1}
+    if name == "two_layer_syn2":
+      check(not model.offset_heuristic, "two_layer_syn2 (mixedq) kept the offset heuristic")
+      m16 = eval_lib.build_model(cfg, init_seed=0, device="cuda", family=family).to(
+          torch.bfloat16)
+      zero_counts()
+      check_decode(name, make_decode(m16, y_hat, z_hat)(), y_hat)
+      counts["decode"] = read_counts()
+      forwards["decode"] = 1
+      del m16
+      # Not every parameter can move in 2 steps here: mixedq decodes the
+      # rounded latents, and at this seeded init every |z| and |y| is far
+      # below .5, so the hyper-synthesis reads zeros and the synthesis mu,
+      # and their kernels get no gradient; and the 1.8M-step schedule warms
+      # the lr up over 36k steps, so step 1's 2.8e-9 is below a float32 ulp
+      # of most parameters. The unmoved tensors are listed.
+      counts["train"], forwards["train"] = train_two_steps(
+          phase, name, family, zero_counts, read_counts, 2, all_move=False)
+    for path, c in counts.items():
+      check(c[tl.STATS.name] == expect(forwards[path])
+            and sum(c.values()) == c[tl.STATS.name],
+            f"{name} {path}: launches {c} in {forwards[path]} forwards")
+    log(phase, f"{name}: final_deconv_phase launches by path "
+        + ", ".join(f"{k} {c[tl.STATS.name]} in {forwards[k]} forwards" for k, c in counts.items()))
+    launches[name] = {k: c[tl.STATS.name] for k, c in counts.items()}
+    del model, codec
+  log(phase, "summary " + json.dumps(dict(launches=launches, nvidia_smi=smi)))
+  return launches
+
+
 def main():
   import torch
   if not torch.cuda.is_available():
@@ -703,7 +1165,6 @@ def main():
   try:
     from shallow_ntc_tpu_torch import configs, eval_lib, train_lib
     from shallow_ntc_tpu_torch.codec import bindings as rans
-    from shallow_ntc_tpu_torch.latents import LatentRVCollection, UQLatentRV
     from shallow_ntc_tpu_torch.ops import cuda_build
     from shallow_ntc_tpu_torch.ops import fast_deconv as fd
     from shallow_ntc_tpu_torch.ops import jpegl_decode as jd
@@ -1054,48 +1515,7 @@ def main():
   # depends on the last bit of each device's arithmetic.
   small = torch.from_numpy(images[:1, :192, :256])
 
-  def reference(phase, model_gpu, model_cpu):
-    """GPU eval of the 192x256 crop against the CPU eval; return the GPU
-    launch counts of the part from the same latents on."""
-    t = time.time()
-    failures = []
-
-    def compare(name, gpu_t, cpu_t):
-      err = (gpu_t.cpu() - cpu_t).abs().max().item()
-      scale = cpu_t.abs().max().item()
-      log(phase, f"192x256 {name}: max|gpu-cpu| {err:.3e}, max|cpu| {scale:.3f} "
-          f"(tol 1e-4 * max(1, max|cpu|))")
-      if err > 1e-4 * max(1.0, scale):
-        failures.append(name)
-
-    with torch.no_grad():
-      rv_cpu = model_cpu.infer_latent_rvs(small)
-      rv_gpu = model_gpu.infer_latent_rvs(small.to(dev))
-      for name, a, b in zip(("z", "y"), rv_gpu.uq, rv_cpu.uq):
-        compare(name, a.loc, b.loc)
-      z_off = model_cpu.prior_quantization_offset()
-      z_q = torch.round(rv_cpu.uq[0].loc - z_off) + z_off
-      for name, shift in (("prior logits at z_hat-.5", -0.5), ("prior logits at z_hat+.5", 0.5)):
-        compare(name, model_gpu._prior.logits_cdf(z_q.to(dev) + shift),
-                model_cpu._prior.logits_cdf(z_q + shift))
-      same = LatentRVCollection(uq=tuple(UQLatentRV(loc=r.loc.to(dev)) for r in rv_cpu.uq))
-      zero_counts()
-      _, m_gpu, rec_gpu = model_gpu.frame_loss_given_latent_rvs(small.to(dev), same)
-      counts = read_counts()
-      _, m_cpu, rec_cpu = model_cpu.frame_loss_given_latent_rvs(small, rv_cpu)
-    for key in ("latent_bpp", "psnr", "hyper_latent_bpp", "bpp"):
-      gpu_v, cpu_v = float(m_gpu[key]), float(m_cpu[key])
-      rel = abs(gpu_v - cpu_v) / abs(cpu_v)
-      held = key in ("latent_bpp", "psnr")
-      log(phase, f"192x256 {key}: gpu {gpu_v:.6f} cpu {cpu_v:.6f} rel {rel:.2e} "
-          + ("(tol 1e-3)" if held else "(reported: includes the floored elements)"))
-      if held and rel > 1e-3:
-        failures.append(key)
-    same_px = (rec_gpu.cpu() == rec_cpu).float().mean().item()
-    log(phase, f"192x256 reconstruction: {same_px:.6f} of pixels equal on the 255 grid "
-        f"(tol 0.99); GPU launches from the latents on {counts}; done in {time.time() - t:.1f}s")
-    check(same_px >= 0.99 and not failures, f"GPU eval disagrees with the CPU eval: {failures}")
-    return counts
+  reference = make_reference(small, zero_counts, read_counts)
 
   model_cpu = eval_lib.build_model(configs.TWO_LAYER_SYN_RD, init_seed=0, device="cpu")
   reference("reference", model, model_cpu)
@@ -1384,6 +1804,29 @@ def main():
   check(jl_decode_launches["JPEGL_K16"] == 1 and jl_decode_launches["jpegl_rd"] == 0,
         f"jpegl_synthesize launches per decode: {jl_decode_launches}")
 
+  # The decodes of phases 13 and 14's configurations at the same shape:
+  # bls2017_rd (the factorized family: the synthesis alone, y of 192
+  # channels), two_layer_syn2 (final_deconv_phase) and mbt2018 (cuDNN only).
+  fam_decode = {}
+  nd_rng = np.random.default_rng(13)
+  y_hat_192 = torch.from_numpy(nd_rng.integers(-8, 8, (DECODE_BATCH, mh, mw, 192))).to(
+      dev, torch.bfloat16)
+  for name in ("bls2017_rd", "two_layer_syn2", "mbt2018"):
+    cfg, _, family = configs.eval_config(name)
+    m = eval_lib.build_model(cfg, init_seed=0, device="cuda", family=family).to(torch.bfloat16)
+    fn = make_decode(m, y_hat_192 if family == "factorized" else y_hat, z_hat)
+    zero_counts()
+    check_decode(name, fn(), y_hat_192 if family == "factorized" else y_hat)
+    fd_launches = read_counts()[tl.STATS.name]
+    ms = cuda_ms(torch, fn, iters=20, warmup=3)
+    fam_decode[name] = dict(ms=ms, mpx_per_s=pixels / ms / 1e3, launches=fd_launches)
+    log("timing", f"decode {name} B={DECODE_BATCH} {EVAL_HW[0]}x{EVAL_HW[1]} bf16: {ms:.4f} ms, "
+        f"{pixels / ms / 1e3:.2f} Mpx/s; final_deconv_phase launches in one decode: "
+        f"{fd_launches}  [{smi}]")
+    del m
+  check([v["launches"] for v in fam_decode.values()] == [0, 1, 0],
+        f"final_deconv_phase launches per decode: {fam_decode}")
+
   def time_jpegl(case):
     """The kernel with its weights and bias in z's type, as the model's
     parameters are, so a call launches the kernel alone."""
@@ -1414,6 +1857,12 @@ def main():
 
   # --- 12. itinf: SGA iterative inference of the flagship ----------------
   itinf = itinf_phase(images[0], zero_counts, read_counts, smi)
+
+  # --- 13. factorized: the factorized family end to end -------------------
+  fact = factorized_phase(images, zero_counts, read_counts, smi, reference)
+
+  # --- 14. families: two_layer_syn2 (mixedq) and mbt2018 ------------------
+  fam_launches = families_phase(images, zero_counts, read_counts, smi, reference)
   codec_fd = sum(codec_counts[k][tl.STATS.name]
                  for k in ("flagship_compress", "flagship_decompress"))
   codec_k16 = sum(codec_counts[k][jd.STATS.name] for k in ("k16_compress", "k16_decompress"))
@@ -1445,7 +1894,10 @@ def main():
   # eval of phase 9. The chain's times are at train stage 1 in f32.
   kernels[0]["launches_by_path"] = {
       "itinf": itinf_fd, "itinf bf16": itinf["bf16_launches"][tl.STATS.name],
-      "codec": codec_fd, "eval+decode": launches, "train": train_counts[tl.STATS.name]}
+      "codec": codec_fd, "eval+decode": launches, "train": train_counts[tl.STATS.name],
+      **{f"two_layer_syn2 {k}": v for k, v in fam_launches["two_layer_syn2"].items()}}
+  kernels[0]["family_decodes"] = fam_decode
+  kernels[0]["factorized"] = fact
   kernels.append(dict(
       name=rb.STATS.name, route="cuda", source="shallow_ntc_tpu_torch/csrc/rb_chain.cu",
       replaces="shallow_ntc_tpu/ops/pallas/rb_chain.py:263",

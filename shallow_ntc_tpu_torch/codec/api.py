@@ -1,16 +1,21 @@
-"""Model-level compress/decompress of the mean-scale hyperprior (mirrors
-shallow_ntc_tpu/codec/api.py: MSHyperCodec and its container).
+"""Model-level compress/decompress of both model families (mirrors
+shallow_ntc_tpu/codec/api.py: MSHyperCodec, FactorizedCodec and their
+container).
 
-Encode:
-  device: x -> analysis -> y; y -> hyper-analysis -> z
-  host:   rANS-encode round(z - o) under the factorized tables; z_hat = k + o
-  device: z_hat -> hyper-synthesis -> (mu, sigma index)
-  host:   rANS-encode round(y - mu) under the scale-indexed Gaussian tables
-Decode:
-  host:   rANS-decode the z symbols -> z_hat
-  device: z_hat -> hyper-synthesis -> (mu, sigma index)
-  host:   rANS-decode the y symbols -> y_hat = k + mu
-  device: y_hat -> synthesis -> image
+MSHyperCodec, the mean-scale hyperprior:
+  Encode:
+    device: x -> analysis -> y; y -> hyper-analysis -> z
+    host:   rANS-encode round(z - o) under the factorized tables; z_hat = k + o
+    device: z_hat -> hyper-synthesis -> (mu, sigma index)
+    host:   rANS-encode round(y - mu) under the scale-indexed Gaussian tables
+  Decode:
+    host:   rANS-decode the z symbols -> z_hat
+    device: z_hat -> hyper-synthesis -> (mu, sigma index)
+    host:   rANS-decode the y symbols -> y_hat = k + mu
+    device: y_hat -> synthesis -> image
+FactorizedCodec, the factorized prior: one tensor, y, coded as z is above
+under the per-channel tables of the model's prior (family byte 0); no
+device leg sits between the host halves.
 
 The container is byte-compatible with the JAX package's: a blob written by
 one package parses in the other.
@@ -26,12 +31,14 @@ import torch
 
 from shallow_ntc_tpu_torch.codec import bindings, tables as tables_lib
 from shallow_ntc_tpu_torch.models import base as models_base
+from shallow_ntc_tpu_torch.models import factorized
 from shallow_ntc_tpu_torch.models import mshyper
 from shallow_ntc_tpu_torch.ops import entropy
 
 MAGIC = b"SNTC"
 VERSION = 2  # v2: each tensor is N interleaved rANS stripes (parallel decode)
-MSHYPER_FAMILY = 1  # the family byte of the header (0 is the factorized family)
+FACTORIZED_FAMILY = 0  # the family byte of the header
+MSHYPER_FAMILY = 1
 
 # Fixed (rate-independent) bytes of a bitstream: the container framing plus
 # the rANS final-state flush per stream. Everything else is payload.
@@ -160,30 +167,16 @@ def _drain_recs(pending, keep, hw, out):
       out[i] = rec[row, :h, :w]
 
 
-class MSHyperCodec:
-  """Compress/decompress with a mean-scale hyperprior model (float32).
+class _ModelCodec:
+  """What both families' codecs share: the model (float32), uploads and
+  fetches, and the synthesis to uint8."""
 
-  DETERMINISM CONTRACT: (mu, indexes) select the rANS coding tables, so the
-  encoder and the decoder must compute them bit-identically: one flipped
-  scale index derails the stream from that symbol on. So every path runs
-  the hyper-synthesis at batch 1, in float32, under coding_numerics(), on the
-  host-canonical z_hat (the latent the decoder rebuilds from the symbols),
-  never on the device's own rounding of z. Only the synthesis may batch:
-  pixels carry no coding state. The analysis is the encoder's alone and runs
-  under the caller's settings.
-  """
-
-  def __init__(self, model: mshyper.Model):
+  def __init__(self, model):
     if any(p.dtype != torch.float32 for p in model.parameters()):
       raise ValueError("the codec runs the model in float32")
     self.model = model
     self.device = next(model.parameters()).device
-    with coding_numerics():
-      self.z_tables = tables_lib.build_factorized_tables(
-          model._prior, offset_heuristic=model.offset_heuristic)
-    self.y_tables = tables_lib.build_gaussian_tables()
 
-  # --- device programs -------------------------------------------------------
   def _upload(self, a: np.ndarray) -> torch.Tensor:
     t = torch.from_numpy(np.ascontiguousarray(a, np.float32))
     if self.device.type == "cuda":
@@ -210,6 +203,48 @@ class MSHyperCodec:
     return wait
 
   @torch.no_grad()
+  def _synth_u8(self, y_hat: np.ndarray) -> torch.Tensor:
+    """y_hat [B, ...] -> uint8 [B, H_pad, W_pad, 3] on the device (1 byte a
+    pixel to fetch)."""
+    with coding_numerics():
+      rec = self.model.synthesize(self._upload(y_hat))
+      return models_base.floats_to_pixels(rec, training=False).to(torch.uint8)
+
+  def _reconstruct(self, y_hat: np.ndarray, h: int, w: int) -> np.ndarray:
+    (rec,) = self._fetch(self._synth_u8(y_hat))()
+    return rec[0, :h, :w]
+
+  @staticmethod
+  def _as_batch(image) -> np.ndarray:
+    x = np.asarray(image, np.float32)
+    x = x[None] if x.ndim == 3 else x
+    if x.ndim != 4 or x.shape[0] != 1 or x.shape[-1] != 3:
+      raise ValueError(f"expected one [H, W, 3] or [1, H, W, 3] image, got {x.shape}")
+    return x
+
+
+class MSHyperCodec(_ModelCodec):
+  """Compress/decompress with a mean-scale hyperprior model (float32).
+
+  DETERMINISM CONTRACT: (mu, indexes) select the rANS coding tables, so the
+  encoder and the decoder must compute them bit-identically: one flipped
+  scale index derails the stream from that symbol on. So every path runs
+  the hyper-synthesis at batch 1, in float32, under coding_numerics(), on the
+  host-canonical z_hat (the latent the decoder rebuilds from the symbols),
+  never on the device's own rounding of z. Only the synthesis may batch:
+  pixels carry no coding state. The analysis is the encoder's alone and runs
+  under the caller's settings.
+  """
+
+  def __init__(self, model: mshyper.Model):
+    super().__init__(model)
+    with coding_numerics():
+      self.z_tables = tables_lib.build_factorized_tables(
+          model._prior, offset_heuristic=model.offset_heuristic)
+    self.y_tables = tables_lib.build_gaussian_tables()
+
+  # --- device programs -------------------------------------------------------
+  @torch.no_grad()
   def _analyze(self, x: np.ndarray):
     """[B, H, W, 3] normalized floats -> (z, y) on the device."""
     latents = self.model.infer_latent_rvs(self._upload(x))
@@ -224,18 +259,6 @@ class MSHyperCodec:
     with coding_numerics():
       mu, indexes = self.model.hyper_synthesize(self._upload(z_hat))
       return mu, entropy.normalize_indexes(indexes)
-
-  @torch.no_grad()
-  def _synth_u8(self, y_hat: np.ndarray) -> torch.Tensor:
-    """y_hat [B, ...] -> uint8 [B, H_pad, W_pad, 3] on the device (1 byte a
-    pixel to fetch)."""
-    with coding_numerics():
-      rec = self.model.synthesize(self._upload(y_hat))
-      return models_base.floats_to_pixels(rec, training=False).to(torch.uint8)
-
-  def _reconstruct(self, y_hat: np.ndarray, h: int, w: int) -> np.ndarray:
-    (rec,) = self._fetch(self._synth_u8(y_hat))()
-    return rec[0, :h, :w]
 
   # --- host halves -----------------------------------------------------------
   def _encode_z_host(self, z: np.ndarray):
@@ -283,14 +306,6 @@ class MSHyperCodec:
     return self.y_tables.latent_from_symbols(y_syms, mu, y_idx)
 
   # --- per image -------------------------------------------------------------
-  @staticmethod
-  def _as_batch(image) -> np.ndarray:
-    x = np.asarray(image, np.float32)
-    x = x[None] if x.ndim == 3 else x
-    if x.ndim != 4 or x.shape[0] != 1 or x.shape[-1] != 3:
-      raise ValueError(f"expected one [H, W, 3] or [1, H, W, 3] image, got {x.shape}")
-    return x
-
   def compress(self, image: np.ndarray) -> CompressionResult:
     """image: [H, W, 3] or [1, H, W, 3], normalized floats (x/255 - 0.5)."""
     x = self._as_batch(image)
@@ -417,10 +432,126 @@ class MSHyperCodec:
     return out
 
 
-def make_codec(model) -> MSHyperCodec:
-  """The codec of a model, by its family."""
+class FactorizedCodec(_ModelCodec):
+  """Compress/decompress with a factorized-prior model (float32).
+
+  The coding tables are per-channel constants of the prior, built once under
+  coding_numerics(), so no device computation selects a table per image: the
+  decoder needs the blob and the tables only. The analysis runs at batch 1
+  on every path, as in MSHyperCodec, so the batch paths' bitstreams equal
+  the per-image path's; only the synthesis batches.
+  """
+
+  def __init__(self, model: factorized.Model):
+    super().__init__(model)
+    with coding_numerics():
+      self.tables = tables_lib.build_factorized_tables(
+          model._prior, offset_heuristic=model.offset_heuristic)
+
+  @torch.no_grad()
+  def _analyze(self, x: np.ndarray) -> torch.Tensor:
+    """[B, H, W, 3] normalized floats -> y on the device."""
+    return self.model.infer_latent_rvs(self._upload(x)).uq[0].loc
+
+  def _encode_host(self, y: np.ndarray, h: int, w: int):
+    """Host encode of ONE image's y: (blob, y_hat on the coding grid)."""
+    syms = self.tables.symbols_from_latent(y)
+    chunks = bindings.rans_encode_striped(syms, self.tables.channel_indexes(y.shape),
+                                          self.tables.tables)
+    blob = _pack_header(VERSION, FACTORIZED_FAMILY, h, w) + _pack_tensor(chunks)
+    return blob, self.tables.latent_from_symbols(syms)
+
+  def decode_latent(self, blob: bytes):
+    """Header + y rANS decode -> (h, w, y_hat)."""
+    version, family_id, h, w, rest = _unpack_header(blob)
+    if version != VERSION or family_id != FACTORIZED_FAMILY:
+      raise ValueError(f"bitstream version {version}, family {family_id}: this codec reads "
+                       f"version {VERSION}, family {FACTORIZED_FAMILY} (factorized)")
+    (chunks,) = _unpack_tensors(rest, 1)
+    d = self.model.downsample_factor
+    shape = (1, -(-h // d), -(-w // d), self.tables.channels)
+    syms = bindings.rans_decode_striped(chunks, self.tables.channel_indexes(shape),
+                                        self.tables.tables)
+    return h, w, self.tables.latent_from_symbols(syms)
+
+  def compress(self, image: np.ndarray) -> CompressionResult:
+    """image: [H, W, 3] or [1, H, W, 3], normalized floats (x/255 - 0.5)."""
+    x = self._as_batch(image)
+    h, w = x.shape[1], x.shape[2]
+    (y,) = self._fetch(self._analyze(x))()
+    blob, y_hat = self._encode_host(y, h, w)
+    return CompressionResult(blob, self._reconstruct(y_hat, h, w), len(blob) * 8.0 / (h * w))
+
+  def decompress(self, blob: bytes) -> np.ndarray:
+    """Returns the uint8 [H, W, 3] reconstruction."""
+    h, w, y_hat = self.decode_latent(blob)
+    return self._reconstruct(y_hat, h, w)
+
+  def compress_batch(self, images, reconstruct: bool = False,
+                     chunk_size: int = 8) -> List[CompressionResult]:
+    """Pipelined multi-image compress: the analyses are dispatched at most
+    _LOOKAHEAD_CHUNKS chunks ahead of the host's rANS, each at batch 1;
+    reconstruct=True stacks the synthesis of equal-shaped runs (a pixel may
+    round the other way, +-1)."""
+    xs = [self._as_batch(im) for im in images]
+    chunks = _equal_shape_chunks([x.shape for x in xs], chunk_size)
+    analysis_futs = {}
+
+    def dispatch_analysis(g):
+      for i in chunks[g]:
+        analysis_futs[i] = self._fetch(self._analyze(xs[i]))
+
+    for g in range(min(_LOOKAHEAD_CHUNKS, len(chunks))):
+      dispatch_analysis(g)
+    results: List[Optional[CompressionResult]] = [None] * len(xs)
+    hw = [x.shape[1:3] for x in xs]
+    recs = [None] * len(xs)
+    rec_pending = []
+    for g, idxs in enumerate(chunks):
+      if g + _LOOKAHEAD_CHUNKS < len(chunks):
+        dispatch_analysis(g + _LOOKAHEAD_CHUNKS)
+      y_hats = []
+      for i in idxs:
+        (y,) = analysis_futs.pop(i)()
+        blob, y_hat = self._encode_host(y, *hw[i])
+        results[i] = CompressionResult(blob, None, len(blob) * 8.0 / (hw[i][0] * hw[i][1]))
+        y_hats.append(y_hat)
+      if reconstruct:
+        rec_pending.append((idxs, self._fetch(self._synth_u8(np.concatenate(y_hats, 0)))))
+        _drain_recs(rec_pending, _LOOKAHEAD_CHUNKS - 1, hw, recs)
+    _drain_recs(rec_pending, 0, hw, recs)
+    if reconstruct:
+      for r, rec in zip(results, recs):
+        r.reconstruction = rec
+    return results
+
+  def decompress_batch(self, blobs, chunk_size: int = 8,
+                       strict: bool = False) -> List[np.ndarray]:
+    """Multi-image decompress; returns [uint8 [H, W, 3]]. Equal-shaped runs of
+    decoded latents stack into one synthesis call (a pixel may round the
+    other way, +-1); strict=True synthesizes per image, bit-identical to
+    decompress()."""
+    stage1 = [self.decode_latent(b) for b in blobs]
+    hw = [(s[0], s[1]) for s in stage1]
+    out: List[Optional[np.ndarray]] = [None] * len(blobs)
+    rec_pending = []
+    for idxs in _equal_shape_chunks(hw, chunk_size):
+      if strict:
+        for i in idxs:
+          out[i] = self._reconstruct(stage1[i][2], *hw[i])
+      else:
+        yb = np.concatenate([stage1[i][2] for i in idxs], 0)
+        rec_pending.append((idxs, self._fetch(self._synth_u8(yb))))
+        _drain_recs(rec_pending, _LOOKAHEAD_CHUNKS - 1, hw, out)
+    _drain_recs(rec_pending, 0, hw, out)
+    return out
+
+
+def make_codec(model):
+  """The codec of a model, by its family; TypeError for anything else, as
+  the JAX package's make_codec."""
   if isinstance(model, mshyper.Model):
     return MSHyperCodec(model)
-  raise NotImplementedError(
-      f"no codec for {type(model).__name__}: the port has the mshyper codec only; "
-      "FactorizedCodec comes with the factorized family (ROADMAP queue 1 item 5)")
+  if isinstance(model, factorized.Model):
+    return FactorizedCodec(model)
+  raise TypeError(type(model))

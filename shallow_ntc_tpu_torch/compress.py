@@ -1,4 +1,4 @@
-"""Compress CLI of the port: real bitstreams of an mshyper model.
+"""Compress CLI of the port: real bitstreams of a model of either family.
 
   python -m shallow_ntc_tpu_torch.compress compress --init_seed 0 \
       --input img.npy --output img.sntc
@@ -9,7 +9,9 @@
 Weights come from exactly one of --params (an .npz of flax parameter paths,
 as the eval CLI's), --init_seed (a seeded full-width init) or --workdir (the
 newest checkpoint of the port's train CLI under DIR). --config picks the
-model: two_layer_syn_rd (the flagship, the default) or jpegl_rd. Images are
+model and its codec: two_layer_syn_rd (the flagship, the default),
+jpegl_rd, two_layer_syn2, mbt2018 (MSHyperCodec), or the factorized
+family's bls2017_rd and bls2017 (FactorizedCodec). Images are
 .npy [H, W, 3] uint8; decompress writes one. Runs on CUDA unless --device
 names another device. --matmul_precision highest (the default) turns TF32
 off for the analysis; the coding tables, the hyper-synthesis and the
@@ -27,7 +29,6 @@ import torch
 from shallow_ntc_tpu_torch import configs, eval_lib, train_lib
 from shallow_ntc_tpu_torch.codec import api as codec_api
 from shallow_ntc_tpu_torch.models import base as models_base
-from shallow_ntc_tpu_torch.models.mshyper import Model
 from shallow_ntc_tpu_torch.ops import metrics_ops
 
 
@@ -39,13 +40,13 @@ def load_image(path: str) -> np.ndarray:
   return img
 
 
-def load_model(args) -> Model:
-  model_config, _ = configs.eval_config(args.config)
+def load_model(args) -> torch.nn.Module:
+  model_config, _, family = configs.eval_config(args.config)
   if args.workdir is not None:
-    return train_lib.model_from_checkpoint(args.workdir, model_config, args.device)
+    return train_lib.model_from_checkpoint(args.workdir, model_config, args.device, family)
   params = eval_lib.read_params(args.params)[0] if args.params is not None else None
   return eval_lib.build_model(model_config, params=params, init_seed=args.init_seed,
-                              device=args.device)
+                              device=args.device, family=family)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> str:
@@ -57,8 +58,7 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
   weights.add_argument("--params", help=".npz of flax parameter paths -> arrays")
   weights.add_argument("--init_seed", type=int, help="seed of a flax-style random init")
   weights.add_argument("--workdir", help="the newest checkpoint of the train CLI there")
-  parser.add_argument("--config", default="two_layer_syn_rd",
-                      choices=("two_layer_syn_rd", "jpegl_rd"))
+  parser.add_argument("--config", default="two_layer_syn_rd", choices=configs.EVAL_CONFIG_NAMES)
   parser.add_argument("--device", default="cuda")
   parser.add_argument("--matmul_precision", default="highest", choices=("highest", "default"))
   args = parser.parse_args(argv)

@@ -1,12 +1,14 @@
-"""Eval CLI of the port: per-image R-D metrics of an mshyper model -> JSON.
+"""Eval CLI of the port: per-image R-D metrics of a model -> JSON.
 
   python -m shallow_ntc_tpu_torch.eval --init_seed 0 --dataset synthetic \
       --results_dir /tmp/results
   python -m shallow_ntc_tpu_torch.eval --params params.npz --images 'imgs/*.npy'
   python -m shallow_ntc_tpu_torch.eval --config jpegl_rd --init_seed 0 --dataset synthetic
 
---config picks the model and its run name: two_layer_syn_rd (the flagship,
-the default) or jpegl_rd (the JPEG-like decoder). --params takes an .npz
+--config picks the model, its family and its run name: two_layer_syn_rd
+(the flagship, the default), jpegl_rd (the JPEG-like decoder),
+two_layer_syn2 (CNN analysis, non-residual two-layer decoder, mixedq),
+mbt2018 (Minnen 2018), or the factorized family's bls2017_rd and bls2017. --params takes an .npz
 whose keys are flax parameter paths ("_analysis/Conv_0/kernel", ...) and
 may hold a "step" entry; --init_seed evaluates a seeded full-width init
 instead. Runs on CUDA unless --device names another device.
@@ -38,8 +40,7 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
   parser.add_argument("--patchsize", type=int, default=256, help="synthetic image size")
   parser.add_argument("--results_dir", default="./json_results/torch")
   parser.add_argument("--device", default="cuda")
-  parser.add_argument("--config", default="two_layer_syn_rd",
-                      choices=("two_layer_syn_rd", "jpegl_rd"))
+  parser.add_argument("--config", default="two_layer_syn_rd", choices=configs.EVAL_CONFIG_NAMES)
   parser.add_argument("--matmul_precision", default="highest", choices=("highest", "default"))
   args = parser.parse_args(argv)
   # Process-wide, so set here and not in eval_lib: a library must not change
@@ -47,16 +48,17 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
   tf32 = args.matmul_precision == "default"
   torch.backends.cudnn.allow_tf32 = tf32
   torch.backends.cuda.matmul.allow_tf32 = tf32
-  model_config, runname = configs.eval_config(args.config)
+  model_config, runname, family = configs.eval_config(args.config)
 
   step = 0
   if args.params is not None:
     params, step = eval_lib.read_params(args.params)
-    model = eval_lib.build_model(model_config, params=params, device=args.device)
+    model = eval_lib.build_model(model_config, params=params, device=args.device,
+                                 family=family)
     xid = os.path.splitext(os.path.basename(args.params))[0]
   else:
-    model = eval_lib.build_model(model_config, init_seed=args.init_seed,
-                                 device=args.device)
+    model = eval_lib.build_model(model_config, init_seed=args.init_seed, device=args.device,
+                                 family=family)
     xid = f"init_seed={args.init_seed}"
   if args.dataset == "synthetic":
     images = data_lib.SyntheticDataset(1, args.patchsize, num_batches=_SYNTHETIC_IMAGES)

@@ -1,4 +1,5 @@
-"""Per-image R-D evaluation (mirrors shallow_ntc_tpu/eval_lib.py:150-256).
+"""Per-image R-D evaluation of either model family (mirrors
+shallow_ntc_tpu/eval_lib.py:150-256).
 
 No LPIPS and no spatial sharding yet. The JSON written by eval_to_json has
 the JAX eval's record keys: the model's metrics, instance_id and the
@@ -12,10 +13,11 @@ from typing import Dict, Iterable, Iterator, List, Mapping, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
 from shallow_ntc_tpu_torch import configs
 from shallow_ntc_tpu_torch import params as params_lib
-from shallow_ntc_tpu_torch.models.mshyper import Model
+from shallow_ntc_tpu_torch.models import families
 
 
 def resolve_device(device: Optional[str] = "cuda") -> torch.device:
@@ -28,15 +30,14 @@ def resolve_device(device: Optional[str] = "cuda") -> torch.device:
 
 def build_model(model_config: Optional[Mapping] = None,
                 params: Optional[Mapping] = None, init_seed: Optional[int] = None,
-                device: Optional[str] = "cuda") -> Model:
-  """Build the mshyper Model, load `params` (flax tree or flat map) or a seeded
-  init, and move it to `device` in eval mode."""
+                device: Optional[str] = "cuda", family: str = "mshyper") -> nn.Module:
+  """Build the Model of `family` (mshyper or factorized; families.build_model),
+  load `params` (flax tree or flat map) or a seeded init, and move it to
+  `device` in eval mode."""
   device = resolve_device(device)
   if (params is None) == (init_seed is None):
     raise ValueError("pass exactly one of params and init_seed")
-  model_config = dict(model_config or configs.TWO_LAYER_SYN_RD)
-  model_config.pop("optimizer_config", None)
-  model = Model(**model_config)
+  model, _ = families.build_model(model_config or configs.TWO_LAYER_SYN_RD, family)
   if params is None:
     params = params_lib.init_params(model, init_seed)
   params_lib.load_params(model, params)
@@ -50,7 +51,7 @@ def read_params(path: str):
   return params, int(params.pop("step", 0))
 
 
-def evaluate_images(model: Model, images: Iterable, step: int = 0) -> Iterator[Dict[str, float]]:
+def evaluate_images(model: nn.Module, images: Iterable, step: int = 0) -> Iterator[Dict[str, float]]:
   """Yield one metrics dict per image.
 
   `images` yields [1, H, W, 3] normalized arrays (or is a [B, ...] array,
@@ -78,7 +79,7 @@ def parse_runname(s: str) -> Dict[str, str]:
   return {m.group(1): m.group(2) for m in re.finditer(pattern, s)}
 
 
-def eval_to_json(model: Model, images: Iterable, results_dir: str, runname: str,
+def eval_to_json(model: nn.Module, images: Iterable, results_dir: str, runname: str,
                  xid: str, step: int = 0) -> str:
   """Evaluate and dump a flat JSON list of per-image records; return its path."""
   hparams = parse_runname(runname)

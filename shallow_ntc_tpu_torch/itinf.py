@@ -1,7 +1,10 @@
-"""SGA iterative-inference CLI of the port: per-image optimization of the
-flagship's latents (configs.ITINF, from mshyper/configs/itinf.py).
+"""SGA iterative-inference CLI of the port: per-image optimization of a
+model's latents (configs.ITINF on the flagship, configs.ITINF_FACTORIZED on
+bls2017_rd; both from mshyper/configs/itinf.py).
 
   python -m shallow_ntc_tpu_torch.itinf --init_seed 0 --dataset synthetic
+  python -m shallow_ntc_tpu_torch.itinf --config itinf_factorized --init_seed 0 \\
+      --dataset synthetic
   python -m shallow_ntc_tpu_torch.itinf --workdir TRAIN_DIR --images 'imgs/*.npy' \\
       [--num_steps 3000] [--log_every 300] [--eval_every 3000] \\
       [--transforms_dtype bfloat16] [--out ./itinf_xms/torch]
@@ -14,7 +17,8 @@ images. Writes <out>/config.json, per image <out>/batch_id=<i>/
 (train/ and val/record.jsonl, metrics.json, itinf_vars.npz) and
 <out>/metrics.json, as the JAX package's itinf does. --transforms_dtype is
 the computation type of the frozen transforms (the latents and the entropy
-math stay float32). --matmul_precision default (the default, as the JAX
+math stay float32). --config picks the configuration and with it the model
+family: itinf (the flagship, the default) or itinf_factorized. --matmul_precision default (the default, as the JAX
 itinf CLI's) leaves TF32 on for cuDNN convolutions and matmuls; highest
 turns it off. --seed seeds the SGA draws. Runs on CUDA unless --device
 names another device.
@@ -44,6 +48,7 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict]:
   source = parser.add_mutually_exclusive_group(required=True)
   source.add_argument("--dataset", choices=["synthetic"])
   source.add_argument("--images", help="glob of .npy images, [H, W, 3] pixels 0..255")
+  parser.add_argument("--config", default="itinf", choices=("itinf", "itinf_factorized"))
   parser.add_argument("--num_steps", type=int)
   parser.add_argument("--log_every", type=int)
   parser.add_argument("--eval_every", type=int)
@@ -58,7 +63,8 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict]:
   torch.backends.cudnn.allow_tf32 = tf32
   torch.backends.cuda.matmul.allow_tf32 = tf32
 
-  config = copy.deepcopy(configs.ITINF)
+  config = copy.deepcopy(configs.itinf_config(args.config))
+  family = config["model_family"]
   te_cfg = config["train_eval_config"]
   for key, value in (("num_steps", args.num_steps), ("log_metrics_every_steps", args.log_every),
                      ("eval_every_steps", args.eval_every),
@@ -68,11 +74,11 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict]:
   model_config = dict(config["model_config"],
                       transforms_dtype=itinf_lib.TRANSFORMS_DTYPES[te_cfg["transforms_dtype"]])
   if args.workdir is not None:
-    model = train_lib.model_from_checkpoint(args.workdir, model_config, args.device)
+    model = train_lib.model_from_checkpoint(args.workdir, model_config, args.device, family)
   else:
     params = eval_lib.read_params(args.params)[0] if args.params is not None else None
     model = eval_lib.build_model(model_config, params=params, init_seed=args.init_seed,
-                                 device=args.device)
+                                 device=args.device, family=family)
   images = data_lib.get_dataset(args.images or args.dataset, "test", 1, None)
   os.makedirs(args.out, exist_ok=True)
   with open(os.path.join(args.out, "config.json"), "w") as f:

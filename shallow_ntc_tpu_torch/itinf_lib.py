@@ -1,16 +1,18 @@
 """Iterative inference (SGA encoding) of the port: the per-image optimization
 of the latents at encode time (mirrors shallow_ntc_tpu/itinf_lib.py).
 
-The model's parameters are frozen; the two latents (z, y) start from the
-analysis and take `num_steps` Adam steps on the SGA-relaxed rd_loss, the
-relaxation's temperature tau annealed by the step. One eager loop runs the
-steps: each runs the hyper-synthesis and the synthesis forward and backward
-(final_deconv_phase once) and never waits for the device; metrics are read
-only at the log rows. JAX's dispatch shapes (a fused scan, a stream of
+The model's parameters are frozen; its latents ((z, y) for mshyper, (y,)
+for factorized) start from the analysis and take `num_steps` Adam steps on
+the SGA-relaxed rd_loss, the relaxation's temperature tau annealed by the
+step. One eager loop runs the steps: each runs the synthesis (and the
+hyper-synthesis) forward and backward (the flagship's final_deconv_phase
+once) and never waits for the device; metrics are read only at the log
+rows. JAX's dispatch shapes (a fused scan, a stream of
 jitted steps: `step_dispatch`) are TPU tactics, and the port has one loop.
 
-The draws of step s are those of a generator seeded by (seed, s), z's
-first, or `noise_fn(s)` where a caller gives them; a val pass draws nothing.
+The draws of step s are those of a generator seeded by (seed, s), in the
+latents' order (z's first), or `noise_fn(s)` where a caller gives them; a
+val pass draws nothing.
 So a run split into segments by mid-run val passes takes the same
 trajectory as one segment.
 """
@@ -21,12 +23,12 @@ from typing import Any, Callable, Dict, Iterable, List, Mapping, NamedTuple, Opt
 
 import numpy as np
 import torch
+from torch import nn
 
 from shallow_ntc_tpu_torch import train_lib
 from shallow_ntc_tpu_torch.latents import LatentRVCollection, UQLatentRV
-from shallow_ntc_tpu_torch.models.mshyper import Model
 
-Noise = Tuple[torch.Tensor, torch.Tensor]
+Noise = Tuple[torch.Tensor, ...]  # one draw per latent, in the latents' order
 
 # train_eval_config["transforms_dtype"] -> Model(transforms_dtype=...).
 TRANSFORMS_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -50,7 +52,7 @@ class ItinfFunctions(NamedTuple):
   frozen_offset: Callable[[], Optional[torch.Tensor]]
 
 
-def make_itinf_functions(model: Model, optimizer_config: Mapping[str, Any],
+def make_itinf_functions(model: nn.Module, optimizer_config: Mapping[str, Any],
                          num_steps: int) -> ItinfFunctions:
   """The SGA functions of `model`, whose parameters this freezes
   (requires_grad False): gradients are taken with respect to the latents
@@ -100,7 +102,7 @@ def _float_dict(metrics: Mapping[str, torch.Tensor]) -> Dict[str, float]:
   return {k: float(v) for k, v in metrics.items()}
 
 
-def itinf_on_data_batch(model: Model, data_batch, train_eval_config: Mapping[str, Any],
+def itinf_on_data_batch(model: nn.Module, data_batch, train_eval_config: Mapping[str, Any],
                         optimizer_config: Mapping[str, Any], workdir: Optional[str] = None,
                         seed: int = 0, fns: Optional[ItinfFunctions] = None,
                         offset: Optional[torch.Tensor] = None,
@@ -113,11 +115,12 @@ def itinf_on_data_batch(model: Model, data_batch, train_eval_config: Mapping[str
   metrics of the segment's step min((r + 1) * log_every, seg) - 1, written
   to <workdir>/train/record.jsonl at the count of steps done; the val
   passes go to <workdir>/val/record.jsonl. `offset` is frozen_offset(),
-  computed here unless given; `noise_fn(step)` gives a step's draws (z, y)
-  in place of the seeded generator's.
+  computed here unless given; `noise_fn(step)` gives a step's draws, one
+  per latent, in place of the seeded generator's.
 
   Returns (train_metrics, val_metrics, itinf_vars): the last log row, the
-  last val pass, and {"uq_0_loc": z, "uq_1_loc": y} as float32 arrays.
+  last val pass, and {"uq_<i>_loc": latent i} as float32 arrays (uq_0 z and
+  uq_1 y for mshyper, uq_0 y for factorized).
   """
   cfg = dict(train_eval_config)
   num_steps = cfg.get("num_steps", 3000)
@@ -164,7 +167,7 @@ def _dump_json(obj, path: str):
     json.dump(obj, f, indent=2)
 
 
-def itinf_eval(model: Model, images: Iterable, config: Mapping[str, Any], out_dir: str,
+def itinf_eval(model: nn.Module, images: Iterable, config: Mapping[str, Any], out_dir: str,
                seed: int = 0) -> List[Dict[str, Any]]:
   """SGA of every batch of `images` (itinf_lib.py:386-512): per batch
   <out_dir>/batch_id=<i>/ with train/ and val/record.jsonl, metrics.json

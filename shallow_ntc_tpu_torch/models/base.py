@@ -1,5 +1,6 @@
 """Loss assembly and metrics shared by the model families (mirrors models/base.py)."""
 
+import logging
 import math
 from typing import Dict, Mapping, Optional
 
@@ -9,6 +10,9 @@ import torch
 from shallow_ntc_tpu_torch import schedule
 from shallow_ntc_tpu_torch.ops import metrics_ops
 from shallow_ntc_tpu_torch.ops import rounding
+
+
+UQ_METHODS = ("unoise", "mixedq", "sga", "soft_round")
 
 
 def normalize_image(image):
@@ -31,17 +35,29 @@ def resolve_uq_config(latent_config: Mapping, step: int = 0) -> Dict:
   """Copy of latent_config['uq'] with the SGA temperature of `step` injected
   (models/base.py:49-66; its `itinf` argument is unused there): for method
   'sga', tau = sga_schedule_at_step(step, tau_r, tau_ub, tau_lb, tau_t0,
-  tau_scheme). 'unoise', 'sga' and 'soft_round' are ported; 'mixedq' is not.
+  tau_scheme). The methods are 'unoise', 'mixedq', 'sga' and 'soft_round'.
   """
   cfg = dict(latent_config.get("uq", {"method": "unoise"}))
   method = cfg.get("method", "unoise")
-  if method not in ("unoise", "sga", "soft_round"):
-    raise NotImplementedError(f"uq method {method!r} is not ported yet")
+  if method not in UQ_METHODS:
+    raise NotImplementedError(f"uq method {method!r} is not one of {UQ_METHODS}")
   if method == "sga":
     cfg["tau"] = rounding.sga_schedule_at_step(
         step, r=cfg["tau_r"], ub=cfg["tau_ub"], lb=cfg.get("tau_lb", 1e-8),
         t0=cfg["tau_t0"], scheme=cfg.pop("tau_scheme", "exp"))
   return cfg
+
+
+def effective_offset_heuristic(model_config: Mapping) -> bool:
+  """mixedq training turns the offset heuristic off (models/base.py:123-138),
+  with the JAX package's warning."""
+  offset_heuristic = model_config.get("offset_heuristic", True)
+  method = (model_config.get("latent_config") or {}).get("uq", {}).get("method", "unoise")
+  if method == "mixedq" and offset_heuristic:
+    logging.warning("modifying offset_heuristic from True to False, as it doesn't make "
+                    "sense for mixedq training.")
+    return False
+  return offset_heuristic
 
 
 def distortion_metrics(image_batch: torch.Tensor, reconstruction: torch.Tensor,

@@ -7,11 +7,12 @@ Mirrors shallow_ntc_tpu/models/mshyper.py:
   y -> [64-scale indexed noisy Gaussian, loc=mu] -> y_hat, bits(y)
   y_hat -> synthesis -> x_hat -> unpad
   rd_loss = bpp + scheduled_lambda * mse (255 scale)
-Two of the reference's three relaxation branches are ported: 'unoise'
-(training and eval) and the explicit sampling of iterative inference
-('sga', 'soft_round'); 'mixedq' is not. In training the latents' noise
-(uniform for unoise, logistic for sga) is given as noise=(n_z, n_y), or
-drawn from a torch.Generator, z's first.
+The reference's three relaxation branches: 'unoise' (training and eval),
+'mixedq' (the bits of the noisy sample, the straight-through rounded
+latents onward; its eval is unoise's) and the explicit sampling of
+iterative inference ('sga', 'soft_round'). In training the latents' noise
+(uniform for unoise and mixedq, logistic for sga) is given as
+noise=(n_z, n_y), or drawn from a torch.Generator, z's first.
 
 transforms_dtype (None, or torch.bfloat16 for iterative inference) is the
 computation type of the analysis, the hyper pair and the synthesis, as the
@@ -44,7 +45,7 @@ class Model(nn.Module):
     self.rd_lambda = rd_lambda
     self.offset_heuristic = offset_heuristic
     self.latent_config = dict(latent_config or {"uq": {"method": "unoise"}})
-    base.resolve_uq_config(self.latent_config)  # raises for unported methods
+    base.resolve_uq_config(self.latent_config)  # raises for an unknown method
     self.transforms_dtype = transforms_dtype
     tc = transform_config
     self._analysis = build_transform(tc["analysis"], 3)
@@ -113,12 +114,16 @@ class Model(nn.Module):
       offset = frozen_offset
     else:
       offset = self.prior_quantization_offset()
-    if method == "unoise":
+    if method in ("unoise", "mixedq"):
       z_hat, z_bits = entropy.batched_em_call(
           self._prior, z_rv.loc, offset, training=training, noise=n_z, generator=generator)
+      if method == "mixedq":  # the bits of the noisy sample, the rounded latent onward
+        z_hat = entropy.batched_em_quantize(z_rv.loc, offset)
       mu, indexes = self.hyper_synthesize(z_hat)
       y_hat, y_bits = entropy.indexed_em_call(
           y_rv.loc, indexes, mu, training=training, noise=n_y, generator=generator)
+      if method == "mixedq":
+        y_hat = entropy.indexed_em_quantize(y_rv.loc, mu)
     else:  # explicit sampling (sga, soft_round) for iterative inference
       z_hat = z_rv.sample(training, offset=offset, noise=n_z, generator=generator, **uq_cfg)
       z_bits = entropy.bits_from_log_prob(self._prior.log_prob_noisy(z_hat))

@@ -1,5 +1,6 @@
-"""Transforms of the flagship and JPEG-like models (mirrors
-shallow_ntc_tpu/models/transforms.py).
+"""The transforms of both model families (mirrors shallow_ntc_tpu/models/transforms.py),
+under the JAX package's class names. ElicSynthesis and res_type="d2s" are not
+ported.
 
 Every module takes and returns NHWC tensors and keeps its parameters in the
 flax layout under the flax names (`kernel` [k, k, C_in, C_out], `bias`,
@@ -7,6 +8,7 @@ GDN's `beta`/`gamma`), so a flax parameter tree loads one to one
 (shallow_ntc_tpu_torch/params.py). Convolutions run in the input's dtype.
 """
 
+import functools
 import math
 from typing import Optional, Sequence, Tuple
 
@@ -78,11 +80,20 @@ class FastConvTranspose(nn.Module):
 
 
 class GDN(nn.Module):
-  """GDN1 (Johnston 2018): y = x / (beta + |x| @ gamma), or x * (...) if inverse."""
+  """Generalized divisive normalization (Balle 2016):
+  y = x / (beta + |x|^alpha @ gamma)^epsilon, or x * (...) if inverse.
 
-  def __init__(self, channels: int, inverse: bool = False):
+  Classic GDN has (alpha, epsilon) = (2, 0.5); GDN1 (Johnston 2018) pins
+  (1, 1). rectify applies a relu first.
+  """
+
+  def __init__(self, channels: int, inverse: bool = False, alpha: float = 1.0,
+               epsilon: float = 1.0, rectify: bool = False):
     super().__init__()
     self.inverse = inverse
+    self.alpha = alpha
+    self.epsilon = epsilon
+    self.rectify = rectify
     self.beta = nn.Parameter(torch.zeros(channels))
     self.gamma = nn.Parameter(torch.zeros(channels, channels))
 
@@ -92,22 +103,74 @@ class GDN(nn.Module):
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
     beta, gamma = self.effective_params(x.dtype)
-    norm = torch.abs(x) @ gamma + beta
-    return x * norm if self.inverse else x / norm
+    if self.rectify:
+      x = F.relu(x)
+    return fd.gdn(x, beta, gamma, self.inverse, self.alpha, self.epsilon)
 
 
-def make_activation(name: Optional[str], channels: int):
-  """relu, GDN1 or IGDN1: the activations of the flagship's transforms."""
+class GDN1(GDN):
+  """GDN pinned to alpha = epsilon = 1."""
+
+  def __init__(self, channels: int, inverse: bool = False):
+    super().__init__(channels, inverse)
+
+
+class PReLU(nn.Module):
+  """Parametric ReLU with a learned per-channel negative slope (flax name
+  `negative_slope`, initialized to 0.25)."""
+
+  def __init__(self, channels: int):
+    super().__init__()
+    self.negative_slope = nn.Parameter(torch.zeros(channels))
+
+  def forward(self, x: torch.Tensor) -> torch.Tensor:
+    return torch.where(x >= 0, x, x * self.negative_slope.to(x.dtype))
+
+
+class Pointwise(nn.Module):
+  """A parameterless elementwise activation (nothing in the state dict)."""
+
+  def __init__(self, name: str, fn):
+    super().__init__()
+    self.name = name
+    self.fn = fn
+
+  def forward(self, x: torch.Tensor) -> torch.Tensor:
+    return self.fn(x)
+
+  def extra_repr(self) -> str:
+    return self.name
+
+
+# jax.nn's activations by name, as make_activation resolves them there.
+_POINTWISE = {
+    "relu": F.relu, "relu6": F.relu6, "sigmoid": torch.sigmoid, "tanh": torch.tanh,
+    "silu": F.silu, "swish": F.silu, "gelu": functools.partial(F.gelu, approximate="tanh"),
+    "elu": F.elu, "selu": F.selu, "celu": F.celu, "softplus": F.softplus,
+    "soft_sign": F.softsign, "log_sigmoid": F.logsigmoid, "hard_tanh": F.hardtanh,
+    "hard_sigmoid": F.hardsigmoid, "hard_silu": F.hardswish, "hard_swish": F.hardswish,
+    # The reference resolves 'lrelu' to tf.nn.leaky_relu, whose slope is 0.2
+    # (the JAX package keeps it; torch's and jax.nn's default is 0.01).
+    "lrelu": functools.partial(F.leaky_relu, negative_slope=0.2),
+    "leaky_relu": functools.partial(F.leaky_relu, negative_slope=0.2),
+}
+
+
+def make_activation(name: Optional[str], channels: int) -> Optional[nn.Module]:
+  """The activation of a transform by name (models/transforms.py:135-160):
+  prelu, gdn / gdn1, igdn / igdn1, or a jax.nn activation's name."""
   if name is None:
     return None
   lowered = name.lower()
-  if lowered == "relu":
-    return nn.ReLU()
+  if lowered == "prelu":
+    return PReLU(channels)
   if lowered in ("gdn", "gdn1"):
-    return GDN(channels)
+    return GDN1(channels)
   if lowered in ("igdn", "igdn1"):
-    return GDN(channels, inverse=True)
-  raise NotImplementedError(f"activation {name!r} is not ported yet")
+    return GDN1(channels, inverse=True)
+  if lowered not in _POINTWISE:
+    raise ValueError(f"Unknown activation: {name}")
+  return Pointwise(lowered, _POINTWISE[lowered])
 
 
 class _ConvStack(nn.Module):
@@ -162,6 +225,152 @@ class HyperSynthesis(nn.Module):
     return self.stack(x)
 
 
+class HyperAnalysisSmall(nn.Module):
+  """Two-layer hyper-encoder for small images: k3s1 relu + k5s2."""
+
+  downsample_factor = 2
+
+  def __init__(self, in_features: int, bottleneck_size: int):
+    super().__init__()
+    b = bottleneck_size
+    self.output_depth = b
+    self.stack = _ConvStack(in_features, ((b, 3, 1, "relu", False), (b, 5, 2, None, False)))
+
+  def forward(self, x):
+    return self.stack(x)
+
+
+class HyperSynthesisSmall(nn.Module):
+  """Two-layer hyper-decoder for small images: k5s2 relu + k3s1 deconvs."""
+
+  upsample_factor = 2
+
+  def __init__(self, in_features: int, bottleneck_size: int):
+    super().__init__()
+    b = bottleneck_size
+    self.output_depth = b * 2
+    self.stack = _ConvStack(in_features, ((int(b * 1.5), 5, 2, "relu", True),
+                                          (int(b * 2), 3, 1, None, True)))
+
+  def forward(self, x):
+    return self.stack(x)
+
+
+class BLS2017Analysis(nn.Module):
+  """Balle 2017 analysis: 9x9 s4 + 5x5 s2 + 5x5 s2 convs, GDN1 between."""
+
+  downsample_factor = 16
+
+  def __init__(self, in_features: int, num_filters: int):
+    super().__init__()
+    n = num_filters
+    self.output_depth = n
+    self.stack = _ConvStack(in_features, ((n, 9, 4, "gdn", False), (n, 5, 2, "gdn", False),
+                                          (n, 5, 2, None, False)))
+
+  def forward(self, x):
+    return self.stack(x)
+
+
+class BLS2017Synthesis(nn.Module):
+  """Balle 2017 synthesis: the mirrored deconvs, IGDN1 between."""
+
+  upsample_factor = 16
+  output_depth = 3
+
+  def __init__(self, in_features: int, num_filters: int):
+    super().__init__()
+    n = num_filters
+    self.stack = _ConvStack(in_features, ((n, 5, 2, "igdn", True), (n, 5, 2, "igdn", True),
+                                          (3, 9, 4, None, True)))
+
+  def forward(self, x):
+    return self.stack(x)
+
+
+class _ConvGDNLayers(nn.Module):
+  """n_layers of 5x5 s2 (de)convs with classic GDN (alpha 2, epsilon 0.5)
+  between, as Minnen 2018; children `convs_i`, `acts_i` on the module itself
+  and no activation after the last conv."""
+
+  def __init__(self, in_features: int, channels_base: int, n_layers: int,
+               output_channels: Optional[int], transpose: bool):
+    super().__init__()
+    self.n = n_layers
+    self.output_depth = output_channels if output_channels is not None else channels_base
+    maker = FastConvTranspose if transpose else Conv
+    c = in_features
+    for i in range(n_layers):
+      last = i + 1 == n_layers
+      features = self.output_depth if last else channels_base
+      setattr(self, f"convs_{i}", maker(c, features, 5, 2))
+      setattr(self, f"acts_{i}", None if last else GDN(features, inverse=transpose,
+                                                        alpha=2.0, epsilon=0.5))
+      c = features
+
+  def forward(self, x: torch.Tensor) -> torch.Tensor:
+    for i in range(self.n):
+      x = getattr(self, f"convs_{i}")(x)
+      act = getattr(self, f"acts_{i}")
+      if act is not None:
+        x = act(x)
+    return x
+
+
+class MBT2018Analysis(_ConvGDNLayers):
+  """Minnen 2018 analysis: n_layers x (5x5 s2 conv + GDN)."""
+
+  def __init__(self, in_features: int, channels_base: int, n_layers: int = 4,
+               output_channels: Optional[int] = None):
+    super().__init__(in_features, channels_base, n_layers, output_channels, transpose=False)
+    self.downsample_factor = 2**n_layers
+
+
+class MBT2018Synthesis(_ConvGDNLayers):
+  """Minnen 2018 synthesis: n_layers x (5x5 s2 deconv + IGDN)."""
+
+  def __init__(self, in_features: int, channels_base: int, n_layers: int = 4,
+               output_channels: int = 3):
+    super().__init__(in_features, channels_base, n_layers, output_channels, transpose=True)
+    self.upsample_factor = 2**n_layers
+
+
+class CNNAnalysis(nn.Module):
+  """Four 5x5 s2 convs, the activation (leaky relu, slope 0.2) between."""
+
+  downsample_factor = 16
+
+  def __init__(self, in_features: int, channels_base: int,
+               output_channels: Optional[int] = None, activation_type: str = "leaky_relu"):
+    super().__init__()
+    cb, a = channels_base, activation_type
+    self.output_depth = output_channels if output_channels is not None else cb
+    self.stack = _ConvStack(in_features, ((cb, 5, 2, a, False), (cb, 5, 2, a, False),
+                                          (cb, 5, 2, a, False),
+                                          (self.output_depth, 5, 2, None, False)))
+
+  def forward(self, x):
+    return self.stack(x)
+
+
+class CNNSynthesis(nn.Module):
+  """Four 5x5 s2 deconvs, the activation (leaky relu, slope 0.2) between."""
+
+  upsample_factor = 16
+
+  def __init__(self, in_features: int, channels_base: int, output_channels: int = 3,
+               activation_type: str = "leaky_relu"):
+    super().__init__()
+    cb, a = channels_base, activation_type
+    self.output_depth = output_channels
+    self.stack = _ConvStack(in_features, ((cb, 5, 2, a, True), (cb, 5, 2, a, True),
+                                          (cb, 5, 2, a, True),
+                                          (output_channels, 5, 2, None, True)))
+
+  def forward(self, x):
+    return self.stack(x)
+
+
 def _final_deconv_packed(mid_p: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
                          s1: int, s2: int, mid_channels: int) -> torch.Tensor:
   """Final small deconv from phase space.
@@ -184,8 +393,44 @@ def _apply_act_phase(act, x_p: torch.Tensor, num_phases: int) -> torch.Tensor:
     return x_p
   if isinstance(act, GDN):
     beta, gamma = act.effective_params(x_p.dtype)
-    return fd.gdn_phase(x_p, beta, gamma, num_phases, act.inverse)
+    return fd.gdn_phase(x_p, beta, gamma, num_phases, act.inverse, act.alpha, act.epsilon)
   return act(x_p)  # pointwise activations are phase-agnostic
+
+
+class TwoLayerSynthesis(nn.Module):
+  """Two deconvs with an activation between (the paper's non-residual
+  two-layer decoder): conv2(act(conv1(z))), children `conv1`, `act`, `conv2`.
+
+  The fused form keeps the mid activation in s1 phase space: conv1 runs as
+  one phase conv, the activation applies per phase, and the final deconv
+  reads the phase tensor directly (final_deconv_phase at the k13s8 + k5s2
+  geometry). PReLU does not fuse, as in the JAX package.
+  """
+
+  def __init__(self, in_features: int, channels: Tuple[int, int] = (24, 3),
+               strides: Tuple[int, int] = (8, 2), kernel_sizes: Tuple[int, int] = (13, 5),
+               activation_type: Optional[str] = "igdn", fused: bool = True):
+    super().__init__()
+    self.channels = tuple(channels)
+    self.strides = tuple(strides)
+    self.fused = fused
+    self.upsample_factor = strides[0] * strides[1]
+    self.output_depth = channels[-1]
+    self.conv1 = FastConvTranspose(in_features, channels[0], kernel_sizes[0], strides[0])
+    self.act = make_activation(activation_type, channels[0])
+    self.conv2 = FastConvTranspose(channels[0], channels[1], kernel_sizes[1], strides[1])
+
+  def forward(self, z: torch.Tensor) -> torch.Tensor:
+    if not self.fused or isinstance(self.act, PReLU):
+      x = self.conv1(z)
+      if self.act is not None:
+        x = self.act(x)
+      return self.conv2(x)
+    s1 = self.strides[0]
+    x_p = fd.phase_conv(z, self.conv1.kernel.to(z.dtype), self.conv1.bias, s1)
+    mid_p = _apply_act_phase(self.act, x_p, s1 * s1)
+    return _final_deconv_packed(mid_p, self.conv2.kernel.to(z.dtype), self.conv2.bias,
+                                s1, self.strides[1], self.channels[0])
 
 
 class TwoLayerResSynthesis(nn.Module):
@@ -194,7 +439,7 @@ class TwoLayerResSynthesis(nn.Module):
   out_conv(act(base_conv(z)) + res_conv(z)). The fused form keeps the mid
   activation in s1 phase space: base and residual run as one phase conv, the
   (I)GDN and the sum apply per phase, and the final k5s2 deconv reads the
-  phase tensor directly (final_deconv_phase).
+  phase tensor directly (final_deconv_phase). PReLU does not fuse.
   """
 
   def __init__(self, in_features: int, channels: Tuple[int, int] = (12, 3),
@@ -213,7 +458,7 @@ class TwoLayerResSynthesis(nn.Module):
     self.out_conv = FastConvTranspose(c, channels[1], kernel_sizes[1], strides[1])
 
   def forward(self, z: torch.Tensor) -> torch.Tensor:
-    if not self.fused:
+    if not self.fused or isinstance(self.base_act, PReLU):
       base = self.base_conv(z)
       if self.base_act is not None:
         base = self.base_act(base)
@@ -279,14 +524,17 @@ class JPEGLikeHyperSynthesis(nn.Module):
 
 
 def build_transform(cfg: dict, in_features: int, **extra) -> nn.Module:
-  """Instantiate a ported transform from a {'cls': name, **kwargs} config dict."""
+  """Instantiate a transform from a {'cls': name, **kwargs} config dict, by
+  the JAX package's class names (models/transforms.py:956-976)."""
   from shallow_ntc_tpu_torch.models.elic import ElicAnalysis
 
   cfg = dict(cfg)
   name = cfg.pop("cls")
-  cls = {c.__name__: c for c in (ElicAnalysis, HyperAnalysis, HyperSynthesis,
-                                 TwoLayerResSynthesis, JPEGLikeSynthesis,
-                                 JPEGLikeHyperSynthesis)}.get(name)
+  cls = {c.__name__: c for c in (
+      BLS2017Analysis, BLS2017Synthesis, CNNAnalysis, CNNSynthesis, HyperAnalysis,
+      HyperSynthesis, MBT2018Analysis, MBT2018Synthesis, HyperAnalysisSmall,
+      HyperSynthesisSmall, ElicAnalysis, JPEGLikeSynthesis, TwoLayerSynthesis,
+      TwoLayerResSynthesis, JPEGLikeHyperSynthesis)}.get(name)
   if cls is None:
     raise NotImplementedError(f"transform {name} is not ported yet")
   return cls(in_features, **{k: tuple(v) if isinstance(v, list) else v

@@ -84,18 +84,36 @@ def phase_conv(z: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tenso
   return out
 
 
+def gdn(x: torch.Tensor, beta: torch.Tensor, gamma: torch.Tensor, inverse: bool,
+        alpha: float = 1.0, epsilon: float = 1.0) -> torch.Tensor:
+  """GDN over the last axis: x / (beta + |x|^alpha @ gamma)^epsilon, or x * (...)
+  if inverse. |x| for alpha 1, x^2 for 2; sqrt for epsilon 0.5, as the JAX
+  package's GDN (models/transforms.py:99-110)."""
+  if alpha == 1.0:
+    pool = torch.abs(x)
+  elif alpha == 2.0:
+    pool = torch.square(x)
+  else:
+    pool = torch.abs(x) ** alpha
+  norm = pool @ gamma.to(x.dtype) + beta.to(x.dtype)
+  if epsilon == 0.5:
+    norm = torch.sqrt(norm)
+  elif epsilon != 1.0:
+    norm = norm**epsilon
+  return x * norm if inverse else x / norm
+
+
 def gdn_phase(x_p: torch.Tensor, beta: torch.Tensor, gamma: torch.Tensor,
-              num_phases: int, inverse: bool) -> torch.Tensor:
-  """GDN1 (alpha = epsilon = 1) applied to a phase-space tensor [.., num_phases*C].
+              num_phases: int, inverse: bool, alpha: float = 1.0,
+              epsilon: float = 1.0) -> torch.Tensor:
+  """GDN applied to a phase-space tensor [.., num_phases*C].
 
   GDN mixes channels only within one phase, so the per-phase (C, C) matmul
   equals the JAX package's block-diagonal kron(I, gamma) form.
   """
   c = gamma.shape[0]
   x = x_p.reshape(x_p.shape[:-1] + (num_phases, c))
-  norm = torch.abs(x) @ gamma.to(x.dtype) + beta.to(x.dtype)
-  out = x * norm if inverse else x / norm
-  return out.reshape(x_p.shape)
+  return gdn(x, beta, gamma, inverse, alpha, epsilon).reshape(x_p.shape)
 
 
 def partial_depth_to_space(x_p: torch.Tensor, s: int, keep: int) -> torch.Tensor:

@@ -22,6 +22,7 @@ from torch import nn
 
 _GDN_PEDESTAL = 2.0**-18
 _PRIOR_INIT_SCALE = 10.0
+_PRELU_INIT_SLOPE = 0.25
 
 
 def flatten_tree(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -62,7 +63,8 @@ def init_params(model: nn.Module, seed: int) -> Dict[str, np.ndarray]:
   """Seeded flax-style initial parameters for `model`, as a flat flax-path map.
 
   Conv and deconv kernels: glorot uniform; biases: zero; GDN: beta =
-  sqrt(1 + pedestal), gamma = sqrt(0.1 I + pedestal); deep factorized prior:
+  sqrt(1 + pedestal), gamma = sqrt(0.1 I + pedestal); PReLU's slope: 0.25
+  (models/transforms.py:123); deep factorized prior:
   as shallow_ntc_tpu/ops/entropy.py:DeepFactorizedPrior.setup.
   """
   rng = np.random.default_rng(seed)
@@ -89,6 +91,8 @@ def init_params(model: nn.Module, seed: int) -> Dict[str, np.ndarray]:
       value = np.full(shape, math.log(math.expm1(1.0 / scale / shape[1])))
     elif leaf.startswith("bias_"):
       value = rng.uniform(-0.5, 0.5, shape)
+    elif leaf == "negative_slope":
+      value = np.full(shape, _PRELU_INIT_SLOPE)
     elif leaf == "bias" or leaf.startswith("factor_"):
       value = np.zeros(shape)
     else:

@@ -1,11 +1,12 @@
-"""Train CLI of the port: the flagship mshyper model on one GPU.
+"""Train CLI of the port: a model of either family on one GPU.
 
   python -m shallow_ntc_tpu_torch.train --config two_layer_syn_rd \\
       --workdir /tmp/train_flagship [--num_steps 3] [--init_seed 0] \\
       [--images 'imgs/*.npy'] [--device cuda]
 
---config names an entry of configs.TRAIN_CONFIGS (two_layer_syn_rd, or the
-small smoke config). Writes <workdir>/config.json, train/record.jsonl and
+--config names an entry of configs.TRAIN_CONFIGS: two_layer_syn_rd (the
+flagship), jpegl_rd, two_layer_syn2, mbt2018, the factorized family's
+bls2017_rd and bls2017, or the small smoke config. Writes <workdir>/config.json, train/record.jsonl and
 val/record.jsonl (the JAX package's metric keys, steps_per_sec included)
 and train/checkpoints/ckpt_<step>.pt, and resumes from the newest
 checkpoint there. Runs on CUDA unless --device names another device; the

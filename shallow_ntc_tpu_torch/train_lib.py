@@ -19,11 +19,12 @@ from typing import Any, Callable, Dict, Iterable, List, Mapping, Optional, Seque
 
 import numpy as np
 import torch
+from torch import nn
 
 from shallow_ntc_tpu_torch import data as data_lib
 from shallow_ntc_tpu_torch import eval_lib
 from shallow_ntc_tpu_torch import schedule as schedule_lib
-from shallow_ntc_tpu_torch.models.mshyper import Model
+from shallow_ntc_tpu_torch.models import families
 
 
 class Metrics:
@@ -131,13 +132,13 @@ class TrainState:
   """What a checkpoint holds: the model's params, the optimizer's moments
   and count, the step, and the generator of the training noise."""
 
-  model: Model
+  model: nn.Module
   optimizer: Adam
   step: int
   generator: torch.Generator
 
 
-def create_train_state(model: Model, optimizer_config: Mapping[str, Any],
+def create_train_state(model: nn.Module, optimizer_config: Mapping[str, Any],
                        seed: int = 0) -> Tuple[TrainState, Callable[[int], float]]:
   """Optimizer and noise generator for `model` (already on its device)."""
   params = list(model.parameters())
@@ -147,15 +148,16 @@ def create_train_state(model: Model, optimizer_config: Mapping[str, Any],
   return TrainState(model=model, optimizer=optimizer, step=0, generator=generator), lr_fn
 
 
-def make_train_step(model: Model, optimizer: Adam, lr_fn: Callable[[int], float]):
+def make_train_step(model: nn.Module, optimizer: Adam, lr_fn: Callable[[int], float]):
   """(state, batch, noise=None) -> metrics; updates the state in place.
 
-  `noise` = (u_z, u_y) replaces the draws from the state's generator.
+  `noise`, one uniform draw per latent ((u_z, u_y) for mshyper, (u_y,) for
+  factorized), replaces the draws from the state's generator.
   """
   params = list(model.parameters())
 
   def train_step(state: TrainState, batch: torch.Tensor,
-                 noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+                 noise: Optional[Tuple[torch.Tensor, ...]] = None):
     for p in params:
       p.grad = None
     loss, metrics, _ = model.end_to_end_frame_loss(
@@ -171,7 +173,7 @@ def make_train_step(model: Model, optimizer: Adam, lr_fn: Callable[[int], float]
   return train_step
 
 
-def make_eval_step(model: Model):
+def make_eval_step(model: nn.Module):
   """(state, batch) -> (metrics, reconstruction on the 255 scale), training=False."""
 
   def eval_step(state: TrainState, batch: torch.Tensor):
@@ -218,16 +220,16 @@ def latest_checkpoint_step(workdir: str) -> Optional[int]:
 
 
 def model_from_checkpoint(workdir: str, model_config: Mapping[str, Any],
-                          device: Optional[str] = "cuda") -> Model:
-  """The model of `model_config` with the params of the newest checkpoint under
-  `workdir`, on `device` in eval mode."""
+                          device: Optional[str] = "cuda", family: str = "mshyper") -> nn.Module:
+  """The `family` model of `model_config` with the params of the newest
+  checkpoint under `workdir`, on `device` in eval mode."""
   step = latest_checkpoint_step(workdir)
   if step is None:
     raise FileNotFoundError(f"no checkpoint under {checkpoint_dir(workdir)}")
   device = eval_lib.resolve_device(device)
   payload = torch.load(os.path.join(checkpoint_dir(workdir), f"ckpt_{step}.pt"),
                        map_location="cpu", weights_only=True)
-  model = Model(**{k: v for k, v in model_config.items() if k != "optimizer_config"})
+  model, _ = families.build_model(model_config, family)
   model.load_state_dict(payload["model"])
   return model.to(device).eval()
 
@@ -281,7 +283,7 @@ def evaluate_model(eval_step, state: TrainState, val_iter: Iterable,
   return Metrics.merge_metrics(all_metrics)
 
 
-def simple_train_eval_loop(train_eval_config: Mapping[str, Any], workdir: str, model: Model,
+def simple_train_eval_loop(train_eval_config: Mapping[str, Any], workdir: str, model: nn.Module,
                            optimizer_config: Mapping[str, Any], train_iter: Iterable,
                            val_iter_factory: Callable[[], Iterable],
                            seed: int = 0) -> TrainState:
@@ -322,17 +324,19 @@ def simple_train_eval_loop(train_eval_config: Mapping[str, Any], workdir: str, m
   return state
 
 
-def build_model(model_config: Mapping[str, Any], init_seed: int,
-                device: Optional[str] = "cuda") -> Tuple[Model, Dict[str, Any]]:
-  """(Model with a seeded flax-style init on `device`, its optimizer_config)."""
-  model = eval_lib.build_model(model_config, init_seed=init_seed, device=device)
+def build_model(model_config: Mapping[str, Any], init_seed: int, device: Optional[str] = "cuda",
+                family: str = "mshyper") -> Tuple[nn.Module, Dict[str, Any]]:
+  """(the `family` Model with a seeded flax-style init on `device`, its
+  optimizer_config)."""
+  model = eval_lib.build_model(model_config, init_seed=init_seed, device=device, family=family)
   return model.train(), dict(model_config.get("optimizer_config", {}))
 
 
 def train_and_eval(config: Mapping[str, Any], workdir: str, device: Optional[str] = "cuda",
                    init_seed: int = 0, num_steps: Optional[int] = None,
                    images: Optional[str] = None) -> TrainState:
-  """The train CLI's entry: build, train, checkpoint and evaluate.
+  """The train CLI's entry: build the model of config["model_family"]
+  (mshyper when absent), train, checkpoint and evaluate.
 
   `images` (a glob of .npy images) replaces the config's synthetic data;
   `num_steps` cuts the loop, not the schedules (as a JAX dot-override of
@@ -341,7 +345,8 @@ def train_and_eval(config: Mapping[str, Any], workdir: str, device: Optional[str
   cfg = {k: dict(v) if isinstance(v, Mapping) else v for k, v in config.items()}
   if num_steps is not None:
     cfg["train_eval_config"]["num_steps"] = num_steps
-  model, optimizer_config = build_model(cfg["model_config"], init_seed, device)
+  model, optimizer_config = build_model(cfg["model_config"], init_seed, device,
+                                        cfg.get("model_family", "mshyper"))
   train_cfg = cfg["train_data_config"]
   val_cfg = cfg.get("val_data_config") or train_cfg
   if images is not None:

@@ -312,7 +312,19 @@ def test_batch_paths_match_the_per_image_path(flagship):
 
 
 def test_make_codec_takes_mshyper_models_only():
-  with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+  """make_codec dispatches on the family: MSHyperCodec for an mshyper model,
+  FactorizedCodec for a factorized one, and TypeError for anything else, as
+  the JAX package's make_codec."""
+  from shallow_ntc_tpu_torch.models import families
+
+  bls = copy.deepcopy(configs.BLS2017_RD)
+  for part in ("analysis", "synthesis"):
+    bls["transform_config"][part]["num_filters"] = 8
+  factorized = eval_lib.build_model(bls, init_seed=0, device="cpu", family="factorized")
+  assert isinstance(api.make_codec(factorized), api.FactorizedCodec)
+  assert isinstance(api.make_codec(families.build_model(SMALL_CONFIG, "mshyper")[0]),
+                    api.MSHyperCodec)
+  with pytest.raises(TypeError):
     api.make_codec(torch.nn.Linear(2, 2))
 
 

@@ -440,3 +440,101 @@ def test_sga_run_launches_final_deconv_once_per_step_and_val_pass(cuda_device):
   torch.cuda.synchronize()
   assert tl.STATS.launches == launches + 6
   assert all(v.dtype == np.float32 for v in itinf_vars.values()) and np.isfinite(val["rd_loss"])
+
+
+def _small_factorized(device):
+  """bls2017_rd at 16 filters, seeded, on `device`."""
+  import copy
+
+  from shallow_ntc_tpu_torch import configs, eval_lib
+
+  cfg = copy.deepcopy(configs.BLS2017_RD)
+  for part in ("analysis", "synthesis"):
+    cfg["transform_config"][part]["num_filters"] = 16
+  return cfg, eval_lib.build_model(cfg, init_seed=0, device=device, family="factorized")
+
+
+@pytest.mark.gpu
+def test_factorized_eval_and_train_step_on_the_card_match_the_cpu(cuda_device):
+  """The factorized eval of a 128x192 image: y within 1e-4 * max(1, max|y|)
+  and PSNR rtol 1e-3 (the total rate, the prior's alone, is printed: the
+  sign trick's floor depends on each device's last bit); then one train
+  step from the same params with the same uniform draw: rd_loss rtol 1e-4
+  and every gradient within 1e-3 * max|g| + 1e-6 elementwise, or its L2
+  within 1e-2 (a relu-free model: GDN only, so no flip is expected)."""
+  from shallow_ntc_tpu_torch import eval_lib, train_lib
+
+  x = _codec_image(7, 128, 192)[None]
+  runs = {d: _small_factorized(d) for d in ("cpu", "cuda")}
+  metrics, ys = {}, {}
+  for d, (_, model) in runs.items():
+    (metrics[d],) = list(eval_lib.evaluate_images(model, x))
+    with torch.no_grad():
+      ys[d] = model.infer_latent_rvs(torch.from_numpy(x).to(d)).uq[0].loc.cpu()
+  print({k: (metrics["cuda"][k], metrics["cpu"][k]) for k in ("bpp", "psnr")})
+  torch.testing.assert_close(ys["cuda"], ys["cpu"], rtol=0,
+                             atol=1e-4 * max(1.0, ys["cpu"].abs().max().item()))
+  np.testing.assert_allclose(metrics["cuda"]["psnr"], metrics["cpu"]["psnr"], rtol=1e-3)
+  batch = _codec_image(8, 64, 64)[None].repeat(2, 0)
+  noise = np.random.default_rng(2).uniform(-0.5, 0.5, (2, 4, 4, 16)).astype(np.float32)
+  step_metrics, grads = {}, {}
+  for d, (cfg, model) in runs.items():
+    model.train()
+    state, lr_fn = train_lib.create_train_state(model, {"learning_rate": 1e-4})
+    step_metrics[d] = train_lib.make_train_step(model, state.optimizer, lr_fn)(
+        state, torch.from_numpy(batch).to(d), noise=(torch.from_numpy(noise).to(d),))
+    grads[d] = [p.grad.cpu() for p in model.parameters()]
+  np.testing.assert_allclose(float(step_metrics["cuda"]["rd_loss"]),
+                             float(step_metrics["cpu"]["rd_loss"]), rtol=1e-4)
+  for g_gpu, g_cpu in zip(grads["cuda"], grads["cpu"]):
+    diff = (g_gpu - g_cpu).abs()
+    if diff.max() > 1e-3 * g_cpu.abs().max() + 1e-6:
+      assert diff.norm() <= 1e-2 * g_cpu.norm()
+
+
+@pytest.mark.gpu
+def test_factorized_codec_roundtrip_on_the_card_is_bit_exact(cuda_device):
+  """GPU encode -> GPU decode of the factorized codec, at a size that pads
+  (100x140) and one that does not; no kernel of the port launches."""
+  from shallow_ntc_tpu_torch.codec import api as codec_api
+
+  _, model = _small_factorized(cuda_device)
+  codec = codec_api.make_codec(model)
+  assert isinstance(codec, codec_api.FactorizedCodec)
+  launches = tl.STATS.launches
+  for seed, (h, w) in ((0, (100, 140)), (1, (128, 192))):
+    result = codec.compress(_codec_image(seed, h, w))
+    rec = codec.decompress(result.bitstring)
+    assert rec.dtype == np.uint8 and rec.shape == (h, w, 3)
+    np.testing.assert_array_equal(rec, result.reconstruction)
+  torch.cuda.synchronize()
+  assert tl.STATS.launches == launches
+
+
+@pytest.mark.gpu
+def test_two_layer_syn2_forward_launches_final_deconv_once(cuda_device):
+  """two_layer_syn2's TwoLayerSynthesis (k13s8 + k5s2, 12 mid channels) takes
+  the fused route: one final_deconv_phase launch a forward, in eval and in a
+  mixedq training forward, and its output equals the unfused route's."""
+  import copy
+
+  from shallow_ntc_tpu_torch import configs, eval_lib
+
+  cfg = copy.deepcopy(configs.TWO_LAYER_SYN2)
+  cfg["transform_config"]["analysis"].update(channels_base=16, output_channels=32)
+  model = eval_lib.build_model(cfg, init_seed=0, device=cuda_device)
+  x = torch.from_numpy(_codec_image(9, 128, 192)[None]).to(cuda_device)
+  for training in (False, True):
+    launches = tl.STATS.launches
+    loss, _, _ = model.end_to_end_frame_loss(x, training=training)
+    if training:
+      loss.backward()
+    torch.cuda.synchronize()
+    assert tl.STATS.launches == launches + 1
+  y = torch.randn(1, 8, 12, 32, device=cuda_device)
+  with torch.no_grad():
+    fused = model.synthesize(y)
+    model._synthesis.fused = False
+    unfused = model.synthesize(y)
+  torch.testing.assert_close(fused, unfused, rtol=0,
+                             atol=1e-4 * max(1.0, unfused.abs().max().item()))

@@ -411,6 +411,8 @@ def test_transforms_dtype_casts_the_transforms_inputs_only():
   assert loss.dtype == torch.float32 and all(v.dtype == torch.float32 for v in metrics.values())
   assert all(g.dtype == torch.float32 for g in torch.autograd.grad(loss, locs))
   assert all(p.dtype == torch.float32 for p in port.parameters())
-  with pytest.raises(NotImplementedError, match="mixedq"):
-    eval_lib.build_model(dict(SMALL_CONFIG, latent_config=dict(uq=dict(method="mixedq"))),
-                         init_seed=0, device="cpu")
+  # A mixedq model builds, with its offset heuristic turned off
+  # (models/base.py:effective_offset_heuristic, as the JAX model factory).
+  mixedq = eval_lib.build_model(dict(SMALL_CONFIG, latent_config=dict(uq=dict(method="mixedq"))),
+                                init_seed=0, device="cpu")
+  assert not mixedq.offset_heuristic and mixedq.prior_quantization_offset() is None

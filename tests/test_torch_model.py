@@ -143,7 +143,8 @@ def test_port_imports_no_jax():
       "names = {m.name for m in pkgutil.walk_packages(p.__path__, 'shallow_ntc_tpu_torch.')}\n"
       "need = {'shallow_ntc_tpu_torch.' + n for n in ('train_lib', 'train', 'ops.rb_chain',\n"
       "        'ops.resblock', 'eval', 'models.mshyper', 'ops.jpegl_decode', 'codec.api',\n"
-      "        'codec.tables', 'codec.bindings', 'compress', 'itinf', 'itinf_lib')}\n"
+      "        'codec.tables', 'codec.bindings', 'compress', 'itinf', 'itinf_lib',\n"
+      "        'models.factorized', 'models.families')}\n"
       "assert need <= names, need - names\n"
       "print(len(names), bad)\n"
       "assert not bad, bad\n")

@@ -153,13 +153,15 @@ def test_training_loss_and_gradients_match_jax(small_models):
   port.zero_grad()
 
 
-def check_two_train_steps_match_jax(model_config, optimizer_config, seed=1):
+def check_two_train_steps_match_jax(model_config, optimizer_config, seed=1, family="mshyper",
+                                    noise_fn=_jax_noise):
   """JAX make_train_step against the port's, twice, from the same params and
-  with the same noise: the loss within rtol 1e-4 at each step, and every
-  parameter afterwards within atol 0.05 * lr of that step (Adam moves a
-  parameter by ~lr * g / (|g| + 1e-7), so a gradient near zero whose last
-  bits differ can move it by a fraction of lr)."""
-  jax_model, params, port = models(model_config, seed=seed)
+  with the same noise (noise_fn(key, step), JAX's draws): the loss within
+  rtol 1e-4 at each step, and every parameter afterwards within atol 0.05 *
+  lr of that step (Adam moves a parameter by ~lr * g / (|g| + 1e-7), so a
+  gradient near zero whose last bits differ can move it by a fraction of
+  lr)."""
+  jax_model, params, port = models(model_config, seed=seed, family=family)
   tx, jax_lr = jax_train_lib.make_optimizer(optimizer_config, jax_model.scheduled_num_steps)
   key = jax.random.PRNGKey(7)
   state_j = jax_train_lib.TrainState(step=jnp.zeros((), jnp.int32), params=params,
@@ -170,7 +172,7 @@ def check_two_train_steps_match_jax(model_config, optimizer_config, seed=1):
   for step in range(2):
     x = _batch(10 + step)
     state_j, m_j = step_j(state_j, x)
-    m_t = step_t(state_t, to_torch(x), noise=_jax_noise(key, step))
+    m_t = step_t(state_t, to_torch(x), noise=noise_fn(key, step))
     assert set(m_t) == set(m_j)
     np.testing.assert_allclose(float(m_t["rd_loss"]), float(m_j["rd_loss"]), rtol=1e-4)
     assert float(m_t["scheduled_lr"]) == float(m_j["scheduled_lr"])

@@ -6,15 +6,20 @@ cross between them as numpy. JAX runs on the CPU in full float32
 """
 
 import copy
+import functools
 
 import jax
 import numpy as np
 import torch
 
+from shallow_ntc_tpu.models import base as jax_base
+from shallow_ntc_tpu.models import factorized as jax_factorized
 from shallow_ntc_tpu.models import mshyper as jax_mshyper
 from shallow_ntc_tpu_torch import configs
 from shallow_ntc_tpu_torch import params as params_lib
-from shallow_ntc_tpu_torch.models.mshyper import Model
+from shallow_ntc_tpu_torch.models import families
+
+JAX_FAMILIES = {"mshyper": jax_mshyper.Model, "factorized": jax_factorized.Model}
 
 # ELIC at narrow widths; the synthesis keeps the flagship's (12, 3) widths,
 # kernels and strides, so the final stage has the flagship geometry.
@@ -57,13 +62,17 @@ def perturbed_init(model: torch.nn.Module, seed: int):
           for k, v in flat.items()}
 
 
-def models(model_config=None, seed=0):
-  """(flax Model, its params as a tree, port Model on the CPU with the same params)."""
+def models(model_config=None, seed=0, family="mshyper"):
+  """(flax Model, its params as a tree, port Model on the CPU with the same
+  params), each built as its package's model factory builds it (mixedq turns
+  the offset heuristic off)."""
   cfg = copy.deepcopy(model_config or SMALL_CONFIG)
-  port = Model(**cfg).eval()
+  cfg.pop("optimizer_config", None)
+  port = families.build_model(cfg, family)[0].eval()
   flat = perturbed_init(port, seed)
   params_lib.load_params(port, flat)
-  jax_model = jax_mshyper.Model(**cfg)
+  cfg["offset_heuristic"] = jax_base.effective_offset_heuristic(cfg)
+  jax_model = JAX_FAMILIES[family](**cfg)
   return jax_model, jax.tree_util.tree_map(np.asarray, nest(flat)), port
 
 
@@ -86,7 +95,11 @@ def check_eval_matches_jax(jax_model, params, port, x):
   latents atol 1e-4; bpp, PSNR, MSE and rd_loss rtol 1e-3; (MS-)SSIM atol
   1e-5 (it lies in [-1, 1] and is near 0 at a random init)."""
   cls = jax_mshyper.Model
-  rv = jax_model.apply({"params": params}, x, method=cls.infer_latent_rvs)
+
+  def apply(method, *args):  # jitted: one compile, not one per op
+    return jax.jit(functools.partial(jax_model.apply, method=method))({"params": params}, *args)
+
+  rv = apply(cls.infer_latent_rvs, x)
   z_j, y_j = (np.asarray(r.loc) for r in rv.uq)
   with torch.no_grad():
     rv_t = port.infer_latent_rvs(to_torch(x))
@@ -96,11 +109,12 @@ def check_eval_matches_jax(jax_model, params, port, x):
 
   # Feed JAX's y_hat to the port's synthesis: a symbol that rounding flips
   # at a .5 boundary must not hide a reconstruction error.
-  offset = jax_model.apply({"params": params}, method=cls.prior_quantization_offset)
+  offset = apply(cls.prior_quantization_offset)
+  offset = 0.0 if offset is None else np.asarray(offset)  # None: the heuristic is off
   z_hat = np.round(z_j - offset) + offset
-  mu, idx = jax_model.apply({"params": params}, z_hat, method=cls.hyper_synthesize)
+  mu, idx = apply(cls.hyper_synthesize, z_hat)
   y_hat = np.round(y_j - np.asarray(mu)) + np.asarray(mu)
-  rec_j = jax_model.apply({"params": params}, y_hat, method=cls.synthesize)
+  rec_j = apply(cls.synthesize, y_hat)
   with torch.no_grad():
     mu_t, idx_t = port.hyper_synthesize(to_torch(z_hat))
     rec_t = port.synthesize(to_torch(y_hat))
