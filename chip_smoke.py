@@ -90,6 +90,26 @@ Phases, one flushed line each with its seconds (TF32 off throughout):
                two_layer_syn2's B=8 bf16 decode and 2 mixedq train steps.
                final_deconv_phase's count, zeroed and read around each path,
                equals two_layer_syn2's forwards; mbt2018 launches no kernel.
+ 15. int8      the int8 inference paths (ops/int8ops.py), seeded weights: the
+               flagship's B=8 512x768 bf16 decode in float, int8_syn and
+               int8_all (time by CUDA events, kernels' device time and count,
+               final_deconv_phase's launches, the reconstruction against the
+               float one; int8_syn's mu equal to float's); the k13s8 phase
+               GEMM (torch._int_mm) exact against a float64 product of the
+               same int8 operands, its conv equal to the CPU's bit for bit,
+               its time beside its bound at 1979 TOPS and the bf16 phase
+               conv's; a jpegl_rd (k18s16) int8 decode with the same check;
+               the eval of the 3 images in the arms of scripts/int8_quality.py
+               (f32, syn, all, enc, enc_syn; syn's bpp equal to f32's); the
+               chain's precedence over SNTC_INT8_ENCODE; the codec: a float
+               bitstream under an int8_syn decoder gives the same latent, ms
+               per call, and the CLI's roundtrip --decode_dtype int8_syn.
+ 16. inference-extras  LPIPS (random weights) of the 3 images on the card
+               against the CPU and its ms an image; ElicSynthesis at its
+               default width on a 32x48x320 latent, chain off and on
+               (fused_rb_chain launches counted), and TwoLayerResSynthesis
+               (res_type="d2s") at the flagship's width, each on the card
+               against the CPU.
 Phase 11 also times the B=8 bf16 decodes of bls2017_rd, two_layer_syn2 and
 mbt2018.
 Then one JSON line of kernels, the nvidia-smi line, and the last line
@@ -115,11 +135,14 @@ H100_BYTES_PER_S = 3.35e12  # HBM3, NVIDIA data sheet (SXM)
 # 3xTF32 (three TF32 products, 495 TFLOP/s / 3) than on the CUDA cores (67
 # TFLOP/s), so that is the least time the card needs for float32 work.
 H100_PEAK_FLOPS = {"bfloat16": 989e12, "float32": 495e12 / 3}
+H100_INT8_OPS = 1979e12  # dense int8 tensor-core peak (NVIDIA data sheet, SXM)
 EVAL_HW = (512, 768)
 DECODE_BATCH = 8
 TRAIN_BATCH, TRAIN_HW, TRAIN_STEPS = 8, 256, 4
 # The residual-block chains the flagship runs per forward, and their blocks.
 CHAINS_PER_FORWARD, BLOCKS_PER_FORWARD = 7, 21
+# ElicSynthesis's chains per forward: 2 attentions x 2, and 3 between deconvs.
+ELIC_SYNTHESIS_CHAINS = 7
 JPEGL_TRAIN_STEPS = 2
 
 
@@ -158,6 +181,29 @@ def cuda_ms(torch, fn, iters=50, warmup=5, host_ahead=False):
   end.record()
   end.synchronize()
   return start.elapsed_time(end) / iters
+
+
+def kernels_ms(torch, fn, iters=5):
+  """(device time of fn()'s kernels in ms, device activities per call: kernels,
+  copies and fills), both summed by torch.profiler over `iters` calls."""
+  from torch.profiler import ProfilerActivity, profile
+
+  with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    for _ in range(iters):
+      fn()
+    torch.cuda.synchronize()
+  events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+  return (sum(e.self_device_time_total for e in events) / 1e3 / iters,
+          sum(e.count for e in events) / iters)
+
+
+def int8_gemm_bound_ms(m, k, n):
+  """Least time for an int8 [M, K] x [K, N] -> int32 product: bytes (the two
+  int8 operands read once, the int32 output written once) or operations
+  (2 M K N at the int8 peak)."""
+  t_bytes = (m * k + k * n + 4 * m * n) / H100_BYTES_PER_S * 1e3
+  t_ops = 2 * m * k * n / H100_INT8_OPS * 1e3
+  return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def final_deconv_bound_ms(mid_p, out, kernel, dtype_name):
@@ -578,16 +624,6 @@ def itinf_phase(image, zero_counts, read_counts, smi):
   # time of its kernels summed by torch.profiler over 5 steps. (cuda_ms's
   # host_ahead cannot hold the host ahead of ~500 launches a step: the
   # CUDA launch queue fills, and the host waits for the device.)
-  def kernels_ms(fn, iters=5):
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-      for _ in range(iters):
-        fn()
-      torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type.name == "CUDA") / 1e3 / iters
-
   def time_step(dtype, tf32):
     model.transforms_dtype = dtype
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = tf32
@@ -603,7 +639,7 @@ def itinf_phase(image, zero_counts, read_counts, smi):
                generator=itinf_lib.seed_step(gen, 0, s))
 
       call = cuda_ms(torch, one_step, iters=30, warmup=5)
-      device = kernels_ms(one_step)
+      device = kernels_ms(torch, one_step)[0]
     finally:
       model.transforms_dtype = None
       torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
@@ -1155,6 +1191,324 @@ def families_phase(images, zero_counts, read_counts, smi, reference):
     del model, codec
   log(phase, "summary " + json.dumps(dict(launches=launches, nvidia_smi=smi)))
   return launches
+
+
+def phase_gemm(int8ops, fd, kernel, stride, z):
+  """The int8 GEMM operands of the phase conv of `kernel` (stride s) over z,
+  as conv_s1_int8 builds them: (im2col [M, K], weights [N, K], the phase
+  kernel, its pads)."""
+  w_phase, dmin, t = fd.phase_kernel(kernel.to(z.dtype), stride)
+  pads = (-dmin, t - 1 + dmin)
+  cols, b_t, _, _, _ = int8ops.int8_operands(z, w_phase, *pads)
+  return cols, b_t.contiguous(), w_phase, pads
+
+
+def check_phase_gemm(torch, int8ops, phase, name, cols, b_t):
+  """The card's int32 product of the int8 operands against a float64 product
+  of the same operands on the card: exact while |sum| <= K 127^2 < 2^53."""
+  acc = int8ops.int8_matmul(cols, b_t)
+  exact = cols.double() @ b_t.double().t()
+  torch.cuda.synchronize()
+  same = torch.equal(acc.double(), exact)
+  log(phase, f"{name} GEMM [{cols.shape[0]}, {cols.shape[1]}] x [{cols.shape[1]}, "
+      f"{b_t.shape[0]}] int8 -> int32 on the card: equal to the float64 product "
+      f"(|sum| <= {cols.shape[1]} * 127^2 < 2^53): {same}")
+  check(same, f"the {name} int8 GEMM is not exact")
+
+
+def int8_phase(images, zero_counts, read_counts, smi):
+  """Phase 15: the int8 inference paths (ops/int8ops.py) at full width with
+  seeded weights. The flagship's B=8 512x768 bf16 decode in float, int8_syn
+  and int8_all; the k13s8 phase GEMM exact and equal to the CPU's, with its
+  times beside its bound; a jpegl_rd (k18s16) int8 decode; the eval of the
+  3 images in the five arms of scripts/int8_quality.py, f32, TF32 off; the
+  chain's precedence over the encode gate; the codec: a float bitstream
+  under an int8_syn decoder, and the CLI's int8_syn roundtrip. Returns the
+  phase's numbers."""
+  import torch
+  from shallow_ntc_tpu_torch import configs, eval_lib
+  from shallow_ntc_tpu_torch.codec import api as codec_api
+  from shallow_ntc_tpu_torch.ops import fast_deconv as fd
+  from shallow_ntc_tpu_torch.ops import int8ops
+  from shallow_ntc_tpu_torch.ops import rb_chain as rb
+  from shallow_ntc_tpu_torch.ops import twolayer_final as tl
+
+  phase = "int8"
+  dev = torch.device("cuda")
+  rng = np.random.default_rng(15)
+  mh, mw = EVAL_HW[0] // 16, EVAL_HW[1] // 16
+  y_hat = torch.from_numpy(rng.integers(-8, 8, (DECODE_BATCH, mh, mw, 320))).to(
+      dev, torch.bfloat16)
+  z_hat = torch.from_numpy(rng.integers(-8, 8, (DECODE_BATCH, mh // 4, mw // 4, 320))).to(
+      dev, torch.bfloat16)
+  pixels = DECODE_BATCH * EVAL_HW[0] * EVAL_HW[1]
+  summary = {"nvidia_smi": smi}
+
+  # The flagship's decode in the three modes of the eval CLI's --decode_dtype.
+  model = eval_lib.build_model(configs.TWO_LAYER_SYN_RD, init_seed=0,
+                               device="cuda").to(torch.bfloat16)
+  decode = make_decode(model, y_hat, z_hat)
+  outs, decodes = {}, {}
+  for name, mode in (("float", ""), ("int8_syn", "syn"), ("int8_all", "all")):
+    with int8ops.decode_mode(mode):
+      zero_counts()
+      outs[name] = decode()
+      launches = read_counts()[tl.STATS.name]
+      check_decode(f"flagship {name}", outs[name], y_hat)
+      ms = cuda_ms(torch, decode, iters=20, warmup=3)
+      dev_ms, n_kernels = kernels_ms(torch, decode)
+    ref = outs["float"][2].float()
+    abs_diff = (outs[name][2].float() - ref).abs().max().item()
+    diff = abs_diff / ref.abs().max().item()
+    decodes[name] = dict(ms=ms, mpx_per_s=pixels / ms / 1e3, device_ms=dev_ms,
+                         device_activities=n_kernels, final_deconv_launches=launches,
+                         max_abs_diff_vs_float=abs_diff, rel_diff_vs_float=diff)
+    log(phase, f"flagship decode B={DECODE_BATCH} {EVAL_HW[0]}x{EVAL_HW[1]} bf16 {name}: "
+        f"{ms:.4f} ms ({pixels / ms / 1e3:.2f} Mpx/s), kernels {dev_ms:.4f} ms in "
+        f"{n_kernels:.0f} device activities a decode, final_deconv_phase launches {launches}, "
+        f"max|rec - float rec| {abs_diff:.4e} ({diff:.4e} of max|float rec|)  [{smi}]")
+    check(launches == 1, f"the {name} decode launched final_deconv_phase {launches} times")
+  same_mu = all(torch.equal(a, b) for a, b in zip(outs["int8_syn"][:2], outs["float"][:2]))
+  log(phase, f"int8_syn decode: mu and scale indexes equal to the float decode's: {same_mu}; "
+      f"int8_all moves mu by {(outs['int8_all'][0] - outs['float'][0]).abs().max().item():.4e}")
+  check(same_mu, "int8_syn moved the hyper-decoder's output")
+  check(all(0 < decodes[k]["rel_diff_vs_float"] < 0.05 for k in ("int8_syn", "int8_all")),
+        "an int8 reconstruction is not near the float one")
+  summary["decode"] = decodes
+
+  # The k13s8 phase GEMM of that decode (base and residual deconvs as one
+  # phase conv, B=8): exact on the card, and its rescaled output equal to the
+  # CPU's; its time beside its bound and the bf16 phase conv's.
+  syn = model._synthesis
+  kernel_br = torch.cat([syn.base_conv.kernel, syn.res_conv.kernel], dim=-1)
+  cols, b_t, w_phase, pads = phase_gemm(int8ops, fd, kernel_br, 8, y_hat)
+  check_phase_gemm(torch, int8ops, phase, "k13s8 phase", cols, b_t)
+  gpu = int8ops.conv_s1_int8(y_hat, w_phase, *pads, torch.bfloat16)
+  cpu = int8ops.conv_s1_int8(y_hat.cpu(), w_phase.cpu(), *pads, torch.bfloat16)
+  same = torch.equal(gpu.cpu(), cpu)
+  log(phase, f"k13s8 conv_s1_int8 B={DECODE_BATCH} bf16: the card's output equal to the CPU's "
+      f"bit for bit: {same}")
+  check(same, "the int8 phase conv on the card differs from the CPU's")
+  m, k = cols.shape
+  n = b_t.shape[0]
+  gemm = dict(ms=cuda_ms(torch, lambda: int8ops.int8_matmul(cols, b_t), host_ahead=True),
+              conv_ms=cuda_ms(torch, lambda: int8ops.conv_s1_int8(y_hat, w_phase, *pads,
+                                                                  torch.bfloat16),
+                              host_ahead=True),
+              bf16_conv_ms=cuda_ms(torch, lambda: fd._conv_s1_float(y_hat, w_phase, *pads),
+                                   host_ahead=True))
+  gemm["bound_ms"], gemm["bound_by"] = int8_gemm_bound_ms(m, k, n)
+  gemm["shape"] = f"M={m} K={k} N={n}"
+  log(phase, f"k13s8 phase GEMM {gemm['shape']} (torch._int_mm): {gemm['ms']:.5f} ms, bound "
+      f"{gemm['bound_ms']:.5f} ms ({gemm['bound_by']}, {2 * m * k * n / 1e9:.1f} GOP at 1979 "
+      f"TOPS); the whole int8 conv (quantize, im2col, GEMM, rescale) {gemm['conv_ms']:.5f} ms; "
+      f"the bf16 phase conv (cuDNN) {gemm['bf16_conv_ms']:.5f} ms  [{smi}]")
+  summary["k13s8_gemm"] = gemm
+  del model, decode, outs, cols, b_t, gpu, cpu
+
+  # jpegl_rd (k18s16 through FastConvTranspose, k6s4 hyper-decoder) in int8_all.
+  jl = eval_lib.build_model(configs.JPEGL_RD, init_seed=0, device="cuda").to(torch.bfloat16)
+  jl_decode = make_decode(jl, y_hat, z_hat)
+  ref = jl_decode()
+  with int8ops.decode_mode("all"):
+    out = jl_decode()
+    check_decode("jpegl_rd int8_all", out, y_hat)
+    jl_ms = cuda_ms(torch, jl_decode, iters=20, warmup=3)
+  diff = ((out[2].float() - ref[2].float()).abs().max() / ref[2].float().abs().max()).item()
+  cols, b_t, _, _ = phase_gemm(int8ops, fd, jl._synthesis.conv.kernel, 16, y_hat)
+  check_phase_gemm(torch, int8ops, phase, "jpegl_rd k18s16 phase", cols, b_t)
+  log(phase, f"jpegl_rd decode B={DECODE_BATCH} bf16 int8_all: {jl_ms:.4f} ms, max|rec - "
+      f"float rec| / max|float rec| {diff:.4e}")
+  check(0 < diff < 0.05, "the jpegl_rd int8 reconstruction is not near the float one")
+  summary["jpegl_rd_decode_ms"] = jl_ms
+  del jl, jl_decode, cols, b_t
+
+  # The eval of the 3 images in the five arms of scripts/int8_quality.py.
+  model = eval_lib.build_model(configs.TWO_LAYER_SYN_RD, init_seed=0, device="cuda")
+  arms = {"f32": ("", False), "syn": ("syn", False), "all": ("all", False),
+          "enc": ("", True), "enc_syn": ("syn", True)}
+  records, eval_launches = {}, 0
+  for arm, (mode, enc) in arms.items():
+    with int8ops.decode_mode(mode), (switch_on("SNTC_INT8_ENCODE") if enc
+                                     else contextlib.nullcontext()):
+      zero_counts()
+      t = time.time()
+      records[arm] = list(eval_lib.evaluate_images(model, images))
+      torch.cuda.synchronize()
+      secs = time.time() - t
+      eval_launches += read_counts()[tl.STATS.name]
+    mean = {k: float(np.mean([r[k] for r in records[arm]])) for k in ("bpp", "psnr", "msssim")}
+    log(phase, f"eval arm {arm}: bpp {mean['bpp']:.6f} psnr {mean['psnr']:.5f} msssim "
+        f"{mean['msssim']:.6f} (mean of {len(images)} images, {secs:.2f}s)"
+        + ("" if arm == "f32" else f"; delta vs f32: bpp "
+           f"{mean['bpp'] - np.mean([r['bpp'] for r in records['f32']]):+.6f}, psnr "
+           f"{mean['psnr'] - np.mean([r['psnr'] for r in records['f32']]):+.5f} dB"))
+  for a, b_ in (("syn", "f32"), ("enc_syn", "enc")):
+    same = [r["bpp"] == q["bpp"] for r, q in zip(records[a], records[b_])]
+    log(phase, f"eval: {a} bpp equal to {b_} bpp per image: {same}")
+    check(all(same), f"the {a} arm moved the rate")
+  check(eval_launches == len(images) * len(arms),
+        f"the eval arms launched final_deconv_phase {eval_launches} times")
+  summary["eval_arms"] = {arm: {k: float(np.mean([r[k] for r in recs]))
+                                for k in ("bpp", "psnr", "msssim")}
+                          for arm, recs in records.items()}
+
+  # The encode gate moves the latents; the chain kernel takes its blocks away
+  # from it, leaving the attentions' 1x1s and the hyper-analysis's k3s1.
+  image0 = torch.from_numpy(images[:1]).to(dev)
+  conv = int8ops.conv_s1_int8
+  calls = []
+  int8ops.conv_s1_int8 = lambda *a: calls.append(1) or conv(*a)
+  latents, gated = {}, {}
+  try:
+    for way, env in (("float", ()), ("enc", ("SNTC_INT8_ENCODE",)),
+                     ("enc+chain", ("SNTC_INT8_ENCODE", "SNTC_FUSED_RB_CHAIN"))):
+      with contextlib.ExitStack() as stack:
+        for name in env:
+          stack.enter_context(switch_on(name))
+        calls.clear()
+        zero_counts()
+        with torch.no_grad():
+          latents[way] = [rv.loc for rv in model.infer_latent_rvs(image0).uq]
+        gated[way] = (len(calls), read_counts()[rb.STATS.name])
+  finally:
+    int8ops.conv_s1_int8 = conv
+  moves = {way: [(a - b_).abs().max().item() for a, b_ in zip(latents[way], latents["float"])]
+           for way in ("enc", "enc+chain")}
+  log(phase, f"image 0 analysis: int8 convs and chain launches {gated}; max|z - float z|, "
+      f"max|y - float y|: enc {moves['enc'][0]:.4e}, {moves['enc'][1]:.4e}; enc with the chain "
+      f"{moves['enc+chain'][0]:.4e}, {moves['enc+chain'][1]:.4e}")
+  check(gated["float"] == (0, 0) and gated["enc"][1] == 0 and gated["enc"][0] > 3
+        and gated["enc+chain"] == (3, CHAINS_PER_FORWARD),
+        f"the encode gate's int8 convs and chain launches: {gated}")
+  check(moves["enc"][1] > 0, "the encode gate did not move the latents")
+  summary["encode_gate"] = dict(int8_convs_and_chains=gated, latent_moves=moves)
+
+  # The codec (f32): a float bitstream under an int8_syn decoder decodes the
+  # same latent; ms per call; the CLI's int8_syn roundtrip.
+  codec = codec_api.make_codec(model)
+  x = images[0]
+  result = codec.compress(x)
+  _, _, y_float = codec.decode_latent(result.bitstring)
+  with int8ops.decode_mode("syn"):
+    _, _, y_syn = codec.decode_latent(result.bitstring)
+    rec_syn = codec.decompress(result.bitstring)
+  same = np.array_equal(y_syn, y_float)
+  px_diff = float(np.mean(rec_syn != result.reconstruction))
+  log(phase, f"codec {x.shape[0]}x{x.shape[1]}: a float bitstream ({len(result.bitstring)} "
+      "bytes) decoded under "
+      f"int8_syn: y_hat equal to the float decoder's: {same}; {px_diff:.4f} of the pixels "
+      "differ from the float reconstruction")
+  check(same and px_diff > 0, "the int8_syn decoder does not read float bitstreams as expected")
+  codec_ms = {}
+  for name, mode, fn in (("compress float", "", lambda: codec.compress(x)),
+                         ("decompress float", "", lambda: codec.decompress(result.bitstring)),
+                         ("compress int8_syn", "syn", lambda: codec.compress(x)),
+                         ("decompress int8_syn", "syn",
+                          lambda: codec.decompress(result.bitstring))):
+    with int8ops.decode_mode(mode):
+      fn()
+      t = time.time()
+      for _ in range(3):
+        fn()
+      codec_ms[name] = (time.time() - t) / 3 * 1e3
+  log(phase, "codec ms per call (mean of 3 after a warm-up): "
+      + ", ".join(f"{k} {v:.2f}" for k, v in codec_ms.items()) + f"  [{smi}]")
+  summary["codec_ms"] = codec_ms
+  raw = np.round((images[0] + 0.5) * 255.0).astype(np.uint8)
+  root = os.path.dirname(os.path.abspath(__file__))
+  with tempfile.TemporaryDirectory(prefix="chip_smoke_int8_") as tmp:
+    np.save(os.path.join(tmp, "img.npy"), raw)
+    t = time.time()
+    proc = subprocess.run([sys.executable, "-m", "shallow_ntc_tpu_torch.compress", "roundtrip",
+                           "--input", "img.npy", "--init_seed", "0", "--decode_dtype",
+                           "int8_syn"], cwd=tmp, capture_output=True, text=True, timeout=300,
+                          env=dict(os.environ, PYTHONPATH=root))
+  check(proc.returncode == 0, f"the compress CLI failed: {proc.stderr[-2000:]}")
+  log(phase, f"CLI roundtrip --decode_dtype int8_syn ({time.time() - t:.1f}s): "
+      f"{proc.stdout.strip()}")
+  check(proc.stdout.strip().endswith("bit_exact=True"), "the int8_syn CLI roundtrip failed")
+  summary["final_deconv_launches"] = (sum(d["final_deconv_launches"] for d in decodes.values())
+                                      + eval_launches)
+  summary["chain_launches"] = gated["enc+chain"][1]
+  log(phase, "summary " + json.dumps(summary))
+  return summary
+
+
+def extras_phase(images, zero_counts, read_counts, smi):
+  """Phase 16: LPIPS (random weights) on the 3 eval images, ElicSynthesis at
+  its default width (chain off and on) and TwoLayerResSynthesis(res_type=
+  "d2s") at the flagship's, each on the card against the CPU, float32, TF32
+  off. Returns the phase's numbers."""
+  import torch
+  from shallow_ntc_tpu_torch import configs, eval_lib
+  from shallow_ntc_tpu_torch import params as params_lib
+  from shallow_ntc_tpu_torch.models import lpips
+  from shallow_ntc_tpu_torch.models import transforms as T
+  from shallow_ntc_tpu_torch.ops import rb_chain as rb
+
+  phase = "inference-extras"
+  dev = torch.device("cuda")
+  summary = {"nvidia_smi": smi}
+
+  # LPIPS of each image against the flagship's reconstruction of it.
+  model = eval_lib.build_model(configs.TWO_LAYER_SYN_RD, init_seed=0, device="cuda")
+  x255 = torch.from_numpy(np.round((images + 0.5) * 255.0).astype(np.float32))
+  with torch.no_grad():
+    recs = torch.cat([model.end_to_end_frame_loss(torch.from_numpy(img[None]).to(dev))[2].cpu()
+                      for img in images])
+  del model
+  fns = {d: lpips.make_lpips_fn(weights=lpips.random_weights(device=d)) for d in ("cuda", "cpu")}
+  vals = {d: [float(fns[d](x255[i:i + 1].to(d), recs[i:i + 1].to(d)))
+              for i in range(len(images))] for d in fns}
+  rel = max(abs(g - c) / abs(c) for g, c in zip(vals["cuda"], vals["cpu"]))
+  x0, r0 = x255[:1].to(dev), recs[:1].to(dev)
+  lp_ms = cuda_ms(torch, lambda: fns["cuda"](x0, r0), iters=10, warmup=2)
+  log(phase, f"LPIPS (random weights) of the 3 images against the flagship's reconstructions: "
+      f"card {[f'{v:.6f}' for v in vals['cuda']]}, CPU {[f'{v:.6f}' for v in vals['cpu']]}, "
+      f"max rel {rel:.2e} (tol 1e-3); {lp_ms:.3f} ms an image on the card  [{smi}]")
+  check(rel <= 1e-3 and all(np.isfinite(v) and v > 0 for v in vals["cuda"]),
+        "LPIPS on the card disagrees with the CPU")
+  summary["lpips"] = dict(card=vals["cuda"], cpu=vals["cpu"], max_rel=rel, ms=lp_ms)
+
+  def card_vs_cpu(name, cfg, z, chains):
+    """A seeded transform's output on the card (the chain kernel off, or also
+    on) against the CPU's."""
+    module = T.build_transform(cfg, z.shape[-1])
+    params_lib.load_params(module, params_lib.init_params(module, 0))
+    with torch.no_grad():
+      ref = module(z)
+      module.to(dev)
+      z_d = z.to(dev)
+      runs = {}
+      for chain in chains:
+        with switch_on("SNTC_FUSED_RB_CHAIN") if chain else contextlib.nullcontext():
+          zero_counts()
+          out = module(z_d)
+          launches = read_counts()[rb.STATS.name]
+          ms = cuda_ms(torch, lambda: module(z_d), iters=5, warmup=1)
+        err = (out.cpu() - ref).abs().max().item()
+        tol = 1e-4 * max(1.0, ref.abs().max().item())
+        log(phase, f"{name}{' (chain)' if chain else ''} z {tuple(z.shape)} -> "
+            f"{tuple(out.shape)}: card vs CPU max|err| {err:.3e} (tol {tol:.3e}); "
+            f"fused_rb_chain launches {launches}; {ms:.3f} ms on the card  [{smi}]")
+        check(out.shape == (1,) + EVAL_HW + (3,) and err <= tol,
+              f"{name} disagrees with the CPU")
+        runs[f"chain {chain}"] = dict(max_abs_err=err, tol=tol, chain_launches=launches, ms=ms)
+    return runs
+
+  z = torch.from_numpy(np.random.default_rng(16).standard_normal(
+      (1, EVAL_HW[0] // 16, EVAL_HW[1] // 16, 320), np.float32))
+  elic = card_vs_cpu("ElicSynthesis", dict(cls="ElicSynthesis"), z, (False, True))
+  check(elic["chain True"]["chain_launches"] == ELIC_SYNTHESIS_CHAINS
+        and elic["chain False"]["chain_launches"] == 0, f"ElicSynthesis's chain launches: {elic}")
+  summary["elic_synthesis"] = elic
+  summary["d2s"] = card_vs_cpu(
+      "TwoLayerResSynthesis d2s", dict(cls="TwoLayerResSynthesis", channels=(12, 3),
+                                       res_type="d2s"), z, (False,))
+  summary["chain_launches"] = elic["chain True"]["chain_launches"]
+  log(phase, "summary " + json.dumps(summary))
+  return summary
 
 
 def main():
@@ -1863,6 +2217,12 @@ def main():
 
   # --- 14. families: two_layer_syn2 (mixedq) and mbt2018 ------------------
   fam_launches = families_phase(images, zero_counts, read_counts, smi, reference)
+
+  # --- 15. int8: the int8 inference paths ----------------------------------
+  int8 = int8_phase(images, zero_counts, read_counts, smi)
+
+  # --- 16. inference-extras: LPIPS, ElicSynthesis, res_type="d2s" ---------
+  extras = extras_phase(images, zero_counts, read_counts, smi)
   codec_fd = sum(codec_counts[k][tl.STATS.name]
                  for k in ("flagship_compress", "flagship_decompress"))
   codec_k16 = sum(codec_counts[k][jd.STATS.name] for k in ("k16_compress", "k16_decompress"))
@@ -1871,8 +2231,9 @@ def main():
       name=tl.STATS.name, route="cuda",
       source="shallow_ntc_tpu_torch/csrc/final_deconv.cu",
       replaces="shallow_ntc_tpu/ops/pallas/twolayer_final.py:273",
-      launches=itinf_fd,
-      path=f"itinf: SGA of image 0, {itinf['steps']} steps and {itinf['val_passes']} val pass",
+      launches=int8["final_deconv_launches"],
+      path="int8: the flagship's B=8 decode in float, int8_syn and int8_all, and the eval of "
+           "3 images in 5 arms (the final stage stays float)",
       max_abs_err=errs[("final_deconv_phase", cases[1])],
       **decode_t,
       shape=f"B={DECODE_BATCH} mid {mh}x{mw}x768 bf16 (decode)",
@@ -1884,26 +2245,33 @@ def main():
                             max_abs_err=errs[("final_deconv_phase", fd_itinf_bf16)],
                             **itinf_bf16_t),
       decode_mpx_per_s=pixels / decode_ms / 1e3)]
-  # Launches: this slice's main path is SGA (phase 12): the config's run on
-  # image 0, final_deconv_phase once per step and per val pass, the chain in
-  # the init's analysis with SNTC_FUSED_RB_CHAIN=1. The earlier slices' paths
-  # beside them: the codec of phase 6 (one compress and one decompress of
-  # image 0, a compress with the chain, the JPEGL_K16 round trip), the
-  # training run of phase 7 (4 steps and the final eval), the eval of image 0
-  # with SNTC_FUSED_RESBLOCK=1 (fused_resblock's own path, phase 4), the K16
-  # eval of phase 9. The chain's times are at train stage 1 in f32.
+  # Launches: this slice's paths are the int8 decode and eval (phase 15:
+  # final_deconv_phase once a forward, as the final stage stays float; the
+  # chain in the encode gate's precedence check) and ElicSynthesis with the
+  # chain on (phase 16). The earlier slices' paths beside them: SGA (phase
+  # 12), the codec of phase 6 (one compress and one decompress of image 0, a
+  # compress with the chain, the JPEGL_K16 round trip), the training run of
+  # phase 7 (4 steps and the final eval), the eval of image 0 with
+  # SNTC_FUSED_RESBLOCK=1 (fused_resblock's own path, phase 4), the K16 eval
+  # of phase 9. The chain's times are at train stage 1 in f32.
   kernels[0]["launches_by_path"] = {
+      "int8": int8["final_deconv_launches"],
       "itinf": itinf_fd, "itinf bf16": itinf["bf16_launches"][tl.STATS.name],
       "codec": codec_fd, "eval+decode": launches, "train": train_counts[tl.STATS.name],
       **{f"two_layer_syn2 {k}": v for k, v in fam_launches["two_layer_syn2"].items()}}
   kernels[0]["family_decodes"] = fam_decode
   kernels[0]["factorized"] = fact
+  kernels[0]["int8"] = int8
+  kernels[0]["inference_extras"] = extras
   kernels.append(dict(
       name=rb.STATS.name, route="cuda", source="shallow_ntc_tpu_torch/csrc/rb_chain.cu",
       replaces="shallow_ntc_tpu/ops/pallas/rb_chain.py:263",
-      launches=itinf["launches"][rb.STATS.name],
-      path="itinf: the init's analysis with SNTC_FUSED_RB_CHAIN=1",
-      launches_by_path={"itinf": itinf["launches"][rb.STATS.name],
+      launches=extras["chain_launches"] + int8["chain_launches"],
+      path="ElicSynthesis at 32x48x320 with SNTC_FUSED_RB_CHAIN=1, and the flagship's "
+           "analysis with the chain and SNTC_INT8_ENCODE=1",
+      launches_by_path={"ElicSynthesis": extras["chain_launches"],
+                        "int8 encode precedence": int8["chain_launches"],
+                        "itinf": itinf["launches"][rb.STATS.name],
                         "codec": codec_counts["chain_compress"][rb.STATS.name],
                         "train": train_counts[rb.STATS.name]},
       **chain_t["train f32"], other_shapes={k: v for k, v in chain_t.items() if k != "train f32"}))

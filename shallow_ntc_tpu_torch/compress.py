@@ -18,6 +18,10 @@ off for the analysis; the coding tables, the hyper-synthesis and the
 synthesis run without TF32 either way (codec.api.coding_numerics).
 roundtrip compresses, decompresses, checks that the decoder's image equals
 the encoder's bit for bit and prints bpp, PSNR and the byte count.
+--decode_dtype int8_syn runs the synthesis (the encoder's reconstruction and
+the decoder's) on int8 operands (ops/int8ops.py); the coding tables, the
+hyper-decoder and so the bitstream stay float, and a float encoder's
+bitstream decodes to the same latent.
 """
 
 import argparse
@@ -29,6 +33,7 @@ import torch
 from shallow_ntc_tpu_torch import configs, eval_lib, train_lib
 from shallow_ntc_tpu_torch.codec import api as codec_api
 from shallow_ntc_tpu_torch.models import base as models_base
+from shallow_ntc_tpu_torch.ops import int8ops
 from shallow_ntc_tpu_torch.ops import metrics_ops
 
 
@@ -61,13 +66,21 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
   parser.add_argument("--config", default="two_layer_syn_rd", choices=configs.EVAL_CONFIG_NAMES)
   parser.add_argument("--device", default="cuda")
   parser.add_argument("--matmul_precision", default="highest", choices=("highest", "default"))
+  parser.add_argument("--decode_dtype", default="float", choices=("float", "int8_syn"))
   args = parser.parse_args(argv)
   # Process-wide, so set here and not in the codec.
   tf32 = args.matmul_precision == "default"
   torch.backends.cudnn.allow_tf32 = tf32
   torch.backends.cuda.matmul.allow_tf32 = tf32
   codec = codec_api.make_codec(load_model(args))
+  with int8ops.decode_mode("syn" if args.decode_dtype == "int8_syn" else None):
+    line = _run(args, codec)
+  print(line)
+  return line
 
+
+def _run(args, codec) -> str:
+  """The mode's work; returns the line that main prints."""
   if args.mode == "compress":
     result = codec.compress(models_base.normalize_image(load_image(args.input).astype(np.float32)))
     out = args.output or args.input + ".sntc"
@@ -90,7 +103,6 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
                                    torch.from_numpy(rec[None].astype(np.float32)))
     line = (f"bpp={result.bpp:.4f} psnr={float(psnr[0]):.2f} bytes={len(result.bitstring)} "
             "bit_exact=True")
-  print(line)
   return line
 
 

@@ -14,9 +14,15 @@ may hold a "step" entry; --init_seed evaluates a seeded full-width init
 instead. Runs on CUDA unless --device names another device.
 --matmul_precision highest (the default, as the JAX eval's) turns TF32 off
 for cuDNN convolutions and matmuls; default leaves TF32 on.
+--decode_dtype int8_syn runs the synthesis's convolutions on int8 operands
+(the rate stays the float path's bit for bit), int8_all the hyper-decoder's
+too (ops/int8ops.py); float (the default) leaves SNTC_INT8_DECODE in charge.
+Each record gets "lpips" when the LPIPS weights file exists
+(models/lpips.default_weights_path); without it the metric is omitted.
 """
 
 import argparse
+import logging
 import os
 from typing import Optional, Sequence
 
@@ -25,6 +31,11 @@ import torch
 from shallow_ntc_tpu_torch import configs
 from shallow_ntc_tpu_torch import data as data_lib
 from shallow_ntc_tpu_torch import eval_lib
+from shallow_ntc_tpu_torch.models import lpips
+from shallow_ntc_tpu_torch.ops import int8ops
+
+# --decode_dtype -> int8ops.decode_mode (None: the environment's mode).
+DECODE_MODES = {"float": None, "int8_syn": "syn", "int8_all": "all"}
 
 _SYNTHETIC_IMAGES = 16  # as shallow_ntc_tpu/data.py's eval split of "synthetic"
 
@@ -42,6 +53,7 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
   parser.add_argument("--device", default="cuda")
   parser.add_argument("--config", default="two_layer_syn_rd", choices=configs.EVAL_CONFIG_NAMES)
   parser.add_argument("--matmul_precision", default="highest", choices=("highest", "default"))
+  parser.add_argument("--decode_dtype", default="float", choices=sorted(DECODE_MODES))
   args = parser.parse_args(argv)
   # Process-wide, so set here and not in eval_lib: a library must not change
   # its caller's numerics.
@@ -64,7 +76,13 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
     images = data_lib.SyntheticDataset(1, args.patchsize, num_batches=_SYNTHETIC_IMAGES)
   else:
     images = data_lib.npy_images(args.images)
-  path = eval_lib.eval_to_json(model, images, args.results_dir, runname, xid, step)
+  try:
+    lpips_fn = lpips.make_lpips_fn(device=eval_lib.resolve_device(args.device))
+  except FileNotFoundError as e:
+    logging.warning("LPIPS unavailable (%s); omitting the metric.", e)
+    lpips_fn = None
+  with int8ops.decode_mode(DECODE_MODES[args.decode_dtype]):
+    path = eval_lib.eval_to_json(model, images, args.results_dir, runname, xid, step, lpips_fn)
   print(path)
   return path
 

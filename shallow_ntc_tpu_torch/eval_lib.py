@@ -1,9 +1,9 @@
 """Per-image R-D evaluation of either model family (mirrors
 shallow_ntc_tpu/eval_lib.py:150-256).
 
-No LPIPS and no spatial sharding yet. The JSON written by eval_to_json has
-the JAX eval's record keys: the model's metrics, instance_id and the
-run-name hparams.
+No spatial sharding yet. The JSON written by eval_to_json has the JAX
+eval's record keys: the model's metrics, "lpips" when an lpips_fn is given
+(models/lpips.make_lpips_fn), instance_id and the run-name hparams.
 """
 
 import json
@@ -17,6 +17,7 @@ from torch import nn
 
 from shallow_ntc_tpu_torch import configs
 from shallow_ntc_tpu_torch import params as params_lib
+from shallow_ntc_tpu_torch.models import base as models_base
 from shallow_ntc_tpu_torch.models import families
 
 
@@ -51,11 +52,14 @@ def read_params(path: str):
   return params, int(params.pop("step", 0))
 
 
-def evaluate_images(model: nn.Module, images: Iterable, step: int = 0) -> Iterator[Dict[str, float]]:
+def evaluate_images(model: nn.Module, images: Iterable, step: int = 0,
+                    lpips_fn=None) -> Iterator[Dict[str, float]]:
   """Yield one metrics dict per image.
 
   `images` yields [1, H, W, 3] normalized arrays (or is a [B, ...] array,
-  split into singles). Images go to the model's device.
+  split into singles). Images go to the model's device. With an lpips_fn
+  ((x255, y255) -> LPIPS) each record gets "lpips" of the image's pixels
+  against the reconstruction, as the JAX eval's (eval_lib.py:200-202).
   """
   device = next(model.parameters()).device
   if hasattr(images, "shape"):
@@ -68,9 +72,13 @@ def evaluate_images(model: nn.Module, images: Iterable, step: int = 0) -> Iterat
     if img.ndim == 3:
       img = img[None]
     with torch.no_grad():
-      _, metrics, _ = model.frame_loss_given_latent_rvs(
+      _, metrics, rec = model.frame_loss_given_latent_rvs(
           img, model.infer_latent_rvs(img), training=False, step=step, frozen_offset=offset)
-    yield {k: float(v) for k, v in metrics.items()}
+    out = {k: float(v) for k, v in metrics.items()}
+    if lpips_fn is not None:
+      out["lpips"] = float(lpips_fn(models_base.floats_to_pixels(img, training=False),
+                                    rec.float()))
+    yield out
 
 
 def parse_runname(s: str) -> Dict[str, str]:
@@ -80,11 +88,11 @@ def parse_runname(s: str) -> Dict[str, str]:
 
 
 def eval_to_json(model: nn.Module, images: Iterable, results_dir: str, runname: str,
-                 xid: str, step: int = 0) -> str:
+                 xid: str, step: int = 0, lpips_fn=None) -> str:
   """Evaluate and dump a flat JSON list of per-image records; return its path."""
   hparams = parse_runname(runname)
   records: List[Dict] = []
-  for instance_id, metrics in enumerate(evaluate_images(model, images, step)):
+  for instance_id, metrics in enumerate(evaluate_images(model, images, step, lpips_fn)):
     record = dict(metrics)
     record["instance_id"] = instance_id
     record.update(hparams)

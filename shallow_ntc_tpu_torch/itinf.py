@@ -21,7 +21,8 @@ math stay float32). --config picks the configuration and with it the model
 family: itinf (the flagship, the default) or itinf_factorized. --matmul_precision default (the default, as the JAX
 itinf CLI's) leaves TF32 on for cuDNN convolutions and matmuls; highest
 turns it off. --seed seeds the SGA draws. Runs on CUDA unless --device
-names another device.
+names another device. An int8 gate left on (SNTC_INT8_DECODE,
+SNTC_INT8_ENCODE) is an error: its quantizers have no gradient.
 """
 
 import argparse
@@ -37,6 +38,7 @@ from shallow_ntc_tpu_torch import data as data_lib
 from shallow_ntc_tpu_torch import eval_lib
 from shallow_ntc_tpu_torch import itinf_lib
 from shallow_ntc_tpu_torch import train_lib
+from shallow_ntc_tpu_torch.ops import int8ops
 
 
 def main(argv: Optional[Sequence[str]] = None) -> List[Dict]:
@@ -58,6 +60,7 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict]:
   parser.add_argument("--out", default="./itinf_xms/torch")
   parser.add_argument("--device", default="cuda")
   args = parser.parse_args(argv)
+  int8ops.assert_training_safe()
   # Process-wide, so set here and not in itinf_lib.
   tf32 = args.matmul_precision == "default"
   torch.backends.cudnn.allow_tf32 = tf32

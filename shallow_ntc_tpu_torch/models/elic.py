@@ -1,15 +1,19 @@
-"""ELIC analysis transform (mirrors shallow_ntc_tpu/models/elic.py).
+"""ELIC transforms (mirrors shallow_ntc_tpu/models/elic.py): the analysis and
+the synthesis.
 
-Child names are the flax ones (Conv_N, ResidualBlock_N, SimpleAttention_N),
-so the flax parameter paths are the state-dict keys.
+Child names are the flax ones (Conv_N, FastConvTranspose_N, ResidualBlock_N,
+SimpleAttention_N), so the flax parameter paths are the state-dict keys.
 
 The residual blocks route as the JAX package routes them, by the same
-switches read at call time (elic.py:78-155):
+switches read at call time (elic.py:78-155), in this order of precedence:
   SNTC_FUSED_RB_CHAIN=1  every chain of consecutive blocks goes through
                          ops/rb_chain.fused_rb_chain;
   SNTC_FUSED_RESBLOCK=1  (chain off) each block goes through
-                         ops/resblock.fused_resblock.
-Both are off by default: the blocks then run as three cuDNN convolutions.
+                         ops/resblock.fused_resblock;
+  SNTC_INT8_ENCODE=1     (both off) the block's stride-1 convs of C_in >= 32
+                         run on int8 operands (models/transforms.Conv).
+So a kernel takes its blocks' convs away from the int8 encode gate, as in
+JAX. All are off by default: the blocks then run as three cuDNN convolutions.
 """
 
 import os
@@ -18,7 +22,7 @@ from typing import Sequence, Tuple
 import torch
 from torch import nn
 
-from shallow_ntc_tpu_torch.models.transforms import Conv
+from shallow_ntc_tpu_torch.models.transforms import Conv, FastConvTranspose
 from shallow_ntc_tpu_torch.ops import rb_chain
 from shallow_ntc_tpu_torch.ops import resblock
 
@@ -71,7 +75,50 @@ class SimpleAttention(nn.Module):
     return x + trunk * torch.sigmoid(self.Conv_0(branch))
 
 
-class ElicAnalysis(nn.Module):
+class _ElicStages(nn.Module):
+  """A stack of ELIC stages in flax creation order: each stage is a child
+  name, or a tuple of the names of one chain of residual blocks."""
+
+  def __init__(self, in_features: int, channels: Tuple[int, ...],
+               kernel_sizes: Tuple[int, ...], strides: Tuple[int, ...]):
+    super().__init__()
+    if len(channels) not in (3, 4) or not len(channels) == len(kernel_sizes) == len(strides):
+      raise ValueError(f"ELIC uses 3 or 4 conv layers (not {channels}).")
+    self._order = []
+    self._counts = {}
+    self._c = in_features
+    self._layers = tuple(zip(channels, kernel_sizes, strides))
+    self.output_depth = channels[-1]
+
+  def _add(self, kind: str, module: nn.Module):
+    name = f"{kind}_{self._counts.get(kind, 0)}"
+    self._counts[kind] = self._counts.get(kind, 0) + 1
+    setattr(self, name, module)
+    return name
+
+  def _conv(self, i: int, transpose: bool = False):
+    c, k, s = self._layers[i]
+    maker = FastConvTranspose if transpose else Conv
+    self._order.append(self._add(maker.__name__, maker(self._c, c, k, s)))
+    self._c = c
+
+  def _res_blocks(self, n: int):
+    self._order.append(tuple(self._add("ResidualBlock", ResidualBlock(self._c))
+                             for _ in range(n)))
+
+  def _attention(self):
+    self._order.append(self._add("SimpleAttention", SimpleAttention(self._c)))
+
+  def forward(self, x: torch.Tensor) -> torch.Tensor:
+    for stage in self._order:
+      if isinstance(stage, tuple):
+        x = run_rb_chain([getattr(self, name) for name in stage], x)
+      else:
+        x = getattr(self, stage)(x)
+    return x
+
+
+class ElicAnalysis(_ElicStages):
   """ELIC (He 2022) analysis transform; paper channels (192, 192, 192, 320).
 
   For 4 conv layers: conv0, RBs, conv1, RBs, attention, conv2, RBs, conv3,
@@ -81,51 +128,39 @@ class ElicAnalysis(nn.Module):
   def __init__(self, in_features: int, channels: Tuple[int, ...] = (128, 160, 192, 192),
                kernel_sizes: Tuple[int, ...] = (5, 5, 5, 5),
                strides: Tuple[int, ...] = (2, 2, 2, 2), num_residual_blocks: int = 3):
-    super().__init__()
-    if len(channels) not in (3, 4) or not len(channels) == len(kernel_sizes) == len(strides):
-      raise ValueError(f"ELIC uses 3 or 4 conv layers (not {channels}).")
+    super().__init__(in_features, channels, kernel_sizes, strides)
     self.downsample_factor = 2 ** len(channels)
-    self.output_depth = channels[-1]
-    # Stages in flax creation order: a child name, or a tuple of the names
-    # of one chain of residual blocks.
-    self._order = []
-    counts = {"Conv": 0, "ResidualBlock": 0, "SimpleAttention": 0}
-    c = in_features
-
-    def add(kind, module):
-      name = f"{kind}_{counts[kind]}"
-      counts[kind] += 1
-      setattr(self, name, module)
-      return name
-
-    def conv(i):
-      nonlocal c
-      self._order.append(add("Conv", Conv(c, channels[i], kernel_sizes[i], strides[i])))
-      c = channels[i]
-
-    def res_blocks():
-      self._order.append(tuple(add("ResidualBlock", ResidualBlock(c))
-                               for _ in range(num_residual_blocks)))
-
-    def attention():
-      self._order.append(add("SimpleAttention", SimpleAttention(c)))
-
     n = len(channels)
     if n == 4:
-      conv(0)
-      res_blocks()
-    conv(n - 3)
-    res_blocks()
-    attention()
-    conv(n - 2)
-    res_blocks()
-    conv(n - 1)
-    attention()
+      self._conv(0)
+      self._res_blocks(num_residual_blocks)
+    self._conv(n - 3)
+    self._res_blocks(num_residual_blocks)
+    self._attention()
+    self._conv(n - 2)
+    self._res_blocks(num_residual_blocks)
+    self._conv(n - 1)
+    self._attention()
 
-  def forward(self, x: torch.Tensor) -> torch.Tensor:
-    for stage in self._order:
-      if isinstance(stage, tuple):
-        x = run_rb_chain([getattr(self, name) for name in stage], x)
-      else:
-        x = getattr(self, stage)(x)
-    return x
+
+class ElicSynthesis(_ElicStages):
+  """ELIC synthesis transform (elic.py:238-296), default channels (192, 160,
+  128, 3), k5s2 deconvs: attention, deconv0, RBs, deconv1, attention, RBs,
+  deconv2, and for 4 layers RBs and deconv3. No config of either package
+  uses it."""
+
+  def __init__(self, in_features: int, channels: Tuple[int, ...] = (192, 160, 128, 3),
+               kernel_sizes: Tuple[int, ...] = (5, 5, 5, 5),
+               strides: Tuple[int, ...] = (2, 2, 2, 2), num_residual_blocks: int = 3):
+    super().__init__(in_features, channels, kernel_sizes, strides)
+    self.upsample_factor = 2 ** len(channels)
+    self._attention()
+    self._conv(0, transpose=True)
+    self._res_blocks(num_residual_blocks)
+    self._conv(1, transpose=True)
+    self._attention()
+    self._res_blocks(num_residual_blocks)
+    self._conv(2, transpose=True)
+    if len(channels) == 4:
+      self._res_blocks(num_residual_blocks)
+      self._conv(3, transpose=True)

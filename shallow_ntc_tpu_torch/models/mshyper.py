@@ -21,6 +21,7 @@ transforms compute in their input's type. Parameters, the entropy models and
 the latents stay float32.
 """
 
+import contextlib
 from typing import Any, Mapping, Optional, Tuple
 
 import torch
@@ -30,6 +31,7 @@ from shallow_ntc_tpu_torch.latents import LatentRVCollection, UQLatentRV
 from shallow_ntc_tpu_torch.models import base
 from shallow_ntc_tpu_torch.models.transforms import build_transform
 from shallow_ntc_tpu_torch.ops import entropy
+from shallow_ntc_tpu_torch.ops import int8ops
 from shallow_ntc_tpu_torch.ops import metrics_ops
 
 
@@ -77,9 +79,16 @@ class Model(nn.Module):
     z_hat is taken contiguous (NHWC): cuDNN and oneDNN pick their convolution
     algorithm by the memory layout too, so a view of the analysis's output
     and the codec's decoded z_hat would round mu differently. One layout is
-    one program for every caller (codec/api.py's determinism contract)."""
+    one program for every caller (codec/api.py's determinism contract).
+
+    In the int8 decode's 'syn' mode the hyper-decoder stays float
+    (int8ops.force(False)), so mu and the scale indexes, and with them the
+    rate, are the float path's bit for bit. Every path that computes mu (the
+    eval, the codec, SGA) comes through here."""
     z_hat = self._in_transforms_dtype(z_hat).contiguous()
-    mu, raw = torch.chunk(self._hyper_synthesis(z_hat), 2, dim=-1)
+    with int8ops.force(False) if int8ops.hyper_exempt() else contextlib.nullcontext():
+      out = self._hyper_synthesis(z_hat)
+    mu, raw = torch.chunk(out, 2, dim=-1)
     return mu, torch.exp(raw)
 
   def synthesize(self, y_hat: torch.Tensor) -> torch.Tensor:

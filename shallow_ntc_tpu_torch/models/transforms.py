@@ -1,6 +1,6 @@
 """The transforms of both model families (mirrors shallow_ntc_tpu/models/transforms.py),
-under the JAX package's class names. ElicSynthesis and res_type="d2s" are not
-ported.
+under the JAX package's class names: every transform of the JAX registry
+(ElicAnalysis and ElicSynthesis live in models/elic.py).
 
 Every module takes and returns NHWC tensors and keeps its parameters in the
 flax layout under the flax names (`kernel` [k, k, C_in, C_out], `bias`,
@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from shallow_ntc_tpu_torch.ops import fast_deconv as fd
+from shallow_ntc_tpu_torch.ops import int8ops
 from shallow_ntc_tpu_torch.ops.jpegl_decode import jpegl_synthesize
 from shallow_ntc_tpu_torch.ops.math import lower_bound
 from shallow_ntc_tpu_torch.ops.twolayer_final import final_deconv_phase
@@ -41,6 +42,9 @@ class Conv(nn.Module):
 
   lax SAME pads the high side more when the total padding is odd, which
   torch's symmetric `padding=` cannot express, so odd cases pad explicitly.
+  With SNTC_INT8_ENCODE=1 a stride-1 conv of C_in >= 32 runs on int8
+  operands (ops/int8ops.conv_s1_int8) and then adds its bias, as the JAX
+  package's Conv (transforms.py:223-234).
   """
 
   def __init__(self, in_features: int, features: int, kernel_size: int, stride: int):
@@ -51,9 +55,12 @@ class Conv(nn.Module):
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
     k, s = self.kernel.shape[0], self.stride
-    xn = x.permute(0, 3, 1, 2)
     h_lo, h_hi = _same_pads(x.shape[1], k, s)
     w_lo, w_hi = _same_pads(x.shape[2], k, s)
+    if s == 1 and x.shape[-1] >= 32 and int8ops.encode_enabled():
+      out = int8ops.conv_s1_int8(x, self.kernel.to(x.dtype), h_lo, h_hi, x.dtype)
+      return out + self.bias.to(out.dtype)
+    xn = x.permute(0, 3, 1, 2)
     weight = self.kernel.to(x.dtype).permute(3, 2, 0, 1)
     if h_lo == h_hi and w_lo == w_hi:
       out = F.conv2d(xn, weight, self.bias.to(x.dtype), s, padding=(h_lo, w_lo))
@@ -434,35 +441,57 @@ class TwoLayerSynthesis(nn.Module):
 
 
 class TwoLayerResSynthesis(nn.Module):
-  """Two-layer synthesis with a parallel residual deconv (res_type="conv").
+  """Two-layer synthesis with a parallel residual branch:
+  out_conv(act(base_conv(z)) + res(z)).
 
-  out_conv(act(base_conv(z)) + res_conv(z)). The fused form keeps the mid
-  activation in s1 phase space: base and residual run as one phase conv, the
-  (I)GDN and the sum apply per phase, and the final k5s2 deconv reads the
-  phase tensor directly (final_deconv_phase). PReLU does not fuse.
+  res_type="conv": res is a second deconv like base_conv (`res_conv`).
+  res_type="d2s": res is the pixel-shuffle stack depth_to_space(2), a 1x1
+  Conv to 192 (a fixed width, as in JAX), leaky relu (slope 0.2),
+  depth_to_space(2), a 1x1 Conv to 4 * channels[0], leaky relu,
+  depth_to_space(2) (`res_conv1`, `res_conv2`; transforms.py:827-843).
+
+  The fused form (res_type="conv" only) keeps the mid activation in s1
+  phase space: base and residual run as one phase conv, the (I)GDN and the
+  sum apply per phase, and the final k5s2 deconv reads the phase tensor
+  directly (final_deconv_phase). PReLU and d2s do not fuse.
   """
 
   def __init__(self, in_features: int, channels: Tuple[int, int] = (12, 3),
                strides: Tuple[int, int] = (8, 2), kernel_sizes: Tuple[int, int] = (13, 5),
                activation_type: str = "igdn", res_type: str = "conv", fused: bool = True):
     super().__init__()
-    if res_type != "conv":
-      raise NotImplementedError(f"res_type {res_type!r} is not ported yet")
     self.channels = tuple(channels)
     self.strides = tuple(strides)
-    self.fused = fused
+    self.res_type = res_type
+    self.fused = fused and res_type == "conv"
+    self.upsample_factor = strides[0] * strides[1]
+    self.output_depth = channels[-1]
     c, s1 = channels[0], strides[0]
     self.base_conv = FastConvTranspose(in_features, c, kernel_sizes[0], s1)
     self.base_act = make_activation(activation_type, c)
-    self.res_conv = FastConvTranspose(in_features, c, kernel_sizes[0], s1)
+    if res_type == "conv":
+      self.res_conv = FastConvTranspose(in_features, c, kernel_sizes[0], s1)
+    elif res_type == "d2s":
+      self.res_conv1 = Conv(in_features // 4, 192, 1, 1)
+      self.res_conv2 = Conv(192 // 4, c * 4, 1, 1)
+    else:
+      raise NotImplementedError(res_type)
     self.out_conv = FastConvTranspose(c, channels[1], kernel_sizes[1], strides[1])
+
+  def _res(self, z: torch.Tensor) -> torch.Tensor:
+    if self.res_type == "conv":
+      return self.res_conv(z)
+    lrelu = _POINTWISE["leaky_relu"]
+    x = lrelu(self.res_conv1(fd.depth_to_space(z, 2)))
+    x = lrelu(self.res_conv2(fd.depth_to_space(x, 2)))
+    return fd.depth_to_space(x, 2)
 
   def forward(self, z: torch.Tensor) -> torch.Tensor:
     if not self.fused or isinstance(self.base_act, PReLU):
       base = self.base_conv(z)
       if self.base_act is not None:
         base = self.base_act(base)
-      return self.out_conv(base + self.res_conv(z))
+      return self.out_conv(base + self._res(z))
     s1, c = self.strides[0], self.channels[0]
     kernel_br = torch.cat([self.base_conv.kernel, self.res_conv.kernel], dim=-1)
     bias_br = torch.cat([self.base_conv.bias, self.res_conv.bias], dim=-1)
@@ -526,16 +555,16 @@ class JPEGLikeHyperSynthesis(nn.Module):
 def build_transform(cfg: dict, in_features: int, **extra) -> nn.Module:
   """Instantiate a transform from a {'cls': name, **kwargs} config dict, by
   the JAX package's class names (models/transforms.py:956-976)."""
-  from shallow_ntc_tpu_torch.models.elic import ElicAnalysis
+  from shallow_ntc_tpu_torch.models.elic import ElicAnalysis, ElicSynthesis
 
   cfg = dict(cfg)
   name = cfg.pop("cls")
   cls = {c.__name__: c for c in (
       BLS2017Analysis, BLS2017Synthesis, CNNAnalysis, CNNSynthesis, HyperAnalysis,
       HyperSynthesis, MBT2018Analysis, MBT2018Synthesis, HyperAnalysisSmall,
-      HyperSynthesisSmall, ElicAnalysis, JPEGLikeSynthesis, TwoLayerSynthesis,
+      HyperSynthesisSmall, ElicAnalysis, ElicSynthesis, JPEGLikeSynthesis, TwoLayerSynthesis,
       TwoLayerResSynthesis, JPEGLikeHyperSynthesis)}.get(name)
   if cls is None:
-    raise NotImplementedError(f"transform {name} is not ported yet")
+    raise KeyError(f"Unknown class {name!r}")
   return cls(in_features, **{k: tuple(v) if isinstance(v, list) else v
                              for k, v in cfg.items()}, **extra)

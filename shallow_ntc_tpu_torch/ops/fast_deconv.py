@@ -10,6 +10,11 @@ Phase r is a stride-1 conv over z with taps d in a small window; all s*s
 phases stack into one conv with s*s*C_out output channels ("phase space",
 channels (r_h, r_w, c) with c innermost, TF depth-to-space order -- not
 torch.pixel_shuffle's). Tensors are NHWC at every function here.
+
+conv_s1 is the funnel of the phase convs (JAX: _s1_conv): with the int8
+decode gate on (ops/int8ops.enabled()) it runs int8ops.conv_s1_int8, and so
+does fast_conv_transpose, through the phase kernel. packed_conv_transpose
+stays float, as in the JAX package.
 """
 
 import functools
@@ -19,12 +24,22 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from shallow_ntc_tpu_torch.ops import int8ops
+
 
 def conv_s1(x: torch.Tensor, w_hwio: torch.Tensor, pad_lo: int, pad_hi: int) -> torch.Tensor:
-  """Stride-1 conv of NHWC `x` with an HWIO kernel, padded (lo, hi) per axis.
+  """Stride-1 conv of NHWC `x` with an HWIO kernel, padded (lo, hi) per axis,
+  int8 under the decode gate.
 
   Negative pads crop, as lax.conv_general_dilated's do.
   """
+  if int8ops.enabled():
+    return int8ops.conv_s1_int8(x, w_hwio, pad_lo, pad_hi, x.dtype)
+  return _conv_s1_float(x, w_hwio, pad_lo, pad_hi)
+
+
+def _conv_s1_float(x: torch.Tensor, w_hwio: torch.Tensor, pad_lo: int,
+                   pad_hi: int) -> torch.Tensor:
   xn = F.pad(x.permute(0, 3, 1, 2), (pad_lo, pad_hi, pad_lo, pad_hi))
   return F.conv2d(xn, w_hwio.permute(3, 2, 0, 1)).permute(0, 2, 3, 1)
 
@@ -172,7 +187,7 @@ def packed_conv_transpose(x_packed: torch.Tensor, kernel: torch.Tensor,
   khj, dmin, tp = _packed_taps(k, s, p, kernel.device)
   w_full = torch.einsum("dapt,ebqu,tuio->deabipqo", khj, khj, kernel.float())
   w_full = w_full.reshape(tp, tp, p * p * c_in, (s * p) * (s * p) * c_out)
-  out_small = conv_s1(x_packed, w_full.to(x_packed.dtype), -dmin, tp - 1 + dmin)
+  out_small = _conv_s1_float(x_packed, w_full.to(x_packed.dtype), -dmin, tp - 1 + dmin)
   out = depth_to_space(out_small, s * p)
   if bias is not None:
     out = out + bias.to(out.dtype)
@@ -186,11 +201,21 @@ def fast_conv_transpose(z: torch.Tensor, kernel: torch.Tensor,
   torch's conv_transpose2d convolves the flipped kernel, so the flax kernel
   is flipped and its in/out axes swapped. With no padding the full output
   has (n-1)*s + k rows; SAME keeps rows [q, q + n*s), q = max(k-s, 0)//2.
+
+  Under the int8 decode gate it is the phase conv + depth_to_space: JAX
+  quantizes the phase kernel [T, T, C_in, s*s*C_out] per (phase, c_out), and
+  the original kernel per c_out would give other numbers. JAX's grouped
+  pieces (k5s2; fast_deconv.py:500-506) quantize each group's window per
+  (phase, c_out), which zero taps leave equal to the dense phase kernel's.
   """
   s = stride
   k = kernel.shape[0]
   if k < s:
     raise ValueError(f"kernel {k} smaller than stride {s} is not supported")
+  if int8ops.enabled():
+    w_phase, dmin, T = phase_kernel(kernel.to(z.dtype), s)
+    out = depth_to_space(conv_s1(z, w_phase, -dmin, T - 1 + dmin), s)
+    return out if bias is None else out + bias.to(out.dtype)
   q = max(k - s, 0) // 2
   h, w = z.shape[1], z.shape[2]
   weight = kernel.flip(0, 1).permute(2, 3, 0, 1).to(z.dtype)  # [C_in, C_out, k, k]

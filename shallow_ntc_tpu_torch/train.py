@@ -11,7 +11,9 @@ val/record.jsonl (the JAX package's metric keys, steps_per_sec included)
 and train/checkpoints/ckpt_<step>.pt, and resumes from the newest
 checkpoint there. Runs on CUDA unless --device names another device; the
 residual-block kernels are chosen by SNTC_FUSED_RB_CHAIN=1 or
-SNTC_FUSED_RESBLOCK=1, as in the JAX package.
+SNTC_FUSED_RESBLOCK=1, as in the JAX package. An int8 gate left on
+(SNTC_INT8_DECODE, SNTC_INT8_ENCODE) is an error: its quantizers have no
+gradient.
 """
 
 import argparse
@@ -19,6 +21,7 @@ from typing import Optional, Sequence
 
 from shallow_ntc_tpu_torch import configs
 from shallow_ntc_tpu_torch import train_lib
+from shallow_ntc_tpu_torch.ops import int8ops
 
 
 def main(argv: Optional[Sequence[str]] = None) -> train_lib.TrainState:
@@ -31,6 +34,7 @@ def main(argv: Optional[Sequence[str]] = None) -> train_lib.TrainState:
   parser.add_argument("--images", help="glob of .npy images to crop, instead of synthetic")
   parser.add_argument("--device", default="cuda")
   args = parser.parse_args(argv)
+  int8ops.assert_training_safe()
   state = train_lib.train_and_eval(configs.TRAIN_CONFIGS[args.config], args.workdir,
                                    device=args.device, init_seed=args.init_seed,
                                    num_steps=args.num_steps, images=args.images)

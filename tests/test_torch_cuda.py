@@ -538,3 +538,76 @@ def test_two_layer_syn2_forward_launches_final_deconv_once(cuda_device):
     unfused = model.synthesize(y)
   torch.testing.assert_close(fused, unfused, rtol=0,
                              atol=1e-4 * max(1.0, unfused.abs().max().item()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(12288, 2880, 1536), (17, 16, 16), (6, 20, 12),
+                                   (1536, 2880, 1536)])
+def test_int8_gemm_on_the_card_is_exact(cuda_device, m, k, n):
+  """int8ops.int8_matmul (torch._int_mm, int32 accumulation) against a
+  float64 product of the same int8 operands: exact, |sum| <= K 127^2 < 2^53;
+  the k13s8 phase GEMM at B=8 and B=1, and shapes that need the padding."""
+  from shallow_ntc_tpu_torch.ops import int8ops
+
+  gen = torch.Generator(device=cuda_device).manual_seed(m + k + n)
+  a = torch.randint(-127, 128, (m, k), device=cuda_device, generator=gen, dtype=torch.int8)
+  b = torch.randint(-127, 128, (n, k), device=cuda_device, generator=gen, dtype=torch.int8)
+  out = int8ops.int8_matmul(a, b)
+  assert out.dtype == torch.int32 and out.shape == (m, n)
+  torch.testing.assert_close(out.double(), a.double() @ b.double().t(), rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_s1_int8_on_the_card_equals_the_cpu(cuda_device, dtype):
+  """The flagship's k13s8 phase conv (T=3, 320 -> 2*768 channels) on int8
+  operands: the card's output equals the CPU's bit for bit."""
+  from shallow_ntc_tpu_torch.ops import int8ops
+
+  rng = np.random.default_rng(3)
+  x = torch.from_numpy(rng.standard_normal((2, 8, 12, 320), np.float32)).to(dtype)
+  w = torch.from_numpy(rng.standard_normal((3, 3, 320, 1536), np.float32) * 0.05).to(dtype)
+  cpu = int8ops.conv_s1_int8(x, w, 1, 1, dtype)
+  gpu = int8ops.conv_s1_int8(x.to(cuda_device), w.to(cuda_device), 1, 1, dtype)
+  torch.testing.assert_close(gpu.cpu(), cpu, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chain", [False, True])
+def test_elic_synthesis_on_the_card_matches_the_cpu(cuda_device, monkeypatch, chain):
+  """ElicSynthesis at its default channels (192, 160, 128, 3) on a 4x6x320
+  latent, float32, TF32 off: the card (cuDNN, or fused_rb_chain once for
+  each of its 7 chains with SNTC_FUSED_RB_CHAIN=1) against the CPU, within
+  1e-4 * max|y|."""
+  from shallow_ntc_tpu_torch import params as params_lib
+  from shallow_ntc_tpu_torch.models import transforms as T
+
+  if chain:
+    monkeypatch.setenv("SNTC_FUSED_RB_CHAIN", "1")
+  module = T.build_transform(dict(cls="ElicSynthesis"), 320)
+  params_lib.load_params(module, params_lib.init_params(module, 0))
+  z = torch.from_numpy(np.random.default_rng(4).standard_normal((1, 4, 6, 320), np.float32))
+  with torch.no_grad():
+    ref = module(z)
+    launches = rb_chain.STATS.launches
+    out = module.to(cuda_device)(z.to(cuda_device)).cpu()
+  assert rb_chain.STATS.launches - launches == (7 if chain else 0)
+  assert out.shape == (1, 64, 96, 3)
+  torch.testing.assert_close(out, ref, rtol=0, atol=1e-4 * max(1.0, ref.abs().max().item()))
+
+
+@pytest.mark.gpu
+def test_d2s_residual_synthesis_on_the_card_matches_the_cpu(cuda_device):
+  """TwoLayerResSynthesis(res_type="d2s") at the flagship's width (z of 320,
+  channels (12, 3)), float32, TF32 off, against the CPU within 1e-4 * max|y|."""
+  from shallow_ntc_tpu_torch import params as params_lib
+  from shallow_ntc_tpu_torch.models import transforms as T
+
+  module = T.build_transform(dict(cls="TwoLayerResSynthesis", channels=(12, 3),
+                                  res_type="d2s"), 320)
+  params_lib.load_params(module, params_lib.init_params(module, 0))
+  z = torch.from_numpy(np.random.default_rng(5).standard_normal((1, 4, 6, 320), np.float32))
+  with torch.no_grad():
+    ref = module(z)
+    out = module.to(cuda_device)(z.to(cuda_device)).cpu()
+  torch.testing.assert_close(out, ref, rtol=0, atol=1e-4 * max(1.0, ref.abs().max().item()))

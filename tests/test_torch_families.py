@@ -58,6 +58,15 @@ TRANSFORMS = {
     "TwoLayerSynthesis prelu": (dict(TLS2, activation_type="prelu"), 16, (2, 2, 3)),
     "TwoLayerSynthesis lrelu": (dict(TLS2, activation_type="lrelu"), 16, (2, 2, 3)),
     "TwoLayerSynthesis None": (dict(TLS2, activation_type=None), 16, (1, 2, 3)),
+    # The last two of the JAX registry: ELIC's synthesis at 4 and 3 layers
+    # (one residual block per chain), and the pixel-shuffle residual branch.
+    "ElicSynthesis": (dict(cls="ElicSynthesis", channels=(16, 16, 16, 3),
+                           num_residual_blocks=1), 16, (1, 2, 3)),
+    "ElicSynthesis 3 layers": (dict(cls="ElicSynthesis", channels=(16, 16, 3),
+                                    kernel_sizes=(5, 5, 5), strides=(2, 2, 2),
+                                    num_residual_blocks=1), 16, (2, 2, 3)),
+    "TwoLayerResSynthesis d2s": (dict(cls="TwoLayerResSynthesis", channels=(12, 3),
+                                      res_type="d2s"), 16, (2, 2, 3)),
 }
 
 
@@ -190,16 +199,19 @@ def test_make_activation_matches_jax(name):
 
 def test_build_transform_knows_every_jax_class_but_elic_synthesis():
   """Every class name of the JAX registry builds in the port (a bare config
-  lacks required arguments: TypeError), except ElicSynthesis."""
+  lacks required arguments: TypeError), ElicSynthesis too now; an unknown
+  name raises KeyError, as JAX's registry does."""
   missing = []
   for cls in jT._classes:
     try:
       T.build_transform(dict(cls=cls.__name__), 8)
-    except NotImplementedError:
+    except KeyError:
       missing.append(cls.__name__)
     except TypeError:
       pass
-  assert missing == ["ElicSynthesis"]
+  assert missing == []
+  with pytest.raises(KeyError, match="Unknown class"):
+    T.build_transform(dict(cls="NoSuchTransform"), 8)
 
 
 # --- the configurations ----------------------------------------------------------

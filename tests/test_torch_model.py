@@ -144,7 +144,7 @@ def test_port_imports_no_jax():
       "need = {'shallow_ntc_tpu_torch.' + n for n in ('train_lib', 'train', 'ops.rb_chain',\n"
       "        'ops.resblock', 'eval', 'models.mshyper', 'ops.jpegl_decode', 'codec.api',\n"
       "        'codec.tables', 'codec.bindings', 'compress', 'itinf', 'itinf_lib',\n"
-      "        'models.factorized', 'models.families')}\n"
+      "        'models.factorized', 'models.families', 'ops.int8ops', 'models.lpips')}\n"
       "assert need <= names, need - names\n"
       "print(len(names), bad)\n"
       "assert not bad, bad\n")
