@@ -110,6 +110,22 @@ Phases, one flushed line each with its seconds (TF32 off throughout):
                (fused_rb_chain launches counted), and TwoLayerResSynthesis
                (res_type="d2s") at the flagship's width, each on the card
                against the CPU.
+ 17. experiments  the experiment workflow through its CLIs, each run as
+               `python -m` in a process of its own whose launch counts start
+               at 0 and are read at its end, under a temporary directory:
+               python -m shallow_ntc_tpu_torch.deadleaves (16 train PNGs at
+               320x320, 2 valid and 2 eval at 512x768); read_png's time at
+               512x768 and a write -> read round trip; mshyper.train of
+               mshyper/configs/two_layer_syn_rd.py --hid 3 (lambda 0.01) for
+               4 steps at B=8 256x256 with SNTC_FUSED_RB_CHAIN=1, TF32 off,
+               2 validation images (the chain 7 and final_deconv_phase once
+               a forward); mshyper.itinf of itinf.py --hid 3 warm-started
+               from that experiment by wid, 100 SGA steps of the 2 eval
+               images (the warm-started params equal to the checkpoint's bit
+               for bit); eval --workdir --dataset deadleaves_eval --profile
+               (records equal to an in-process eval of the checkpoint to rel
+               1e-5, the three profile times, the link); bls2017_rd.py
+               trained 2 steps and evaluated (no kernel launches).
 Phase 11 also times the B=8 bf16 decodes of bls2017_rd, two_layer_syn2 and
 mbt2018.
 Then one JSON line of kernels, the nvidia-smi line, and the last line
@@ -120,11 +136,13 @@ line. Without CUDA, or without the port beside this script, it exits 1.
 import concurrent.futures
 import contextlib
 import copy
+import glob as glob_lib
 import json
 import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -1511,6 +1529,258 @@ def extras_phase(images, zero_counts, read_counts, smi):
   return summary
 
 
+# Runs an entry module as `python -m` does, then writes the launch counts of
+# the port's CUDA kernels in that process (which start at 0) to argv[1].
+_COUNTING_MAIN = """
+import json, runpy, sys
+counts_path, sys.argv = sys.argv[1], sys.argv[2:]
+runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
+import torch
+from shallow_ntc_tpu_torch.ops import jpegl_decode, rb_chain, resblock, twolayer_final
+torch.cuda.synchronize()
+with open(counts_path, "w") as f:
+  json.dump({m.STATS.name: m.STATS.launches
+             for m in (twolayer_final, rb_chain, resblock, jpegl_decode)}, f)
+"""
+EXP_HID = 3  # two_layer_syn_rd.py's and itinf.py's work unit 3: rd_lambda 0.01, wid 3
+EXP_TRAIN_STEPS, EXP_SGA_STEPS = 4, 100
+
+
+def experiments_phase(smi):
+  """Phase 17: the experiment workflow through its CLIs, each in a process of
+  its own that starts with every launch count at 0 and reports them at its
+  end, everything under a temporary directory (SHALLOW_NTC_PROJECT_DIR):
+  dead-leaves PNGs generated, the flagship config script trained (hid 3,
+  the chain kernel on), SGA warm-started from that experiment by wid, eval
+  --workdir with --profile, then bls2017_rd.py trained and evaluated.
+  Returns the phase's numbers and its launches by kernel."""
+  import torch
+  from shallow_ntc_tpu_torch import data as data_lib
+  from shallow_ntc_tpu_torch import eval_lib, train_lib
+  from shallow_ntc_tpu_torch.utils import config as config_lib
+  from shallow_ntc_tpu_torch.utils import runname as runname_lib
+
+  phase = "experiments"
+  t_phase = time.time()
+  root = os.path.dirname(os.path.abspath(__file__))
+  configs_dir = os.path.join(root, "shallow_ntc_tpu_torch", "{}", "configs", "{}.py")
+  summary = {"nvidia_smi": smi}
+  launches = {"final_deconv_phase": 0, "fused_rb_chain": 0, "fused_resblock": 0,
+              "jpegl_synthesize": 0}
+  with contextlib.ExitStack() as stack:
+    tmp = stack.enter_context(tempfile.TemporaryDirectory())
+    env = dict(os.environ, PYTHONPATH=root, SHALLOW_NTC_PROJECT_DIR=tmp,
+               SLURM_ARRAY_JOB_ID="smoke", SLURM_ARRAY_TASK_ID=str(EXP_HID))
+    env.pop("SNTC_FUSED_RB_CHAIN", None)
+    env.pop("SNTC_FUSED_RESBLOCK", None)
+    lock = threading.Lock()
+
+    def run_cli(name, module, args, **extra_env):
+      counts_path = os.path.join(tmp, f"{name}_counts.json")
+      t = time.time()
+      proc = subprocess.run([sys.executable, "-c", _COUNTING_MAIN, counts_path, module, *args],
+                            cwd=tmp, env=dict(env, **extra_env), capture_output=True, text=True,
+                            timeout=600)
+      secs = time.time() - t
+      if proc.returncode:
+        print(proc.stdout[-4000:], proc.stderr[-8000:], file=sys.stderr, flush=True)
+        raise RuntimeError(f"{module} {' '.join(args)} exited with {proc.returncode}")
+      with open(counts_path) as f:
+        counts = json.load(f)
+      with lock:
+        for k, v in counts.items():
+          launches[k] += v
+      log(phase, f"{name}: python -m {module} in {secs:.1f} s, launches {counts}")
+      return counts, secs, proc.stdout
+
+    # 1. The data: python -m shallow_ntc_tpu_torch.deadleaves.
+    dl = os.path.join(tmp, "data", "deadleaves")
+    t = time.time()
+    proc = subprocess.run([sys.executable, "-m", "shallow_ntc_tpu_torch.deadleaves", "--out", dl,
+                           "--num_train", "16", "--num_valid", "2", "--num_eval", "2",
+                           "--workers", str(min(8, os.cpu_count() or 1))],
+                          cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"deadleaves failed: {proc.stderr[-2000:]}")
+    n_files = {sub: len(os.listdir(os.path.join(dl, sub))) for sub in ("train", "valid", "eval")}
+    summary["deadleaves_s"] = time.time() - t
+    log(phase, f"deadleaves: {n_files} PNGs in {summary['deadleaves_s']:.1f} s")
+    check(n_files == {"train": 16, "valid": 2, "eval": 2}, f"deadleaves wrote {n_files}")
+
+    # 2. PNG read time at 512x768 and a write -> read round trip.
+    eval_glob = os.path.join(dl, "eval", "*.png")
+    first = sorted(glob_lib.glob(eval_glob))[0]
+    read_s = []
+    for _ in range(3):
+      t = time.perf_counter()
+      img = data_lib.read_png(first)
+      read_s.append(time.perf_counter() - t)
+    noise = np.random.default_rng(17).integers(0, 256, img.shape, dtype=np.uint8)
+    data_lib.write_png(os.path.join(tmp, "roundtrip.png"), noise)
+    same = np.array_equal(data_lib.read_png(os.path.join(tmp, "roundtrip.png")), noise)
+    summary["png_read_ms"] = 1e3 * float(np.median(read_s))
+    log(phase, f"read_png of a {img.shape[0]}x{img.shape[1]} PNG: "
+        f"{' / '.join(f'{1e3 * x:.1f}' for x in read_s)} ms (host); write -> read of noise "
+        f"{'equal' if same else 'DIFFERS'}")
+    check(same and img.shape == EVAL_HW + (3,), f"PNG round trip equal: {same}; {img.shape}")
+
+    # 3. Train the flagship's config script, work unit 3, the chain kernel on.
+    te = "--config.train_eval_config."
+    xms = os.path.join(tmp, "train_xms")
+    counts, train_s, _ = run_cli(
+        "train", "shallow_ntc_tpu_torch.mshyper.train",
+        ["--config", configs_dir.format("mshyper", "two_layer_syn_rd"), "--hid", str(EXP_HID),
+         f"{te}num_steps={EXP_TRAIN_STEPS}", f"{te}eval_every_steps={EXP_TRAIN_STEPS}",
+         f"{te}checkpoint_every_steps={EXP_TRAIN_STEPS}", f"{te}max_validation_steps=2",
+         f"{te}log_metrics_every_steps=1", "--matmul_precision", "highest",
+         "--experiments_dir", xms], SNTC_FUSED_RB_CHAIN="1")
+    workdir = os.path.join(xms, "smoke", f"wid={EXP_HID}-mshyper-lmbda=0.01-num_steps="
+                           f"{EXP_TRAIN_STEPS}")
+    check(os.path.isdir(workdir), f"no workdir {workdir}: {os.listdir(os.path.join(xms, 'smoke'))}")
+    with open(os.path.join(workdir, "train", "record.jsonl")) as f:
+      rows = [json.loads(line) for line in f]
+    with open(os.path.join(workdir, "val", "record.jsonl")) as f:
+      val_rows = [json.loads(line) for line in f]
+    step_ms = [1e3 / r["steps_per_sec"] for r in rows]
+    summary["train"] = dict(workdir=os.path.relpath(workdir, tmp), seconds=train_s,
+                            step_ms=step_ms, rd_loss=[r["rd_loss"] for r in rows],
+                            val=val_rows, launches=counts)
+    log(phase, f"train workdir {os.path.relpath(workdir, tmp)}: steps "
+        f"{[r['step'] for r in rows]}, ms a step (record.jsonl) "
+        f"{' / '.join(f'{x:.1f}' for x in step_ms)}, rd_loss "
+        f"{' / '.join(f'{r['rd_loss']:.3f}' for r in rows)}; val {val_rows}  [{smi}]")
+    # 7 chains and one final deconv a forward: 4 steps and 2 val images.
+    forwards = EXP_TRAIN_STEPS + 2
+    check([r["step"] for r in rows] == list(range(1, EXP_TRAIN_STEPS + 1))
+          and all(np.isfinite(v) for r in rows + val_rows for v in r.values())
+          and [r["step"] for r in val_rows] == [EXP_TRAIN_STEPS]
+          and train_lib.latest_checkpoint_step(workdir) == EXP_TRAIN_STEPS
+          and counts["fused_rb_chain"] == CHAINS_PER_FORWARD * forwards
+          and counts["final_deconv_phase"] == forwards, f"the train CLI's run: {summary['train']}")
+    with open(os.path.join(workdir, "config.json")) as f:
+      saved = json.load(f)
+    want = config_lib.resolve_config(configs_dir.format("mshyper", "two_layer_syn_rd"), [
+        ("train_eval_config.num_steps", str(EXP_TRAIN_STEPS))], EXP_HID)
+    check(saved["model_config"] == json.loads(json.dumps(want["model_config"]))
+          and os.path.isfile(os.path.join(workdir, "run_info.json")),
+          "the workdir's config.json is not the script's")
+
+    # 6. The factorized family (bls2017_rd.py, work unit 0, 2 steps, then
+    # eval), in a thread of its own beside steps 4 and 5: each CLI is a
+    # process of its own, so its launch counts are its own.
+    def factorized_runs():
+      fxms = os.path.join(tmp, "factorized_xms")
+      counts, f_train_s, _ = run_cli(
+          "factorized-train", "shallow_ntc_tpu_torch.factorized.train",
+          ["--config", configs_dir.format("factorized", "bls2017_rd"), "--hid", "0",
+           f"{te}num_steps=2", f"{te}eval_every_steps=2", f"{te}checkpoint_every_steps=2",
+           f"{te}max_validation_steps=1", f"{te}log_metrics_every_steps=1",
+           "--matmul_precision", "highest", "--experiments_dir", fxms], SLURM_ARRAY_TASK_ID="0")
+      fworkdir = os.path.join(fxms, "smoke", "wid=0-factorized-lmbda=0.00125-num_steps=2")
+      f_counts, f_eval_s, out = run_cli(
+          "factorized-eval", "shallow_ntc_tpu_torch.eval",
+          ["--workdir", fworkdir, "--dataset", "deadleaves_eval", "--results_dir",
+           os.path.join(tmp, "factorized_results")])
+      return counts, f_train_s, fworkdir, f_counts, f_eval_s, out
+
+    # Left before the directory is removed, after the thread has ended.
+    factorized = stack.enter_context(concurrent.futures.ThreadPoolExecutor(1)).submit(
+        factorized_runs)
+
+    # 4. SGA warm-started from the experiment by wid.
+    itinf_cfg = configs_dir.format("mshyper", "itinf")
+    ixms = os.path.join(tmp, "itinf_xms")
+    counts, sga_s, _ = run_cli(
+        "itinf", "shallow_ntc_tpu_torch.mshyper.itinf",
+        ["--config", itinf_cfg, "--hid", str(EXP_HID),
+         f"{te}warm_start_exp_dir={os.path.join(xms, 'smoke')}",
+         "--config.data_config.dataset=deadleaves_eval", f"{te}num_steps={EXP_SGA_STEPS}",
+         f"{te}eval_every_steps={EXP_SGA_STEPS}", f"{te}log_metrics_every_steps=50",
+         "--experiments_dir", ixms])
+    iworkdir = os.path.join(ixms, "smoke", f"wid={EXP_HID}-mshyper-wwid={EXP_HID}-uq=sga")
+    with open(os.path.join(iworkdir, "metrics.json")) as f:
+      sga = json.load(f)
+    sga_cfg = config_lib.resolve_config(itinf_cfg, [], EXP_HID)
+    warm, _ = eval_lib.load_latest_ckpt_from_experiment(
+        os.path.join(xms, "smoke"), EXP_HID, "mshyper",
+        update_model_config=sga_cfg["model_config"], transforms_dtype=torch.bfloat16,
+        device="cuda")
+    ckpt = train_lib.load_newest_checkpoint(train_lib.checkpoint_dir(workdir))
+    warm_equal = (warm.state_dict().keys() == ckpt["model"].keys() and all(
+        torch.equal(v.cpu(), ckpt["model"][k]) for k, v in warm.state_dict().items()))
+    del warm
+    summary["itinf"] = dict(workdir=os.path.relpath(iworkdir, tmp), seconds=sga_s,
+                            metrics=sga, launches=counts, params_equal_checkpoint=warm_equal)
+    log(phase, f"itinf workdir {os.path.relpath(iworkdir, tmp)}: {EXP_SGA_STEPS} SGA steps of "
+        f"2 images in {sga_s:.1f} s; val rd_loss {[round(m['rd_loss'], 4) for m in sga]}; "
+        f"warm-started params equal the checkpoint's: {warm_equal}  [{smi}]")
+    check(warm_equal and len(sga) == 2 and all(np.isfinite(m["rd_loss"]) for m in sga)
+          and counts["final_deconv_phase"] == 2 * (EXP_SGA_STEPS + 1)
+          and all(os.path.isfile(os.path.join(iworkdir, f"batch_id={i}", "itinf_vars.npz"))
+                  for i in range(2)), f"the itinf CLI's run: {summary['itinf']}")
+
+    # 5. eval --workdir --profile against an in-process eval of the checkpoint.
+    results = os.path.join(tmp, "json_results")
+    counts, eval_s, out = run_cli(
+        "eval", "shallow_ntc_tpu_torch.eval",
+        ["--workdir", workdir, "--dataset", "deadleaves_eval", "--profile",
+         "--results_dir", results])
+    path = out.strip().splitlines()[-1]
+    name = f"mshyper-lmbda=0.01-num_steps={EXP_TRAIN_STEPS}-step={EXP_TRAIN_STEPS}-xid=smoke.json"
+    check(os.path.basename(path) == name and os.path.islink(os.path.join(results, name)),
+          f"eval wrote {path}")
+    with open(os.path.join(results, name)) as f:
+      records = json.load(f)
+    counts_f, f_train_s, fworkdir, f_counts, f_eval_s, f_out = factorized.result()
+    model, _ = eval_lib.load_latest_ckpt(workdir, device="cuda")
+    images = list(data_lib.get_dataset(eval_glob, "test", 1, None))
+    ref = list(eval_lib.evaluate_images(model, images, step=EXP_TRAIN_STEPS))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    again = list(eval_lib.evaluate_images(model, images, step=EXP_TRAIN_STEPS))
+    torch.cuda.synchronize()
+    eval_ms = 1e3 * (time.perf_counter() - t) / len(images)
+    repeat_exact = again == ref  # is the in-process eval itself bit-reproducible?
+    del model
+    times = ("analysis_time", "hyper_synthesis_time", "synthesis_time")
+    hparams = dict(runname_lib.parse_runname(os.path.basename(workdir)))
+    worst = max(abs(rec[k] - r[k]) / max(abs(r[k]), 1e-12)
+                for rec, r in zip(records, ref) for k in r)
+    exact = all(rec[k] == r[k] for rec, r in zip(records, ref) for k in r)
+    summary["eval"] = dict(results=os.path.relpath(path, tmp), seconds=eval_s, launches=counts,
+                           ms_an_image=eval_ms, exact=exact, max_rel=worst,
+                           in_process_repeat_exact=repeat_exact,
+                           profile={k: [rec[k] for rec in records] for k in times})
+    log(phase, f"eval --workdir --profile: {os.path.relpath(path, tmp)}; records against the "
+        f"in-process eval: {'equal' if exact else f'max rel {worst:.2e}'} (the in-process "
+        f"eval run twice: {'equal' if repeat_exact else 'differs'}); in-process "
+        f"{eval_ms:.2f} ms an image; profile (s) "
+        + ", ".join(f"{k} {' / '.join(f'{rec[k]:.6f}' for rec in records)}" for k in times)
+        + f"  [{smi}]")
+    check(len(records) == len(ref) == 2 and worst <= 1e-5
+          and all(rec[k] > 0 for rec in records for k in times)
+          and all(rec["instance_id"] == i and all(rec[k] == v for k, v in hparams.items())
+                  for i, rec in enumerate(records))
+          and counts["final_deconv_phase"] >= 2, f"the eval CLI's run: {summary['eval']}")
+
+    with open(f_out.strip().splitlines()[-1]) as f:
+      f_records = json.load(f)
+    summary["factorized"] = dict(workdir=os.path.relpath(fworkdir, tmp), train_s=f_train_s,
+                                 eval_s=f_eval_s, bpp=[r["bpp"] for r in f_records],
+                                 psnr=[r["psnr"] for r in f_records])
+    log(phase, f"factorized workdir {os.path.relpath(fworkdir, tmp)}: trained in "
+        f"{f_train_s:.1f} s, evaluated in {f_eval_s:.1f} s: bpp "
+        f"{[round(r['bpp'], 4) for r in f_records]}, psnr "
+        f"{[round(r['psnr'], 3) for r in f_records]}")
+    check(len(f_records) == 2 and all(np.isfinite(r["bpp"]) and np.isfinite(r["psnr"])
+                                      for r in f_records)
+          and not any(counts_f.values()) and not any(f_counts.values()),
+          f"the factorized runs: {summary['factorized']}, launches {counts_f} {f_counts}")
+  summary["launches"] = launches
+  summary["seconds"] = time.time() - t_phase
+  log(phase, f"launches in this phase {launches}; {summary['seconds']:.1f} s")
+  return summary
+
+
 def main():
   import torch
   if not torch.cuda.is_available():
@@ -2223,6 +2493,9 @@ def main():
 
   # --- 16. inference-extras: LPIPS, ElicSynthesis, res_type="d2s" ---------
   extras = extras_phase(images, zero_counts, read_counts, smi)
+
+  # --- 17. experiments: the config-script CLIs, warm start, PNGs, eval -----
+  experiments = experiments_phase(smi)
   codec_fd = sum(codec_counts[k][tl.STATS.name]
                  for k in ("flagship_compress", "flagship_decompress"))
   codec_k16 = sum(codec_counts[k][jd.STATS.name] for k in ("k16_compress", "k16_decompress"))
@@ -2231,9 +2504,9 @@ def main():
       name=tl.STATS.name, route="cuda",
       source="shallow_ntc_tpu_torch/csrc/final_deconv.cu",
       replaces="shallow_ntc_tpu/ops/pallas/twolayer_final.py:273",
-      launches=int8["final_deconv_launches"],
-      path="int8: the flagship's B=8 decode in float, int8_syn and int8_all, and the eval of "
-           "3 images in 5 arms (the final stage stays float)",
+      launches=experiments["launches"][tl.STATS.name],
+      path="experiments: the train, itinf and eval CLIs of the flagship's config script "
+           "(phase 17)",
       max_abs_err=errs[("final_deconv_phase", cases[1])],
       **decode_t,
       shape=f"B={DECODE_BATCH} mid {mh}x{mw}x768 bf16 (decode)",
@@ -2245,16 +2518,20 @@ def main():
                             max_abs_err=errs[("final_deconv_phase", fd_itinf_bf16)],
                             **itinf_bf16_t),
       decode_mpx_per_s=pixels / decode_ms / 1e3)]
-  # Launches: this slice's paths are the int8 decode and eval (phase 15:
-  # final_deconv_phase once a forward, as the final stage stays float; the
-  # chain in the encode gate's precedence check) and ElicSynthesis with the
-  # chain on (phase 16). The earlier slices' paths beside them: SGA (phase
-  # 12), the codec of phase 6 (one compress and one decompress of image 0, a
-  # compress with the chain, the JPEGL_K16 round trip), the training run of
-  # phase 7 (4 steps and the final eval), the eval of image 0 with
+  # Launches: this slice's path is the experiment workflow (phase 17: the
+  # train CLI's 4 steps and 2 val images with the chain on, 100 SGA steps of
+  # 2 images, eval --workdir of 2 images, each CLI in its own process). The
+  # earlier slices' paths beside them: the int8 decode and eval (phase 15)
+  # and ElicSynthesis with the chain on (phase 16), SGA (phase 12), the
+  # codec of phase 6 (one compress and one decompress of image 0, a compress
+  # with the chain, the JPEGL_K16 round trip), the training run of phase 7
+  # (4 steps and the final eval), the eval of image 0 with
   # SNTC_FUSED_RESBLOCK=1 (fused_resblock's own path, phase 4), the K16 eval
   # of phase 9. The chain's times are at train stage 1 in f32.
   kernels[0]["launches_by_path"] = {
+      **{f"experiments {k}": v[tl.STATS.name] for k, v in (
+          ("train", experiments["train"]["launches"]), ("itinf", experiments["itinf"]["launches"]),
+          ("eval", experiments["eval"]["launches"]))},
       "int8": int8["final_deconv_launches"],
       "itinf": itinf_fd, "itinf bf16": itinf["bf16_launches"][tl.STATS.name],
       "codec": codec_fd, "eval+decode": launches, "train": train_counts[tl.STATS.name],
@@ -2263,13 +2540,14 @@ def main():
   kernels[0]["factorized"] = fact
   kernels[0]["int8"] = int8
   kernels[0]["inference_extras"] = extras
+  kernels[0]["experiments"] = experiments
   kernels.append(dict(
       name=rb.STATS.name, route="cuda", source="shallow_ntc_tpu_torch/csrc/rb_chain.cu",
       replaces="shallow_ntc_tpu/ops/pallas/rb_chain.py:263",
-      launches=extras["chain_launches"] + int8["chain_launches"],
-      path="ElicSynthesis at 32x48x320 with SNTC_FUSED_RB_CHAIN=1, and the flagship's "
-           "analysis with the chain and SNTC_INT8_ENCODE=1",
-      launches_by_path={"ElicSynthesis": extras["chain_launches"],
+      launches=experiments["launches"][rb.STATS.name],
+      path="experiments: the flagship's train CLI with SNTC_FUSED_RB_CHAIN=1 (phase 17)",
+      launches_by_path={"experiments train": experiments["launches"][rb.STATS.name],
+                        "ElicSynthesis": extras["chain_launches"],
                         "int8 encode precedence": int8["chain_launches"],
                         "itinf": itinf["launches"][rb.STATS.name],
                         "codec": codec_counts["chain_compress"][rb.STATS.name],

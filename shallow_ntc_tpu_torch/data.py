@@ -1,20 +1,401 @@
-"""Image sources of the port: synthetic images and .npy files.
+"""Image sources of the port: PNG files, .npy files and synthetic images
+(mirrors shallow_ntc_tpu/data.py).
 
-SyntheticDataset is a copy of shallow_ntc_tpu/data.py:SyntheticDataset.
-Training takes random crops of .npy images (NpyRandomCrops). PNG reading
-waits: the GPU machine has no image library.
+read_png / write_png are PNG on the standard library's zlib and numpy (the
+GPU machine has no image library): bit depth 8, colour types 0, 2, 3, 4
+and 6, filters 0-4, not interlaced; read_png converts to RGB as PIL's
+convert("RGB") does (grey replicated, alpha dropped, palette looked up).
+Any other PNG, and any JPEG, raises an error that names the file.
+
+get_dataset resolves names as the JAX package does: "synthetic", then a
+name of project_configs.dataset_to_globs, then a glob. A glob of .npy files
+keeps the port's own sources (NpyRandomCrops for training, npy_images for
+testing); a glob of PNGs goes through DatasetIterable, the JAX package's
+cached numpy pipeline, which draws from one np.random.default_rng(seed) in
+JAX's order (the epoch's permutation, then each image's crop), so the same
+files and seed give JAX's batches byte for byte. The tfds names (clic,
+mnist, cifar10, cifar100) raise: tensorflow_datasets is not a dependency of
+the port.
 """
 
 import glob as glob_lib
 import os
+import queue
+import struct
+import threading
+import zlib
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from shallow_ntc_tpu_torch import project_configs
+
+_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+# Colour type -> samples per pixel: grey, RGB, palette, grey + alpha, RGBA.
+_PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+_TFDS_NAMES = ("clic", "mnist", "cifar10", "cifar100")
 
 
 def normalize_image(image):
   return image / 255.0 - 0.5
 
 
+# ---------------------------------------------------------------------------
+# PNG
+# ---------------------------------------------------------------------------
+def _png_header(head: bytes, filename) -> Tuple[int, int, int, int, int, int, int]:
+  """(width, height, bit depth, colour type, compression, filter method,
+  interlace) of the IHDR chunk that follows the signature in `head`."""
+  if head[:8] != _PNG_SIGNATURE:
+    kind = "a JPEG" if head[:3] == b"\xff\xd8\xff" else "not a PNG"
+    raise ValueError(f"{filename}: {kind} file; the port reads PNG only")
+  if len(head) < 33 or head[12:16] != b"IHDR":
+    raise ValueError(f"{filename}: truncated PNG (no IHDR chunk)")
+  return struct.unpack(">IIBBBBB", head[16:29])
+
+
+def _png_chunks(data: bytes, filename):
+  """Yield (type, payload) of each chunk after the signature, CRCs checked."""
+  pos = 8
+  while pos + 12 <= len(data):
+    (length,) = struct.unpack(">I", data[pos:pos + 4])
+    kind = data[pos + 4:pos + 8]
+    payload = data[pos + 8:pos + 8 + length]
+    (crc,) = struct.unpack(">I", data[pos + 8 + length:pos + 12 + length] or b"\0\0\0\0")
+    if len(payload) != length or zlib.crc32(kind + payload) != crc:
+      raise ValueError(f"{filename}: corrupt PNG chunk {kind!r} at byte {pos}")
+    yield kind, payload
+    if kind == b"IEND":
+      return
+    pos += 12 + length
+  raise ValueError(f"{filename}: truncated PNG (no IEND chunk)")
+
+
+def _paeth(a, b, c):
+  p = a + b - c
+  pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+  return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+
+
+def _unfilter_rows(ftype: np.ndarray, filt: np.ndarray, bpp: int) -> np.ndarray:
+  """Undo None, Sub and Up filters (no row may use Average or Paeth), a row
+  at a time: each depends on the row above only."""
+  out = np.empty_like(filt)
+  prev = np.zeros(filt.shape[1], np.uint8)
+  for y, (t, row) in enumerate(zip(ftype, filt)):
+    if t == 1:
+      row = row.reshape(-1, bpp).cumsum(axis=0, dtype=np.uint8).reshape(-1)
+    elif t == 2:
+      row = row + prev
+    out[y] = row
+    prev = out[y]
+  return out
+
+
+def _unfilter_diagonals(ftype: np.ndarray, filt: np.ndarray, bpp: int) -> np.ndarray:
+  """Undo any of the five filters along anti-diagonals, where every pixel's
+  left, upper and upper-left neighbours are done: H + W - 1 vector steps
+  instead of H * W scalar ones (Average and Paeth need the reconstructed
+  pixel to the left). The diagonals are columns of a skewed copy, pixel
+  (y, x) at s[y + 1, x + y + 2], whose row 0 and left columns stay zero as
+  the spec's bytes outside the image."""
+  h, stride = filt.shape
+  w = stride // bpp
+  f = filt.reshape(h, w, bpp).astype(np.int16)
+  s = np.zeros((h + 1, w + h + 1, bpp), np.int16)
+  fs = np.zeros((h, w + h + 1, bpp), np.int16)
+  for y in range(h):
+    fs[y, y + 2:y + 2 + w] = f[y]
+  masks = [(ftype == t)[:, None] for t in (1, 2, 3, 4)]
+  for d in range(h + w - 1):
+    y0, y1 = max(0, d - w + 1), min(h - 1, d) + 1
+    a = s[y0 + 1:y1 + 1, d + 1]  # left
+    b = s[y0:y1, d + 1]  # up
+    c = s[y0:y1, d]  # up-left
+    m1, m2, m3, m4 = (m[y0:y1] for m in masks)
+    pred = np.where(m1, a, np.where(m2, b, np.where(m3, (a + b) >> 1,
+                                                    np.where(m4, _paeth(a, b, c), 0))))
+    s[y0 + 1:y1 + 1, d + 2] = (fs[y0:y1, d + 2] + pred) & 255
+  out = np.empty((h, w, bpp), np.uint8)
+  for y in range(h):
+    out[y] = s[y + 1, y + 2:y + 2 + w]
+  return out.reshape(h, stride)
+
+
+def _unfilter(ftype: np.ndarray, filt: np.ndarray, bpp: int, filename) -> np.ndarray:
+  """The pixel bytes [H, W * bpp] of filtered scanlines (PNG spec 9.2)."""
+  if ftype.size and ftype.max() > 4:
+    raise ValueError(f"{filename}: unknown PNG filter type {int(ftype.max())}")
+  if np.isin(ftype, (3, 4)).any():
+    return _unfilter_diagonals(ftype, filt, bpp)
+  return _unfilter_rows(ftype, filt, bpp)
+
+
+def read_png(filename) -> np.ndarray:
+  """Load a PNG file to a uint8 [H, W, 3] RGB array."""
+  with open(filename, "rb") as f:
+    data = f.read()
+  width, height, depth, ctype, compression, filter_method, interlace = _png_header(
+      data[:33], filename)
+  if depth != 8 or ctype not in _PNG_CHANNELS:
+    raise ValueError(f"{filename}: PNG of bit depth {depth}, colour type {ctype}; the port "
+                     "reads bit depth 8, colour types 0, 2, 3, 4 and 6")
+  if interlace or compression or filter_method:
+    raise ValueError(f"{filename}: interlaced or non-standard PNG; the port reads "
+                     "non-interlaced PNG only")
+  idat, palette = [], None
+  for kind, payload in _png_chunks(data, filename):
+    if kind == b"IDAT":
+      idat.append(payload)
+    elif kind == b"PLTE":
+      palette = np.frombuffer(payload, np.uint8).reshape(-1, 3)
+  bpp = _PNG_CHANNELS[ctype]
+  try:
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+  except zlib.error as e:
+    raise ValueError(f"{filename}: corrupt PNG image data ({e})") from None
+  if raw.size != height * (width * bpp + 1):
+    raise ValueError(f"{filename}: PNG image data of {raw.size} bytes, expected "
+                     f"{height * (width * bpp + 1)}")
+  rows = raw.reshape(height, width * bpp + 1)
+  pixels = _unfilter(rows[:, 0], rows[:, 1:], bpp, filename).reshape(height, width, bpp)
+  if ctype == 3:
+    if palette is None:
+      raise ValueError(f"{filename}: palette PNG without a PLTE chunk")
+    lut = np.zeros((256, 3), np.uint8)
+    lut[:len(palette)] = palette[:256]
+    return lut[pixels[..., 0]]
+  if ctype in (0, 4):
+    return np.repeat(pixels[..., :1], 3, axis=-1)
+  return np.ascontiguousarray(pixels[..., :3])
+
+
+def _png_chunk(kind: bytes, payload: bytes) -> bytes:
+  return struct.pack(">I", len(payload)) + kind + payload + struct.pack(
+      ">I", zlib.crc32(kind + payload))
+
+
+def write_png(filename, image: np.ndarray):
+  """Save a uint8 [H, W] or [H, W, C] array (C = 1 grey, 2 grey + alpha,
+  3 RGB, 4 RGBA) as PNG, each row under the filter whose bytes have the
+  least sum of magnitudes (the PNG spec's heuristic)."""
+  image = np.asarray(image, dtype=np.uint8)
+  if image.ndim == 2:
+    image = image[..., None]
+  if image.ndim != 3 or image.shape[-1] not in (1, 2, 3, 4):
+    raise ValueError(f"{filename}: cannot write an image of shape {image.shape} as PNG")
+  h, w, bpp = image.shape
+  ctype = {1: 0, 2: 4, 3: 2, 4: 6}[bpp]
+  x = image.reshape(h, w * bpp).astype(np.int16)
+  a = np.zeros_like(x)
+  a[:, bpp:] = x[:, :-bpp]
+  b = np.zeros_like(x)
+  b[1:] = x[:-1]
+  c = np.zeros_like(x)
+  c[1:, bpp:] = x[:-1, :-bpp]
+  filtered = np.stack([x, x - a, x - b, x - ((a + b) >> 1), x - _paeth(a, b, c)]) & 255
+  magnitude = np.minimum(filtered, 256 - filtered).sum(axis=-1)  # [5, H]
+  choice = magnitude.argmin(axis=0)
+  scanlines = np.empty((h, w * bpp + 1), np.uint8)
+  scanlines[:, 0] = choice
+  scanlines[:, 1:] = filtered[choice, np.arange(h)]
+  png = (_PNG_SIGNATURE
+         + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0))
+         + _png_chunk(b"IDAT", zlib.compress(scanlines.tobytes(), 6))
+         + _png_chunk(b"IEND", b""))
+  os.makedirs(os.path.dirname(os.path.abspath(filename)), exist_ok=True)
+  with open(filename, "wb") as f:
+    f.write(png)
+
+
+def image_dimensions(filename) -> Tuple[int, int]:
+  """(height, width) from the PNG header alone, without decoding pixels."""
+  with open(filename, "rb") as f:
+    width, height = _png_header(f.read(33), filename)[:2]
+  return height, width
+
+
+def check_image_size(image: np.ndarray, patchsize: int) -> bool:
+  return image.shape[0] >= patchsize and image.shape[1] >= patchsize and image.shape[-1] == 3
+
+
+def process_image(image: np.ndarray, crop: Optional[str] = None,
+                  patchsize: Optional[int] = None, normalize: bool = True,
+                  rng: Optional[np.random.Generator] = None,
+                  keep_uint8: bool = False) -> np.ndarray:
+  """Crop ("random": offsets drawn from `rng`, rows first; "center"), then
+  cast to float32 and normalize, unless keep_uint8."""
+  if crop is not None:
+    if not patchsize or patchsize <= 0:
+      raise ValueError(f"a {crop} crop needs a positive patchsize, got {patchsize}")
+    h, w = image.shape[:2]
+    if crop == "random":
+      i = rng.integers(0, h - patchsize + 1)
+      j = rng.integers(0, w - patchsize + 1)
+    elif crop == "center":
+      i = (h - patchsize) // 2
+      j = (w - patchsize) // 2
+    else:
+      raise NotImplementedError(crop)
+    image = image[i:i + patchsize, j:j + patchsize]
+  if keep_uint8:
+    return np.ascontiguousarray(image)
+  image = image.astype(np.float32)
+  if normalize:
+    image = normalize_image(image)
+  return image
+
+
+class ImageStore:
+  """Decoded images by index, cached in RAM (uint8) up to a byte limit."""
+
+  def __init__(self, files: Sequence[str], cache_limit_bytes: int = 8 << 30):
+    self.files = list(files)
+    self._cache = {}
+    self._cache_bytes = 0
+    self._cache_limit = cache_limit_bytes
+    self._lock = threading.Lock()
+
+  def __len__(self):
+    return len(self.files)
+
+  def get(self, idx: int) -> np.ndarray:
+    f = self.files[idx]
+    with self._lock:
+      hit = self._cache.get(f)
+    if hit is not None:
+      return hit
+    arr = read_png(f)
+    with self._lock:
+      if self._cache_bytes + arr.nbytes <= self._cache_limit:
+        self._cache[f] = arr
+        self._cache_bytes += arr.nbytes
+    return arr
+
+  def dimensions(self, idx: int) -> Tuple[int, int]:
+    """(height, width) without decoding pixels (unless already cached)."""
+    f = self.files[idx]
+    with self._lock:
+      hit = self._cache.get(f)
+    if hit is not None:
+      return hit.shape[0], hit.shape[1]
+    return image_dimensions(f)
+
+
+class DatasetIterable:
+  """Batches of PNG images (shallow_ntc_tpu/data.py:DatasetIterable on its
+  cached numpy path): images smaller than the patch are left out by their
+  header size; a train split crops at random, a test split at the centre
+  (or not at all without a patchsize, yielding images of differing sizes
+  one at a time). A background thread keeps up to `prefetch` batches ready.
+  """
+
+  def __init__(self, store: ImageStore, split: str, batchsize: int, patchsize: Optional[int],
+               normalize: bool = True, shuffle: bool = False, repeat: bool = False,
+               drop_remainder: bool = False, seed: int = 0, prefetch: int = 4,
+               raw_uint8: bool = False):
+    self.store = store
+    self.split = split
+    self.batchsize = batchsize
+    self.patchsize = patchsize
+    self.normalize = normalize
+    self.shuffle = shuffle
+    self.repeat = repeat
+    self.drop_remainder = drop_remainder
+    self.seed = seed
+    self.prefetch = prefetch
+    self.raw_uint8 = raw_uint8
+    self.crop = None
+    if patchsize is not None:
+      self.crop = "random" if split == "train" else "center"
+
+  def _eligible_indices(self) -> List[int]:
+    idxs = []
+    for i in range(len(self.store)):
+      if self.patchsize is not None:
+        h, w = self.store.dimensions(i)
+        if h < self.patchsize or w < self.patchsize:
+          continue
+      idxs.append(i)
+    if not idxs:
+      raise RuntimeError("No images large enough for the requested patchsize.")
+    return idxs
+
+  def _batches(self) -> Iterator[np.ndarray]:
+    rng = np.random.default_rng(self.seed)
+    idxs = self._eligible_indices()
+    while True:
+      order = list(idxs)
+      if self.shuffle:
+        order = list(rng.permutation(order))
+      for start in range(0, len(order), self.batchsize):
+        chunk = order[start:start + self.batchsize]
+        if len(chunk) < self.batchsize and self.drop_remainder:
+          continue
+        imgs = [process_image(self.store.get(i), crop=self.crop, patchsize=self.patchsize,
+                              normalize=self.normalize, rng=rng, keep_uint8=self.raw_uint8)
+                for i in chunk]
+        if self.crop is None and len({im.shape for im in imgs}) > 1:
+          for im in imgs:
+            yield im[None]
+          continue
+        yield np.stack(imgs, axis=0)
+      if not self.repeat:
+        return
+
+  def __iter__(self) -> Iterator[np.ndarray]:
+    q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
+    stop = threading.Event()
+    done = object()
+
+    def put(item):
+      while not stop.is_set():
+        try:
+          q.put(item, timeout=0.1)
+          return True
+        except queue.Full:
+          continue
+      return False
+
+    def producer():
+      try:
+        for batch in self._batches():
+          if not put(batch):
+            return
+        put(done)
+      except Exception as e:  # handed to the consumer, which raises it
+        put(e)
+
+    thread = threading.Thread(target=producer, daemon=True)
+    thread.start()
+    try:
+      while True:
+        item = q.get()
+        if item is done:
+          return
+        if isinstance(item, Exception):
+          raise item
+        yield item
+    finally:
+      stop.set()
+
+
+def get_dataset_from_glob(file_glob: str, shuffle: bool, repeat: bool, drop_remainder: bool,
+                          batchsize: int, crop=None, patchsize=None, normalize=True,
+                          seed: int = 0, raw_uint8: bool = False) -> DatasetIterable:
+  """The PNG pipeline over the sorted files of `file_glob`."""
+  files = sorted(glob_lib.glob(os.path.expanduser(file_glob)))
+  if not files:
+    raise RuntimeError(f"No images found with glob '{file_glob}'.")
+  return DatasetIterable(ImageStore(files), split="train" if crop == "random" else "test",
+                         batchsize=batchsize, patchsize=patchsize, normalize=normalize,
+                         shuffle=shuffle, repeat=repeat, drop_remainder=drop_remainder,
+                         seed=seed, raw_uint8=raw_uint8)
+
+
+# ---------------------------------------------------------------------------
+# Synthetic images and .npy files
+# ---------------------------------------------------------------------------
 class SyntheticDataset:
   """Deterministic random-image source for tests/benchmarks (no files needed)."""
 
@@ -95,16 +476,30 @@ class NpyRandomCrops:
       yield normalize_image(np.stack(batch))
 
 
-def get_dataset(data_spec: str, split: str, batchsize: int, patchsize, seed: int = 0):
-  """"synthetic" or a glob of .npy images (shallow_ntc_tpu/data.py:get_dataset).
+def get_dataset(data_spec: str, split: str, batchsize: int, patchsize: Optional[int],
+                normalize: bool = True, seed: int = 0, raw_uint8: bool = False):
+  """The dataset of a name or glob (shallow_ntc_tpu/data.py:get_dataset).
 
-  train: endless random crops; test: 16 synthetic images, or each .npy image
-  whole, one at a time.
+  train: shuffled, repeated, the remainder dropped, random crops; test: one
+  pass in file order, centre crops (none without a patchsize). "synthetic"
+  is 16 test images or endless train batches of patchsize (256) pixels.
+  A glob of .npy images: train endless random crops (NpyRandomCrops), test
+  each image whole, one at a time.
   """
   train = split == "train"
   if data_spec == "synthetic":
     return SyntheticDataset(batchsize, patchsize or 256, num_batches=None if train else 16,
-                            seed=seed)
-  if train:
-    return NpyRandomCrops(data_spec, batchsize, patchsize or 256, seed)
-  return npy_images(data_spec)
+                            seed=seed, raw_uint8=raw_uint8)
+  if data_spec in _TFDS_NAMES:
+    raise ValueError(f"dataset {data_spec!r} is a tensorflow_datasets name; the port reads "
+                     "file globs and the names of project_configs.dataset_to_globs")
+  file_glob = project_configs.dataset_to_globs.get(data_spec, data_spec)
+  files = sorted(glob_lib.glob(os.path.expanduser(file_glob)))
+  if files and all(f.endswith(".npy") for f in files):
+    if train:
+      return NpyRandomCrops(file_glob, batchsize, patchsize or 256, seed)
+    return npy_images(file_glob)
+  return get_dataset_from_glob(
+      file_glob, shuffle=train, repeat=train, drop_remainder=train, batchsize=batchsize,
+      crop=("random" if train else "center") if patchsize is not None else None,
+      patchsize=patchsize, normalize=normalize, seed=seed, raw_uint8=raw_uint8)

@@ -15,6 +15,11 @@ latents' order (z's first), or `noise_fn(s)` where a caller gives them; a
 val pass draws nothing.
 So a run split into segments by mid-run val passes takes the same
 trajectory as one segment.
+
+itinf_eval_experiment is the experiment CLIs' entry: it sets up a workdir
+as training does and warm-starts from a training experiment's work unit
+(train_eval_config's warm_start_exp_dir and warm_start_wid), the config's
+model_config laid over the checkpoint's.
 """
 
 import json
@@ -191,3 +196,31 @@ def itinf_eval(model: nn.Module, images: Iterable, config: Mapping[str, Any], ou
     all_metrics.append({"batch_id": batch_id, **val_m})
   _dump_json(all_metrics, os.path.join(out_dir, "metrics.json"))
   return all_metrics
+
+
+# train_eval_config["transforms_dtype"] of a config script -> load_latest_ckpt's.
+_SCRIPT_TRANSFORMS_DTYPES = dict(TRANSFORMS_DTYPES, none=None)
+
+
+def itinf_eval_experiment(config: Mapping[str, Any], model_family: str, experiments_dir: str,
+                          runname: str, config_script: Optional[str] = None,
+                          device: Optional[str] = "cuda") -> Tuple[str, List[Dict[str, Any]]]:
+  """SGA of every batch of config["data_config"]'s dataset with the params of
+  the newest checkpoint of the training work unit warm_start_wid (default 0)
+  under warm_start_exp_dir (itinf_lib.py:386-512). Writes the artifacts of
+  itinf_eval into a workdir made by train_lib.setup_workdir, seeded 0 as
+  the JAX package. Returns (workdir, the per-batch metrics)."""
+  from shallow_ntc_tpu_torch import data as data_lib
+  from shallow_ntc_tpu_torch import eval_lib
+
+  te_cfg = dict(config["train_eval_config"])
+  workdir = train_lib.setup_workdir(config, experiments_dir, runname, config_script)
+  model, _ = eval_lib.load_latest_ckpt_from_experiment(
+      te_cfg.get("warm_start_exp_dir"), te_cfg.get("warm_start_wid", 0), model_family,
+      update_model_config=config.get("model_config"),
+      transforms_dtype=_SCRIPT_TRANSFORMS_DTYPES[te_cfg.get("transforms_dtype", "none")],
+      device=device)
+  data_cfg = config["data_config"]
+  dataset = data_lib.get_dataset(data_cfg["dataset"], "test", data_cfg["batchsize"],
+                                 data_cfg.get("patchsize"))
+  return workdir, itinf_eval(model, dataset, config, workdir)

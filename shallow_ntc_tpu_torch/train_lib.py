@@ -6,14 +6,22 @@ is updated in place and the step returns its metrics. The optimizer is
 optax's chain(clip_by_global_norm, adam) written out (Adam's eps 1e-7, the
 learning rate lr_fn(count) with the count taken before the update), so the
 two packages take the same steps. Checkpoints are torch.save files.
-Not ported: steps_per_dispatch (a TPU scan window), warm start, the
+The experiment bookkeeping is JAX's: setup_workdir makes
+<experiments_dir>/<xid>/[wid=<wid>-]<run name>/ with config.json,
+run_info.json and copies of the config script and the model sources, and
+train_eval_config's warm_start (a checkpoints directory, a workdir, or an
+experiment directory searched by warm_start_wid) starts a run from another
+run's params and step with a fresh optimizer. Not ported:
+steps_per_dispatch (a TPU scan window, accepted and ignored), the
 multi-host bookkeeping and the image grids.
 """
 
 import dataclasses
+import glob
 import json
 import os
 import re
+import shutil
 import time
 from typing import Any, Callable, Dict, Iterable, List, Mapping, Optional, Sequence, Tuple
 
@@ -25,6 +33,7 @@ from shallow_ntc_tpu_torch import data as data_lib
 from shallow_ntc_tpu_torch import eval_lib
 from shallow_ntc_tpu_torch import schedule as schedule_lib
 from shallow_ntc_tpu_torch.models import families
+from shallow_ntc_tpu_torch.utils import runname as runname_utils
 
 
 class Metrics:
@@ -191,12 +200,11 @@ def checkpoint_dir(workdir: str) -> str:
   return os.path.join(workdir, "train", "checkpoints")
 
 
-def _checkpoint_steps(workdir: str) -> List[int]:
-  d = checkpoint_dir(workdir)
-  if not os.path.isdir(d):
+def _checkpoint_steps(ckpt_dir: str) -> List[int]:
+  if not os.path.isdir(ckpt_dir):
     return []
   return sorted(int(m.group(1)) for m in map(re.compile(r"ckpt_(\d+)\.pt$").match,
-                                             os.listdir(d)) if m)
+                                             os.listdir(ckpt_dir)) if m)
 
 
 def save_checkpoint(workdir: str, state: TrainState, max_to_keep: int = 1) -> str:
@@ -209,13 +217,22 @@ def save_checkpoint(workdir: str, state: TrainState, max_to_keep: int = 1) -> st
              "generator": state.generator.get_state()}
   torch.save(payload, path + ".tmp")
   os.replace(path + ".tmp", path)
-  for step in _checkpoint_steps(workdir)[:-max_to_keep]:
+  for step in _checkpoint_steps(d)[:-max_to_keep]:
     os.remove(os.path.join(d, f"ckpt_{step}.pt"))
   return path
 
 
+def load_newest_checkpoint(ckpt_dir: str, map_location="cpu") -> Dict[str, Any]:
+  """The payload of the newest ckpt_<step>.pt under a checkpoints directory."""
+  steps = _checkpoint_steps(ckpt_dir)
+  if not steps:
+    raise FileNotFoundError(f"No checkpoints under {ckpt_dir}")
+  return torch.load(os.path.join(ckpt_dir, f"ckpt_{steps[-1]}.pt"), map_location=map_location,
+                    weights_only=True)
+
+
 def latest_checkpoint_step(workdir: str) -> Optional[int]:
-  steps = _checkpoint_steps(workdir)
+  steps = _checkpoint_steps(checkpoint_dir(workdir))
   return steps[-1] if steps else None
 
 
@@ -245,6 +262,35 @@ def restore_checkpoint(workdir: str, state: TrainState) -> TrainState:
   state.model.load_state_dict(payload["model"])
   state.optimizer.load_state_dict(payload["optimizer"])
   state.generator.set_state(payload["generator"].cpu())
+  state.step = int(payload["step"])
+  return state
+
+
+def resolve_warm_start_dir(warm_start: str, wid=None) -> Optional[str]:
+  """The checkpoints directory of `warm_start` (train_lib.py:271-288): a
+  checkpoints directory itself, a workdir, or an experiment directory whose
+  work unit wid=<wid>-* holds one."""
+  if not warm_start:
+    return None
+  if os.path.basename(os.path.normpath(warm_start)) == "checkpoints":
+    return warm_start
+  cand = checkpoint_dir(warm_start)
+  if os.path.isdir(cand):
+    return cand
+  if wid is not None:
+    matches = sorted(glob.glob(os.path.join(warm_start, f"wid={wid}-*")))
+    if matches:
+      return checkpoint_dir(matches[0])
+  raise FileNotFoundError(
+      f"Could not resolve warm start checkpoints from {warm_start!r} (wid={wid})")
+
+
+def restore_params_from_dir(ckpt_dir: str, state: TrainState) -> TrainState:
+  """Load the params and step of the newest checkpoint under `ckpt_dir` into
+  `state` (in place); the optimizer and the noise generator stay as they
+  are, fresh for a warm start (train_lib.py:291-314)."""
+  payload = load_newest_checkpoint(ckpt_dir, next(state.model.parameters()).device)
+  state.model.load_state_dict(payload["model"])
   state.step = int(payload["step"])
   return state
 
@@ -288,7 +334,9 @@ def simple_train_eval_loop(train_eval_config: Mapping[str, Any], workdir: str, m
                            val_iter_factory: Callable[[], Iterable],
                            seed: int = 0) -> TrainState:
   """Train with periodic logging, checkpoints and eval (train_lib.py:331-460);
-  resumes from the newest checkpoint under `workdir`. Returns the state."""
+  resumes from the newest checkpoint under `workdir`, or else warm-starts
+  from train_eval_config's warm_start (and warm_start_wid). Returns the
+  state."""
   cfg = dict(train_eval_config)
   num_steps = cfg.get("num_steps", 100)
   log_every = cfg.get("log_metrics_every_steps", 100)
@@ -300,7 +348,11 @@ def simple_train_eval_loop(train_eval_config: Mapping[str, Any], workdir: str, m
   device = next(model.parameters()).device
 
   state, lr_fn = create_train_state(model, optimizer_config, seed)
-  restore_checkpoint(workdir, state)
+  if latest_checkpoint_step(workdir) is not None:
+    restore_checkpoint(workdir, state)
+  elif cfg.get("warm_start"):
+    restore_params_from_dir(resolve_warm_start_dir(cfg["warm_start"], cfg.get("warm_start_wid")),
+                            state)
   train_step = make_train_step(model, state.optimizer, lr_fn)
   eval_step = make_eval_step(model)
 
@@ -332,35 +384,81 @@ def build_model(model_config: Mapping[str, Any], init_seed: int, device: Optiona
   return model.train(), dict(model_config.get("optimizer_config", {}))
 
 
-def train_and_eval(config: Mapping[str, Any], workdir: str, device: Optional[str] = "cuda",
-                   init_seed: int = 0, num_steps: Optional[int] = None,
-                   images: Optional[str] = None) -> TrainState:
-  """The train CLI's entry: build the model of config["model_family"]
-  (mshyper when absent), train, checkpoint and evaluate.
-
-  `images` (a glob of .npy images) replaces the config's synthetic data;
-  `num_steps` cuts the loop, not the schedules (as a JAX dot-override of
-  train_eval_config.num_steps does).
-  """
-  cfg = {k: dict(v) if isinstance(v, Mapping) else v for k, v in config.items()}
-  if num_steps is not None:
-    cfg["train_eval_config"]["num_steps"] = num_steps
-  model, optimizer_config = build_model(cfg["model_config"], init_seed, device,
-                                        cfg.get("model_family", "mshyper"))
+def _train(cfg: Dict[str, Any], family: str, workdir: str, device: Optional[str],
+           init_seed: int) -> TrainState:
+  """Build the `family` model of cfg["model_config"] and run the loop in
+  `workdir` on cfg's data (train_lib.py:529-583)."""
+  model, optimizer_config = build_model(cfg["model_config"], init_seed, device, family)
   train_cfg = cfg["train_data_config"]
   val_cfg = cfg.get("val_data_config") or train_cfg
-  if images is not None:
-    train_cfg = dict(train_cfg, dataset=images)
-    val_cfg = dict(val_cfg, dataset=images)
   train_iter = data_lib.get_dataset(train_cfg["dataset"], "train", train_cfg["batchsize"],
                                     train_cfg["patchsize"], seed=init_seed)
 
   def val_iter_factory():
     return data_lib.get_dataset(val_cfg["dataset"], "test", val_cfg["batchsize"],
-                                val_cfg["patchsize"])
+                                val_cfg.get("patchsize"))
 
+  return simple_train_eval_loop(cfg["train_eval_config"], workdir, model, optimizer_config,
+                                train_iter, val_iter_factory, seed=init_seed)
+
+
+def _plain(config: Mapping[str, Any]) -> Dict[str, Any]:
+  return {k: dict(v) if isinstance(v, Mapping) else v for k, v in config.items()}
+
+
+def train_and_eval(config: Mapping[str, Any], workdir: str, device: Optional[str] = "cuda",
+                   init_seed: int = 0, num_steps: Optional[int] = None,
+                   images: Optional[str] = None) -> TrainState:
+  """The fixed-name train CLI's entry (train.py): build the model of
+  config["model_family"] (mshyper when absent), train, checkpoint and
+  evaluate in `workdir`.
+
+  `images` (a glob of .npy images) replaces the config's synthetic data;
+  `num_steps` cuts the loop, not the schedules (as a JAX dot-override of
+  train_eval_config.num_steps does).
+  """
+  cfg = _plain(config)
+  if num_steps is not None:
+    cfg["train_eval_config"]["num_steps"] = num_steps
+  if images is not None:
+    cfg["train_data_config"] = dict(cfg["train_data_config"], dataset=images)
+    cfg["val_data_config"] = dict(cfg.get("val_data_config") or cfg["train_data_config"],
+                                  dataset=images)
   os.makedirs(workdir, exist_ok=True)
   with open(os.path.join(workdir, "config.json"), "w") as f:
     json.dump(cfg, f, indent=2, default=list)
-  return simple_train_eval_loop(cfg["train_eval_config"], workdir, model, optimizer_config,
-                                train_iter, val_iter_factory, seed=init_seed)
+  return _train(cfg, cfg.get("model_family", "mshyper"), workdir, device, init_seed)
+
+
+def setup_workdir(config: Mapping[str, Any], experiments_dir: str, runname: str,
+                  config_script: Optional[str] = None) -> str:
+  """Make <experiments_dir>/<xid>/[wid=<wid>-]<runname>/ with config.json,
+  a copy of the config script, run_info.json and copies of the model
+  sources (train_lib.py:503-526); return its path."""
+  xid = runname_utils.get_xid()
+  wid = runname_utils.get_wid()
+  wu_name = f"wid={wid}-{runname}" if wid is not None else runname
+  workdir = os.path.join(experiments_dir, str(xid), wu_name)
+  os.makedirs(workdir, exist_ok=True)
+  runname_utils.dump_json(config, os.path.join(workdir, "config.json"))
+  if config_script and os.path.isfile(config_script):
+    shutil.copy(config_script, os.path.join(workdir, os.path.basename(config_script)))
+  runname_utils.log_run_info(workdir)
+  from shallow_ntc_tpu_torch.models import factorized as factorized_models
+  from shallow_ntc_tpu_torch.models import mshyper as mshyper_models
+
+  for mod in (factorized_models, mshyper_models):
+    shutil.copy(mod.__file__, os.path.join(workdir, os.path.basename(mod.__file__)))
+  return workdir
+
+
+def train_and_eval_experiment(config: Mapping[str, Any], model_family: str,
+                              experiments_dir: str, runname: str,
+                              config_script: Optional[str] = None,
+                              device: Optional[str] = "cuda") -> Tuple[TrainState, str]:
+  """The experiment CLIs' entry (train_lib.py:529-583): set up the workdir,
+  then train the `model_family` model of the resolved `config` on its
+  datasets, seeded 0 as the JAX package. Returns (state, workdir)."""
+  cfg = _plain(config)
+  workdir = setup_workdir(cfg, experiments_dir, runname, config_script)
+  return _train(cfg, model_family, workdir, device, init_seed=0), workdir
