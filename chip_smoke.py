@@ -120,12 +120,14 @@ Phases, one flushed line each with its seconds (TF32 off throughout):
                4 steps at B=8 256x256 with SNTC_FUSED_RB_CHAIN=1, TF32 off,
                2 validation images (the chain 7 and final_deconv_phase once
                a forward); mshyper.itinf of itinf.py --hid 3 warm-started
-               from that experiment by wid, 100 SGA steps of the 2 eval
-               images (the warm-started params equal to the checkpoint's bit
-               for bit); eval --workdir --dataset deadleaves_eval --profile
-               (records equal to an in-process eval of the checkpoint to rel
-               1e-5, the three profile times, the link); bls2017_rd.py
-               trained 2 steps and evaluated (no kernel launches).
+               from that experiment by wid beside a decoy work unit wid=0,
+               100 SGA steps of the 2 eval images (the digest of the params
+               the CLI started from, in its warm_start.json, equal to the
+               checkpoint's and not the decoy's); eval --workdir --dataset
+               deadleaves_eval --profile (records equal to an in-process
+               eval of the checkpoint to rel 1e-5, the three profile times,
+               the link); bls2017_rd.py trained 2 steps and evaluated (no
+               kernel launches).
 Phase 11 also times the B=8 bf16 decodes of bls2017_rd, two_layer_syn2 and
 mbt2018.
 Then one JSON line of kernels, the nvidia-smi line, and the last line
@@ -139,6 +141,7 @@ import copy
 import glob as glob_lib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1664,6 +1667,16 @@ def experiments_phase(smi):
           and os.path.isfile(os.path.join(workdir, "run_info.json")),
           "the workdir's config.json is not the script's")
 
+    # A decoy work unit wid=0 in the same experiment, every float param of
+    # its checkpoint shifted by 1: a warm start by the wrong wid finds it.
+    decoy = os.path.join(xms, "smoke", "wid=0-decoy")
+    os.makedirs(train_lib.checkpoint_dir(decoy))
+    shutil.copy(os.path.join(workdir, "config.json"), decoy)
+    ckpt = train_lib.load_newest_checkpoint(train_lib.checkpoint_dir(workdir))
+    decoy_model = {k: v + 1 if v.is_floating_point() else v for k, v in ckpt["model"].items()}
+    torch.save(dict(ckpt, model=decoy_model),
+               os.path.join(train_lib.checkpoint_dir(decoy), f"ckpt_{ckpt['step']}.pt"))
+
     # 6. The factorized family (bls2017_rd.py, work unit 0, 2 steps, then
     # eval), in a thread of its own beside steps 4 and 5: each CLI is a
     # process of its own, so its launch counts are its own.
@@ -1699,21 +1712,21 @@ def experiments_phase(smi):
     iworkdir = os.path.join(ixms, "smoke", f"wid={EXP_HID}-mshyper-wwid={EXP_HID}-uq=sga")
     with open(os.path.join(iworkdir, "metrics.json")) as f:
       sga = json.load(f)
-    sga_cfg = config_lib.resolve_config(itinf_cfg, [], EXP_HID)
-    warm, _ = eval_lib.load_latest_ckpt_from_experiment(
-        os.path.join(xms, "smoke"), EXP_HID, "mshyper",
-        update_model_config=sga_cfg["model_config"], transforms_dtype=torch.bfloat16,
-        device="cuda")
-    ckpt = train_lib.load_newest_checkpoint(train_lib.checkpoint_dir(workdir))
-    warm_equal = (warm.state_dict().keys() == ckpt["model"].keys() and all(
-        torch.equal(v.cpu(), ckpt["model"][k]) for k, v in warm.state_dict().items()))
-    del warm
+    # The digest of the params that the CLI's SGA started from, against the
+    # work unit's checkpoint and the decoy's.
+    with open(os.path.join(iworkdir, "warm_start.json")) as f:
+      warm = json.load(f)
+    warm_equal = (warm["params_sha256"] == train_lib.params_digest(ckpt["model"])
+                  and warm["step"] == EXP_TRAIN_STEPS)
+    not_decoy = warm["params_sha256"] != train_lib.params_digest(decoy_model)
     summary["itinf"] = dict(workdir=os.path.relpath(iworkdir, tmp), seconds=sga_s,
-                            metrics=sga, launches=counts, params_equal_checkpoint=warm_equal)
+                            metrics=sga, launches=counts, warm_start=warm,
+                            params_equal_checkpoint=warm_equal, params_not_decoy=not_decoy)
     log(phase, f"itinf workdir {os.path.relpath(iworkdir, tmp)}: {EXP_SGA_STEPS} SGA steps of "
         f"2 images in {sga_s:.1f} s; val rd_loss {[round(m['rd_loss'], 4) for m in sga]}; "
-        f"warm-started params equal the checkpoint's: {warm_equal}  [{smi}]")
-    check(warm_equal and len(sga) == 2 and all(np.isfinite(m["rd_loss"]) for m in sga)
+        f"the CLI's warm-start params (digest) equal wid={EXP_HID}'s checkpoint: {warm_equal}, "
+        f"differ from the decoy wid=0's: {not_decoy}  [{smi}]")
+    check(warm_equal and not_decoy and len(sga) == 2 and all(np.isfinite(m["rd_loss"]) for m in sga)
           and counts["final_deconv_phase"] == 2 * (EXP_SGA_STEPS + 1)
           and all(os.path.isfile(os.path.join(iworkdir, f"batch_id={i}", "itinf_vars.npz"))
                   for i in range(2)), f"the itinf CLI's run: {summary['itinf']}")

@@ -34,6 +34,10 @@ _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # Colour type -> samples per pixel: grey, RGB, palette, grey + alpha, RGBA.
 _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 _TFDS_NAMES = ("clic", "mnist", "cifar10", "cifar100")
+# Decoded images kept in RAM by ImageStore, and batches made ahead by
+# DatasetIterable's thread (the JAX loader's defaults).
+_CACHE_LIMIT_BYTES = 8 << 30
+_PREFETCH = 4
 
 
 def normalize_image(image):
@@ -77,28 +81,17 @@ def _paeth(a, b, c):
   return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
 
 
-def _unfilter_rows(ftype: np.ndarray, filt: np.ndarray, bpp: int) -> np.ndarray:
-  """Undo None, Sub and Up filters (no row may use Average or Paeth), a row
-  at a time: each depends on the row above only."""
-  out = np.empty_like(filt)
-  prev = np.zeros(filt.shape[1], np.uint8)
-  for y, (t, row) in enumerate(zip(ftype, filt)):
-    if t == 1:
-      row = row.reshape(-1, bpp).cumsum(axis=0, dtype=np.uint8).reshape(-1)
-    elif t == 2:
-      row = row + prev
-    out[y] = row
-    prev = out[y]
-  return out
+def _unfilter(ftype: np.ndarray, filt: np.ndarray, bpp: int, filename) -> np.ndarray:
+  """The pixel bytes [H, W * bpp] of filtered scanlines (PNG spec 9.2).
 
-
-def _unfilter_diagonals(ftype: np.ndarray, filt: np.ndarray, bpp: int) -> np.ndarray:
-  """Undo any of the five filters along anti-diagonals, where every pixel's
-  left, upper and upper-left neighbours are done: H + W - 1 vector steps
-  instead of H * W scalar ones (Average and Paeth need the reconstructed
-  pixel to the left). The diagonals are columns of a skewed copy, pixel
-  (y, x) at s[y + 1, x + y + 2], whose row 0 and left columns stay zero as
-  the spec's bytes outside the image."""
+  Any of the five filters is undone along anti-diagonals, where every
+  pixel's left, upper and upper-left neighbours are done: H + W - 1 vector
+  steps instead of H * W scalar ones (Average and Paeth need the
+  reconstructed pixel to the left). The diagonals are columns of a skewed
+  copy, pixel (y, x) at s[y + 1, x + y + 2], whose row 0 and left columns
+  stay zero as the spec's bytes outside the image."""
+  if ftype.size and ftype.max() > 4:
+    raise ValueError(f"{filename}: unknown PNG filter type {int(ftype.max())}")
   h, stride = filt.shape
   w = stride // bpp
   f = filt.reshape(h, w, bpp).astype(np.int16)
@@ -120,15 +113,6 @@ def _unfilter_diagonals(ftype: np.ndarray, filt: np.ndarray, bpp: int) -> np.nda
   for y in range(h):
     out[y] = s[y + 1, y + 2:y + 2 + w]
   return out.reshape(h, stride)
-
-
-def _unfilter(ftype: np.ndarray, filt: np.ndarray, bpp: int, filename) -> np.ndarray:
-  """The pixel bytes [H, W * bpp] of filtered scanlines (PNG spec 9.2)."""
-  if ftype.size and ftype.max() > 4:
-    raise ValueError(f"{filename}: unknown PNG filter type {int(ftype.max())}")
-  if np.isin(ftype, (3, 4)).any():
-    return _unfilter_diagonals(ftype, filt, bpp)
-  return _unfilter_rows(ftype, filt, bpp)
 
 
 def read_png(filename) -> np.ndarray:
@@ -175,6 +159,34 @@ def _png_chunk(kind: bytes, payload: bytes) -> bytes:
       ">I", zlib.crc32(kind + payload))
 
 
+def _filter_rows(image: np.ndarray) -> np.ndarray:
+  """Each row of a uint8 [H, W, C] image under each of the five filters:
+  [5, H, W * C] bytes, held as int16."""
+  h, w, bpp = image.shape
+  x = image.reshape(h, w * bpp).astype(np.int16)
+  a = np.zeros_like(x)
+  a[:, bpp:] = x[:, :-bpp]
+  b = np.zeros_like(x)
+  b[1:] = x[:-1]
+  c = np.zeros_like(x)
+  c[1:, bpp:] = x[:-1, :-bpp]
+  return np.stack([x, x - a, x - b, x - ((a + b) >> 1), x - _paeth(a, b, c)]) & 255
+
+
+def _png_bytes(ftype: np.ndarray, filtered: np.ndarray, width: int, bpp: int) -> bytes:
+  """A PNG file of filtered scanlines [H, W * C] under the filter types
+  `ftype` [H]."""
+  h = filtered.shape[0]
+  scanlines = np.empty((h, width * bpp + 1), np.uint8)
+  scanlines[:, 0] = ftype
+  scanlines[:, 1:] = filtered
+  ctype = {1: 0, 2: 4, 3: 2, 4: 6}[bpp]
+  return (_PNG_SIGNATURE
+          + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", width, h, 8, ctype, 0, 0, 0))
+          + _png_chunk(b"IDAT", zlib.compress(scanlines.tobytes(), 6))
+          + _png_chunk(b"IEND", b""))
+
+
 def write_png(filename, image: np.ndarray):
   """Save a uint8 [H, W] or [H, W, C] array (C = 1 grey, 2 grey + alpha,
   3 RGB, 4 RGBA) as PNG, each row under the filter whose bytes have the
@@ -185,24 +197,10 @@ def write_png(filename, image: np.ndarray):
   if image.ndim != 3 or image.shape[-1] not in (1, 2, 3, 4):
     raise ValueError(f"{filename}: cannot write an image of shape {image.shape} as PNG")
   h, w, bpp = image.shape
-  ctype = {1: 0, 2: 4, 3: 2, 4: 6}[bpp]
-  x = image.reshape(h, w * bpp).astype(np.int16)
-  a = np.zeros_like(x)
-  a[:, bpp:] = x[:, :-bpp]
-  b = np.zeros_like(x)
-  b[1:] = x[:-1]
-  c = np.zeros_like(x)
-  c[1:, bpp:] = x[:-1, :-bpp]
-  filtered = np.stack([x, x - a, x - b, x - ((a + b) >> 1), x - _paeth(a, b, c)]) & 255
+  filtered = _filter_rows(image)
   magnitude = np.minimum(filtered, 256 - filtered).sum(axis=-1)  # [5, H]
   choice = magnitude.argmin(axis=0)
-  scanlines = np.empty((h, w * bpp + 1), np.uint8)
-  scanlines[:, 0] = choice
-  scanlines[:, 1:] = filtered[choice, np.arange(h)]
-  png = (_PNG_SIGNATURE
-         + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0))
-         + _png_chunk(b"IDAT", zlib.compress(scanlines.tobytes(), 6))
-         + _png_chunk(b"IEND", b""))
+  png = _png_bytes(choice, filtered[choice, np.arange(h)], w, bpp)
   os.makedirs(os.path.dirname(os.path.abspath(filename)), exist_ok=True)
   with open(filename, "wb") as f:
     f.write(png)
@@ -220,7 +218,7 @@ def check_image_size(image: np.ndarray, patchsize: int) -> bool:
 
 
 def process_image(image: np.ndarray, crop: Optional[str] = None,
-                  patchsize: Optional[int] = None, normalize: bool = True,
+                  patchsize: Optional[int] = None,
                   rng: Optional[np.random.Generator] = None,
                   keep_uint8: bool = False) -> np.ndarray:
   """Crop ("random": offsets drawn from `rng`, rows first; "center"), then
@@ -240,20 +238,16 @@ def process_image(image: np.ndarray, crop: Optional[str] = None,
     image = image[i:i + patchsize, j:j + patchsize]
   if keep_uint8:
     return np.ascontiguousarray(image)
-  image = image.astype(np.float32)
-  if normalize:
-    image = normalize_image(image)
-  return image
+  return normalize_image(image.astype(np.float32))
 
 
 class ImageStore:
-  """Decoded images by index, cached in RAM (uint8) up to a byte limit."""
+  """Decoded images by index, cached in RAM (uint8) up to _CACHE_LIMIT_BYTES."""
 
-  def __init__(self, files: Sequence[str], cache_limit_bytes: int = 8 << 30):
+  def __init__(self, files: Sequence[str]):
     self.files = list(files)
     self._cache = {}
     self._cache_bytes = 0
-    self._cache_limit = cache_limit_bytes
     self._lock = threading.Lock()
 
   def __len__(self):
@@ -267,7 +261,7 @@ class ImageStore:
       return hit
     arr = read_png(f)
     with self._lock:
-      if self._cache_bytes + arr.nbytes <= self._cache_limit:
+      if self._cache_bytes + arr.nbytes <= _CACHE_LIMIT_BYTES:
         self._cache[f] = arr
         self._cache_bytes += arr.nbytes
     return arr
@@ -287,23 +281,20 @@ class DatasetIterable:
   cached numpy path): images smaller than the patch are left out by their
   header size; a train split crops at random, a test split at the centre
   (or not at all without a patchsize, yielding images of differing sizes
-  one at a time). A background thread keeps up to `prefetch` batches ready.
+  one at a time). A background thread keeps up to _PREFETCH batches ready.
   """
 
   def __init__(self, store: ImageStore, split: str, batchsize: int, patchsize: Optional[int],
-               normalize: bool = True, shuffle: bool = False, repeat: bool = False,
-               drop_remainder: bool = False, seed: int = 0, prefetch: int = 4,
-               raw_uint8: bool = False):
+               shuffle: bool = False, repeat: bool = False, drop_remainder: bool = False,
+               seed: int = 0, raw_uint8: bool = False):
     self.store = store
     self.split = split
     self.batchsize = batchsize
     self.patchsize = patchsize
-    self.normalize = normalize
     self.shuffle = shuffle
     self.repeat = repeat
     self.drop_remainder = drop_remainder
     self.seed = seed
-    self.prefetch = prefetch
     self.raw_uint8 = raw_uint8
     self.crop = None
     if patchsize is not None:
@@ -333,7 +324,7 @@ class DatasetIterable:
         if len(chunk) < self.batchsize and self.drop_remainder:
           continue
         imgs = [process_image(self.store.get(i), crop=self.crop, patchsize=self.patchsize,
-                              normalize=self.normalize, rng=rng, keep_uint8=self.raw_uint8)
+                              rng=rng, keep_uint8=self.raw_uint8)
                 for i in chunk]
         if self.crop is None and len({im.shape for im in imgs}) > 1:
           for im in imgs:
@@ -344,7 +335,7 @@ class DatasetIterable:
         return
 
   def __iter__(self) -> Iterator[np.ndarray]:
-    q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
+    q: "queue.Queue" = queue.Queue(maxsize=_PREFETCH)
     stop = threading.Event()
     done = object()
 
@@ -381,15 +372,14 @@ class DatasetIterable:
 
 
 def get_dataset_from_glob(file_glob: str, shuffle: bool, repeat: bool, drop_remainder: bool,
-                          batchsize: int, crop=None, patchsize=None, normalize=True,
-                          seed: int = 0, raw_uint8: bool = False) -> DatasetIterable:
+                          batchsize: int, crop=None, patchsize=None, seed: int = 0,
+                          raw_uint8: bool = False) -> DatasetIterable:
   """The PNG pipeline over the sorted files of `file_glob`."""
   files = sorted(glob_lib.glob(os.path.expanduser(file_glob)))
   if not files:
     raise RuntimeError(f"No images found with glob '{file_glob}'.")
   return DatasetIterable(ImageStore(files), split="train" if crop == "random" else "test",
-                         batchsize=batchsize, patchsize=patchsize, normalize=normalize,
-                         shuffle=shuffle, repeat=repeat, drop_remainder=drop_remainder,
+                         batchsize=batchsize, patchsize=patchsize, shuffle=shuffle, repeat=repeat, drop_remainder=drop_remainder,
                          seed=seed, raw_uint8=raw_uint8)
 
 
@@ -477,7 +467,7 @@ class NpyRandomCrops:
 
 
 def get_dataset(data_spec: str, split: str, batchsize: int, patchsize: Optional[int],
-                normalize: bool = True, seed: int = 0, raw_uint8: bool = False):
+                seed: int = 0, raw_uint8: bool = False):
   """The dataset of a name or glob (shallow_ntc_tpu/data.py:get_dataset).
 
   train: shuffled, repeated, the remainder dropped, random crops; test: one
@@ -502,4 +492,4 @@ def get_dataset(data_spec: str, split: str, batchsize: int, patchsize: Optional[
   return get_dataset_from_glob(
       file_glob, shuffle=train, repeat=train, drop_remainder=train, batchsize=batchsize,
       crop=("random" if train else "center") if patchsize is not None else None,
-      patchsize=patchsize, normalize=normalize, seed=seed, raw_uint8=raw_uint8)
+      patchsize=patchsize, seed=seed, raw_uint8=raw_uint8)

@@ -209,17 +209,23 @@ def itinf_eval_experiment(config: Mapping[str, Any], model_family: str, experime
   the newest checkpoint of the training work unit warm_start_wid (default 0)
   under warm_start_exp_dir (itinf_lib.py:386-512). Writes the artifacts of
   itinf_eval into a workdir made by train_lib.setup_workdir, seeded 0 as
-  the JAX package. Returns (workdir, the per-batch metrics)."""
+  the JAX package, and warm_start.json: the work unit, the checkpoint's step
+  and train_lib.params_digest of the params that SGA starts from. Returns
+  (workdir, the per-batch metrics)."""
   from shallow_ntc_tpu_torch import data as data_lib
   from shallow_ntc_tpu_torch import eval_lib
 
   te_cfg = dict(config["train_eval_config"])
   workdir = train_lib.setup_workdir(config, experiments_dir, runname, config_script)
-  model, _ = eval_lib.load_latest_ckpt_from_experiment(
-      te_cfg.get("warm_start_exp_dir"), te_cfg.get("warm_start_wid", 0), model_family,
-      update_model_config=config.get("model_config"),
+  exp_dir, wid = te_cfg.get("warm_start_exp_dir"), te_cfg.get("warm_start_wid", 0)
+  model, restored = eval_lib.load_latest_ckpt_from_experiment(
+      exp_dir, wid, model_family, update_model_config=config.get("model_config"),
       transforms_dtype=_SCRIPT_TRANSFORMS_DTYPES[te_cfg.get("transforms_dtype", "none")],
       device=device)
+  _dump_json({"warm_start_exp_dir": exp_dir, "warm_start_wid": wid,
+              "step": restored["_restored_step"],
+              "params_sha256": train_lib.params_digest(model.state_dict())},
+             os.path.join(workdir, "warm_start.json"))
   data_cfg = config["data_config"]
   dataset = data_lib.get_dataset(data_cfg["dataset"], "test", data_cfg["batchsize"],
                                  data_cfg.get("patchsize"))

@@ -18,6 +18,7 @@ multi-host bookkeeping and the image grids.
 
 import dataclasses
 import glob
+import hashlib
 import json
 import os
 import re
@@ -229,6 +230,17 @@ def load_newest_checkpoint(ckpt_dir: str, map_location="cpu") -> Dict[str, Any]:
     raise FileNotFoundError(f"No checkpoints under {ckpt_dir}")
   return torch.load(os.path.join(ckpt_dir, f"ckpt_{steps[-1]}.pt"), map_location=map_location,
                     weights_only=True)
+
+
+def params_digest(state_dict: Mapping[str, torch.Tensor]) -> str:
+  """SHA-256 of a state dict's names, dtypes, shapes and bytes in name order:
+  equal digests mean bit-equal params."""
+  h = hashlib.sha256()
+  for name in sorted(state_dict):
+    t = state_dict[name].detach().cpu().contiguous()
+    h.update(f"{name}:{t.dtype}:{tuple(t.shape)};".encode())
+    h.update(t.reshape(-1).view(torch.uint8).numpy().tobytes())
+  return h.hexdigest()
 
 
 def latest_checkpoint_step(workdir: str) -> Optional[int]:

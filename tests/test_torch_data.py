@@ -64,16 +64,21 @@ def test_write_png_is_read_by_jax(tmp_path, channels):
     assert data_lib.image_dimensions(path) == jax_data.image_dimensions(path)
 
 
-@pytest.mark.parametrize("bpp", [1, 3, 4])
-def test_unfilter_row_path_equals_the_diagonal_path(bpp):
-  """Images filtered by None, Sub and Up only take the row-at-a-time path;
-  it gives the anti-diagonal path's bytes."""
-  rng = np.random.default_rng(bpp)
-  for h, w in SIZES:
-    filt = rng.integers(0, 256, (h, w * bpp), dtype=np.uint8)
-    ftype = rng.integers(0, 3, h).astype(np.uint8)
-    np.testing.assert_array_equal(data_lib._unfilter_rows(ftype, filt, bpp),
-                                  data_lib._unfilter_diagonals(ftype, filt, bpp))
+@pytest.mark.parametrize("ftype", range(5))
+def test_read_png_undoes_each_filter(tmp_path, ftype):
+  """Every row under one filter type (None, Sub, Up, Average, Paeth), at
+  1, 2, 3 and 4 samples a pixel: PIL and JAX's read_png read the array back,
+  and so does the port."""
+  rng = np.random.default_rng(ftype)
+  for bpp in (1, 2, 3, 4):
+    for h, w in SIZES:
+      arr = rng.integers(0, 256, (h, w, bpp), dtype=np.uint8)
+      path = str(tmp_path / f"f{ftype}_{bpp}_{h}x{w}.png")
+      with open(path, "wb") as f:
+        f.write(data_lib._png_bytes(np.full(h, ftype), data_lib._filter_rows(arr)[ftype], w, bpp))
+      with Image.open(path) as im:
+        np.testing.assert_array_equal(np.asarray(im).reshape(h, w, bpp), arr)
+      np.testing.assert_array_equal(data_lib.read_png(path), jax_data.read_png(path))
 
 
 def _interlaced(path, arr):

@@ -13,6 +13,7 @@ import glob
 import importlib.util
 import json
 import os
+import shutil
 import socket
 
 import numpy as np
@@ -48,10 +49,24 @@ def _json_normal(obj):
   return json.loads(json.dumps(obj))
 
 
+def _decoy_work_unit(workdir, wid):
+  """A work unit wid=<wid>-decoy beside `workdir` in its experiment: its
+  config, and its newest checkpoint with every float param shifted by 1, the
+  params that a warm start by the wrong wid would find."""
+  decoy = os.path.join(os.path.dirname(workdir), f"wid={wid}-decoy")
+  os.makedirs(train_lib.checkpoint_dir(decoy))
+  shutil.copy(os.path.join(workdir, "config.json"), decoy)
+  payload = train_lib.load_newest_checkpoint(train_lib.checkpoint_dir(workdir))
+  payload["model"] = {k: v + 1 if v.is_floating_point() else v
+                      for k, v in payload["model"].items()}
+  torch.save(payload, os.path.join(train_lib.checkpoint_dir(decoy), f"ckpt_{payload['step']}.pt"))
+  return decoy
+
+
 @pytest.fixture(scope="module")
 def experiment(tmp_path_factory):
-  """One smoke.py work unit (hid 1) trained for 2 steps under SLURM ids, and
-  two PNGs to evaluate on."""
+  """One smoke.py work unit (hid 1) trained for 2 steps under SLURM ids,
+  a decoy work unit wid=0 beside it, and two PNGs to evaluate on."""
   tmp = tmp_path_factory.mktemp("workflow")
   rng = np.random.default_rng(0)
   for i, (h, w) in enumerate([(64, 96), (64, 64)]):
@@ -62,7 +77,8 @@ def experiment(tmp_path_factory):
     mp.setenv("SLURM_ARRAY_JOB_ID", XID)
     mp.setenv("SLURM_ARRAY_TASK_ID", WID)
     state, workdir = cli.run_train_main("mshyper", argv)
-  return dict(tmp=tmp, state=state, workdir=workdir, pngs=str(tmp / "im*.png"))
+  return dict(tmp=tmp, state=state, workdir=workdir, decoy=_decoy_work_unit(workdir, 0),
+              pngs=str(tmp / "im*.png"))
 
 
 def test_train_cli_writes_the_jax_experiment_layout(experiment):
@@ -84,9 +100,10 @@ def test_train_cli_writes_the_jax_experiment_layout(experiment):
 
 
 def test_itinf_cli_warm_starts_by_wid(experiment, monkeypatch):
-  """The itinf CLI finds work unit wid=1 under the experiment directory and
-  runs SGA with its checkpoint's params exactly, bf16 transforms and the
-  config's SGA relaxation; it writes the JAX itinf's artifacts."""
+  """The itinf CLI finds work unit wid=1 under the experiment directory (not
+  the decoy wid=0) and runs SGA with its checkpoint's params exactly, bf16
+  transforms and the config's SGA relaxation; it writes the JAX itinf's
+  artifacts, and the digest of the params it started from."""
   seen = []
   run = itinf_lib.itinf_eval
 
@@ -119,8 +136,15 @@ def test_itinf_cli_warm_starts_by_wid(experiment, monkeypatch):
   for k, v in ckpt["model"].items():
     assert torch.equal(params[k], v), k
   assert model.transforms_dtype == torch.bfloat16 and not model.offset_heuristic
+  with open(os.path.join(workdir, "warm_start.json")) as f:
+    warm = json.load(f)
+  decoy = train_lib.load_newest_checkpoint(train_lib.checkpoint_dir(experiment["decoy"]))
+  assert warm["warm_start_wid"] == int(WID) and warm["step"] == 2
+  assert warm["params_sha256"] == train_lib.params_digest(ckpt["model"])
+  assert warm["params_sha256"] != train_lib.params_digest(decoy["model"])
   assert [m["batch_id"] for m in metrics] == [0, 1]
-  for name in ("metrics.json", "run_info.json", "itinf.py", "batch_id=0/metrics.json",
+  for name in ("metrics.json", "run_info.json", "itinf.py", "warm_start.json",
+               "batch_id=0/metrics.json",
                "batch_id=0/itinf_vars.npz", "batch_id=1/train/record.jsonl",
                "batch_id=1/val/record.jsonl"):
     assert os.path.isfile(os.path.join(workdir, name)), name
@@ -186,6 +210,7 @@ def test_eval_models_path_and_workdir_lookup(experiment, tmp_path):
 
   exp_dir = os.path.dirname(workdir)
   assert eval_lib.find_workdir_by_wid(exp_dir, WID) == workdir
+  assert eval_lib.find_workdir_by_wid(exp_dir, 0) == experiment["decoy"]
   assert eval_lib.find_workdir_by_wid(workdir, WID) == workdir
   lone = tmp_path / "lone"
   os.makedirs(lone / "run-a" / "train" / "checkpoints")
