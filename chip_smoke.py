@@ -128,6 +128,22 @@ Phases, one flushed line each with its seconds (TF32 off throughout):
                eval of the checkpoint to rel 1e-5, the three profile times,
                the link); bls2017_rd.py trained 2 steps and evaluated (no
                kernel launches).
+ 18. parallel  the multi-device paths on the one card, the flagship at full
+               width: MS-SSIM's moment filters under TF32 against the repaired
+               ones; the height-split eval of a 512x768 image on 2 and 4
+               strips (devices=[cuda:0] * N) against the unsplit eval (bpp,
+               PSNR, rd_loss rtol 1e-4; final_deconv_phase once a strip;
+               times); the eval twice with and without deterministic
+               settings, and the first module whose output differs run to
+               run; the train CLI with --dp_devices 2 --dist_backend gloo
+               (two spawned ranks on cuda:0, 3 steps at B=8 256x256, the
+               chain on, each rank's launch counts) against --dp_devices 1
+               on the same global batches (rd_loss rtol 1e-4, params rtol
+               2e-3 atol 2e-6, ms a step); one NCCL rank through
+               --coordinator (2 steps) whose checkpoint evaluates; the codec
+               CLI (--spatial_devices 1) on a PNG of that workdir, its
+               bitstream decoded by a 2-strip codec and a 2-strip bitstream
+               by the CLI, each bit for bit.
 Phase 11 also times the B=8 bf16 decodes of bls2017_rd, two_layer_syn2 and
 mbt2018.
 Then one JSON line of kernels, the nvidia-smi line, and the last line
@@ -142,6 +158,7 @@ import glob as glob_lib
 import json
 import os
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -1794,6 +1811,343 @@ def experiments_phase(smi):
   return summary
 
 
+PAR_STEPS, NCCL_STEPS = 3, 2  # the DDP comparison's steps; the NCCL run's
+PAR_STATS_MODULES = ("twolayer_final", "rb_chain", "resblock", "jpegl_decode")
+
+
+def _counted_train_rank(rank, *args):
+  """utils/cli.py's _train_rank, which run_train_main spawns for
+  --dp_devices N, with this rank's launch counts written beside the
+  experiment at its end: phase 18 swaps it in for the spawn."""
+  import importlib
+
+  import torch
+  from shallow_ntc_tpu_torch.utils import cli
+
+  stats = [importlib.import_module(f"shallow_ntc_tpu_torch.ops.{m}").STATS
+           for m in PAR_STATS_MODULES]
+  for st in stats:
+    st.launches = 0
+  out = cli._train_rank(rank, *args)
+  torch.cuda.synchronize()
+  with open(os.path.join(args[2].experiments_dir, f"launches_rank{rank}.json"), "w") as f:
+    json.dump({st.name: st.launches for st in stats}, f)
+  return out
+
+
+def parallel_phase(image, zero_counts, read_counts, smi):
+  """Phase 18: the multi-device paths on one card, the flagship at full
+  width. Returns the phase's numbers and its launches by path."""
+  import torch
+  import torch.nn.functional as F
+  from shallow_ntc_tpu_torch import compress as compress_cli
+  from shallow_ntc_tpu_torch import configs, data as data_lib, eval_lib, train_lib
+  from shallow_ntc_tpu_torch.codec import api as codec_api
+  from shallow_ntc_tpu_torch.models import base as models_base
+  from shallow_ntc_tpu_torch.ops import metrics_ops
+  from shallow_ntc_tpu_torch.ops import twolayer_final as tl
+  from shallow_ntc_tpu_torch.parallel import distributed as dist_lib
+  from shallow_ntc_tpu_torch.utils import cli
+
+  phase = "parallel"
+  t_phase = time.time()
+  dev = torch.device("cuda", 0)
+  summary = {"nvidia_smi": smi}
+  launches = {}
+  x = torch.from_numpy(image[None]).to(dev)
+
+  # 1. MS-SSIM's moment filters: F.conv2d with cuDNN's TF32 on (the code
+  # before the repair) beside the repaired _filter2d_valid, on a 512x768
+  # pair (the image and a noisy copy, 0..255).
+  img255 = (x + 0.5) * 255.0
+  noisy = torch.clamp(img255 + 12.0 * torch.randn(img255.shape, device=dev,
+                                                  generator=torch.Generator(dev).manual_seed(3)),
+                      0, 255)
+  pair = metrics_ops._nchw(img255), metrics_ops._nchw(noisy)
+  kern = metrics_ops._gaussian_kernel(11, 1.5, dev)
+
+  def tf32_filter(v):  # the two convolutions as they ran before the repair
+    c, k = v.shape[1], kern.shape[0]
+    v = F.conv2d(v, kern.reshape(1, 1, 1, k).expand(c, 1, 1, k), groups=c)
+    return F.conv2d(v, kern.reshape(1, 1, k, 1).expand(c, 1, k, 1), groups=c)
+
+  torch.backends.cudnn.allow_tf32 = True
+  try:
+    moments = [(p * q) for p in pair for q in pair] + list(pair)
+    filt_err = max((tf32_filter(m) - metrics_ops._filter2d_valid(m, kern)).abs().max().item()
+                   for m in moments)
+    ms_on = metrics_ops.msssim(img255, noisy)
+  finally:
+    torch.backends.cudnn.allow_tf32 = False
+  ms_off = metrics_ops.msssim(img255, noisy)
+  summary["msssim_tf32"] = dict(filter_max_abs_err_tf32_vs_fp32=filt_err,
+                                msssim_tf32_on=ms_on.item(), msssim_tf32_off=ms_off.item())
+  log(phase, f"MS-SSIM filters on a 512x768 pair: F.conv2d under TF32 against the repaired "
+      f"filter max|diff| {filt_err:.3e} over the five moments; MS-SSIM with TF32 on "
+      f"{ms_on.item():.9f}, off {ms_off.item():.9f}")
+  check(torch.equal(ms_on, ms_off), "MS-SSIM depends on the TF32 setting")
+
+  # 2. The height-split eval of one 512x768 image (2 and 4 strips on cuda:0)
+  # against the unsplit one: bpp, PSNR and rd_loss within rtol 1e-4; the
+  # final deconv once a strip; times by the host clock after a synchronize.
+  model = eval_lib.build_model(configs.TWO_LAYER_SYN_RD, init_seed=0, device=dev)
+  evals = {}
+  for strips in (1, 2, 4):
+    devices = None if strips == 1 else [dev] * strips
+    list(eval_lib.evaluate_images(model, image[None], devices=devices))  # warm-up
+    zero_counts()
+    t = time.perf_counter()
+    (record,) = eval_lib.evaluate_images(model, image[None], devices=devices)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    evals[strips] = dict(record=record, ms=1e3 * secs, launches=read_counts())
+  summary["split_eval"] = {k: dict(ms=v["ms"], launches=v["launches"],
+                                   **{m: v["record"][m] for m in ("bpp", "latent_bpp",
+                                                                  "hyper_latent_bpp", "psnr",
+                                                                  "rd_loss")})
+                           for k, v in evals.items()}
+  for strips in (2, 4):
+    rel = {m: abs(evals[strips]["record"][m] - evals[1]["record"][m])
+           / abs(evals[1]["record"][m]) for m in ("bpp", "psnr", "rd_loss")}
+    summary["split_eval"][strips]["rel_to_unsplit"] = rel
+    log(phase, f"eval of a {image.shape[0]}x{image.shape[1]} image on {strips} strips "
+        f"({[str(dev)] * strips}): "
+        f"{evals[strips]['ms']:.2f} ms against unsplit {evals[1]['ms']:.2f} ms (host clock, "
+        f"one image); rel to unsplit {rel}; launches {evals[strips]['launches']}  [{smi}]")
+    check(all(r <= 1e-4 for r in rel.values())
+          and evals[strips]["launches"][tl.STATS.name] == strips,
+          f"the {strips}-strip eval: {summary['split_eval'][strips]}")
+  launches["split eval 2 strips"] = evals[2]["launches"]
+  launches["split eval 4 strips"] = evals[4]["launches"]
+
+  # 3. Is the eval reproducible (ROADMAP queue 3 entry 6)? Twice under
+  # deterministic settings, twice without; without them, the first module
+  # (in call order) whose output differs between the two runs.
+  import warnings
+
+  def traced_eval():
+    outs = []
+    hooks = [m.register_forward_hook(
+        lambda mod, inp, out, name=name: outs.append(
+            (name, out.detach().clone() if torch.is_tensor(out) else None)))
+        for name, m in model.named_modules() if not list(m.children())]
+    try:
+      (record,) = eval_lib.evaluate_images(model, image[None])
+    finally:
+      for h in hooks:
+        h.remove()
+    return record, outs
+
+  cudnn = torch.backends.cudnn
+  saved = (cudnn.deterministic, cudnn.benchmark)
+  with warnings.catch_warnings(record=True) as caught:
+    warnings.simplefilter("always")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+      det = [traced_eval()[0] for _ in range(2)]
+    finally:
+      torch.use_deterministic_algorithms(False)
+      cudnn.deterministic, cudnn.benchmark = saved
+  flagged = sorted({str(w.message).split("\n")[0][:160] for w in caught
+                    if "deterministic" in str(w.message)})
+  plain = [traced_eval() for _ in range(2)]
+  first = next(((name, (a - b).abs().max().item()) for (name, a), (_, b)
+                in zip(plain[0][1], plain[1][1])
+                if a is not None and not torch.equal(a, b)), None)
+  def same(a, b):  # records equal, NaN equal to NaN
+    return a.keys() == b.keys() and all(np.array_equal(a[k], b[k], equal_nan=True) for k in a)
+
+  det_equal, plain_equal = same(*det), same(plain[0][0], plain[1][0])
+  summary["repeat"] = dict(deterministic_equal=det_equal, plain_equal=plain_equal,
+                           first_differing_module=first, nondeterministic_ops=flagged,
+                           modules_traced=len(plain[0][1]))
+  log(phase, f"the eval twice under use_deterministic_algorithms + cudnn.deterministic: "
+      f"{'equal' if det_equal else 'DIFFERS'}; twice without: "
+      f"{'equal' if plain_equal else 'differs'}; first module of "
+      f"{len(plain[0][1])} whose output differs run to run: {first}; ops PyTorch flags as "
+      f"nondeterministic: {flagged}")
+
+  with contextlib.ExitStack() as stack:
+    tmp = stack.enter_context(tempfile.TemporaryDirectory())
+    saved_env = {k: os.environ.get(k) for k in ("SLURM_ARRAY_JOB_ID", "SLURM_ARRAY_TASK_ID",
+                                                "SNTC_FUSED_RB_CHAIN")}
+
+    def restore_env():
+      for k, v in saved_env.items():
+        if v is None:
+          os.environ.pop(k, None)
+        else:
+          os.environ[k] = v
+
+    stack.callback(restore_env)
+    os.environ.update(SLURM_ARRAY_TASK_ID="3", SNTC_FUSED_RB_CHAIN="1")
+    script = os.path.join(os.path.dirname(os.path.abspath(__file__)), "shallow_ntc_tpu_torch",
+                          "mshyper", "configs", "two_layer_syn_rd.py")
+    te, td, vd = "--config.train_eval_config.", "--config.train_data_config.", \
+        "--config.val_data_config."
+
+    def argv(xid, steps):
+      return ["--config", script, "--hid", "3", "--matmul_precision", "highest",
+              "--experiments_dir", os.path.join(tmp, xid), f"{te}num_steps={steps}",
+              f"{te}log_metrics_every_steps=1", f"{te}eval_every_steps={steps}",
+              f"{te}checkpoint_every_steps={steps}", f"{te}max_validation_steps=1",
+              f"{td}dataset=synthetic", f"{td}batchsize={TRAIN_BATCH}",
+              f"{td}patchsize={TRAIN_HW}", f"{vd}dataset=synthetic", f"{vd}batchsize=2",
+              f"{vd}patchsize={TRAIN_HW}"]
+
+    def rows(workdir, collection="train"):
+      with open(os.path.join(workdir, collection, "record.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+    # 4. DDP: two gloo ranks on cuda:0, spawned by the train CLI
+    # (--dp_devices 2 --dist_backend gloo), 3 steps at B=8 256x256 with the
+    # chain kernel; each rank reports its launch counts.
+    os.environ["SLURM_ARRAY_JOB_ID"] = "ddp"
+    real_rank = cli._train_rank
+    cli._train_rank = _counted_train_rank
+    try:
+      t = time.time()
+      _, ddp_dir = cli.run_train_main("mshyper", argv("ddp", PAR_STEPS)
+                                      + ["--dp_devices", "2", "--dist_backend", "gloo"])
+      ddp_s = time.time() - t
+    finally:
+      cli._train_rank = real_rank
+    ranks = []
+    for r in range(2):
+      with open(os.path.join(tmp, "ddp", f"launches_rank{r}.json")) as f:
+        ranks.append(json.load(f))
+    # 5. The same 3 steps in one process (--dp_devices 1): the same global
+    # batches and noise.
+    os.environ["SLURM_ARRAY_JOB_ID"] = "one"
+    zero_counts()
+    t = time.time()
+    _, one_dir = cli.run_train_main("mshyper", argv("one", PAR_STEPS) + ["--dp_devices", "1"])
+    one_s = time.time() - t
+    one_counts = read_counts()
+    r_ddp, r_one = rows(ddp_dir), rows(one_dir)
+    loss_rel = [abs(a["rd_loss"] - b["rd_loss"]) / abs(b["rd_loss"]) for a, b in zip(r_ddp, r_one)]
+    p_ddp = train_lib.load_newest_checkpoint(train_lib.checkpoint_dir(ddp_dir))["model"]
+    p_one = train_lib.load_newest_checkpoint(train_lib.checkpoint_dir(one_dir))["model"]
+    worst = max(((p_ddp[k] - p_one[k]).abs() / (2e-6 + 2e-3 * p_one[k].abs())).max().item()
+                for k in p_one)
+    ddp_ms = [1e3 / r["steps_per_sec"] for r in r_ddp]
+    one_ms = [1e3 / r["steps_per_sec"] for r in r_one]
+    summary["ddp"] = dict(seconds=ddp_s, one_process_seconds=one_s, rd_loss_rel=loss_rel,
+                          param_err_over_tol=worst, step_ms=ddp_ms, one_process_step_ms=one_ms,
+                          launches_by_rank=ranks, one_process_launches=one_counts,
+                          val=rows(ddp_dir, "val"), one_process_val=rows(one_dir, "val"))
+    log(phase, f"DDP, 2 gloo ranks on cuda:0 (train CLI --dp_devices 2), {PAR_STEPS} steps of "
+        f"B={TRAIN_BATCH} {TRAIN_HW}x{TRAIN_HW} f32, chain on, in {ddp_s:.1f} s; one process "
+        f"in {one_s:.1f} s: rd_loss rel {[f'{v:.2e}' for v in loss_rel]} (tol 1e-4), params "
+        f"max |diff| / (2e-6 + 2e-3 |p|) {worst:.3f} (<= 1); ms a step (record.jsonl) DDP "
+        f"{' / '.join(f'{v:.1f}' for v in ddp_ms)}, one process "
+        f"{' / '.join(f'{v:.1f}' for v in one_ms)}; launches by rank {ranks}, one process "
+        f"{one_counts}  [{smi}]")
+    forwards = PAR_STEPS + 1  # 3 steps and 1 val batch, a rank's half of each
+    check(len(r_ddp) == len(r_one) == PAR_STEPS and max(loss_rel) <= 1e-4 and worst <= 1
+          and all(r[tl.STATS.name] == forwards and r["fused_rb_chain"] == 7 * forwards
+                  for r in ranks)
+          and one_counts[tl.STATS.name] == PAR_STEPS + 1,
+          f"the DDP run against one process: {summary['ddp']}")
+    launches["ddp rank 0"], launches["ddp rank 1"] = ranks
+    launches["ddp one process"] = one_counts
+
+    # 6. One NCCL rank (world size 1) through the train CLI's --coordinator,
+    # 2 steps, in this process (the CLI leaves the group at its end); its
+    # checkpoint into the plain eval.
+    os.environ["SLURM_ARRAY_JOB_ID"] = "nccl"
+    with socket.socket() as s:
+      s.bind(("127.0.0.1", 0))
+      port = s.getsockname()[1]
+    seen = []  # (backend, world size) of the group, read as the CLI leaves it
+    real_shutdown = dist_lib.shutdown
+
+    def shutdown():
+      seen.append((torch.distributed.get_backend(), torch.distributed.get_world_size()))
+      real_shutdown()
+
+    dist_lib.shutdown = shutdown
+    zero_counts()
+    t = time.time()
+    try:
+      cli.run_train_main("mshyper", argv("nccl", NCCL_STEPS) + [
+          "--coordinator", f"127.0.0.1:{port}", "--num_processes", "1", "--process_id", "0"])
+    finally:
+      dist_lib.shutdown = real_shutdown
+    nccl_s = time.time() - t
+    nccl_counts = read_counts()
+    nccl_backend = seen[0] if seen else None
+    check(not torch.distributed.is_initialized(), "the train CLI left its process group open")
+    (nccl_dir,) = glob_lib.glob(os.path.join(tmp, "nccl", "nccl", "wid=3-*"))
+    nccl_model, cfg = eval_lib.load_latest_ckpt(nccl_dir, device=dev)
+    zero_counts()
+    (nccl_eval,) = eval_lib.evaluate_images(nccl_model, image[None])
+    nccl_eval_counts = read_counts()
+    summary["nccl"] = dict(seconds=nccl_s, launches=nccl_counts, step=cfg["_restored_step"],
+                           train=rows(nccl_dir), eval=nccl_eval,
+                           backend_seen=nccl_backend)
+    log(phase, f"NCCL, world size 1 (train CLI --coordinator), {NCCL_STEPS} steps in "
+        f"{nccl_s:.1f} s, group {nccl_backend}, launches {nccl_counts}; its checkpoint (step "
+        f"{cfg['_restored_step']}) in the plain eval: bpp {nccl_eval['bpp']:.4f} PSNR "
+        f"{nccl_eval['psnr']:.3f}")
+    check(nccl_backend == ("nccl", 1) and cfg["_restored_step"] == NCCL_STEPS
+          and np.isfinite(nccl_eval["rd_loss"])
+          and nccl_counts[tl.STATS.name] == NCCL_STEPS + 1
+          and nccl_eval_counts[tl.STATS.name] == 1, f"the NCCL run: {summary['nccl']}")
+    launches["nccl train"] = nccl_counts
+
+    # 7. The codec of that workdir on a PNG: the CLI's bitstream
+    # (--spatial_devices 1) decoded by a 2-strip codec and by the CLI, and a
+    # 2-strip codec's bitstream decoded by the CLI: each pair bit for bit.
+    png = os.path.join(tmp, "img.png")
+    raw = np.round((image + 0.5) * 255.0).astype(np.uint8)
+    data_lib.write_png(png, raw)
+    common = ["--workdir", nccl_dir, "--spatial_devices", "1"]
+    zero_counts()
+    compress_cli.main(["compress", "--input", png, "--output", png + ".sntc"] + common)
+    compress_cli.main(["decompress", "--input", png + ".sntc", "--output", png + ".1.png"]
+                      + common)
+    cli_counts = read_counts()
+    split = codec_api.make_codec(nccl_model, devices=[dev, dev])
+    zero_counts()
+    with open(png + ".sntc", "rb") as f:
+      blob_cli = f.read()
+    rec_split = split.decompress(blob_cli)
+    result = split.compress(models_base.normalize_image(raw.astype(np.float32)))
+    split_counts = read_counts()
+    with open(png + ".split.sntc", "wb") as f:
+      f.write(result.bitstring)
+    compress_cli.main(["decompress", "--input", png + ".split.sntc", "--output", png + ".2.png"]
+                      + common)
+    rec_cli = data_lib.read_png(png + ".1.png")
+    rec_cli2 = data_lib.read_png(png + ".2.png")
+    diff_a = int(np.abs(rec_split.astype(int) - rec_cli.astype(int)).max())
+    diff_b = int(np.abs(result.reconstruction.astype(int) - rec_cli2.astype(int)).max())
+    same_a = np.array_equal(rec_split, rec_cli)
+    same_b = np.array_equal(result.reconstruction, rec_cli2)
+    summary["codec"] = dict(bytes_cli=len(blob_cli), bytes_split=len(result.bitstring),
+                            same_blob=blob_cli == result.bitstring,
+                            cli_to_split_equal=same_a, cli_to_split_max_diff=diff_a,
+                            split_to_cli_equal=same_b, split_to_cli_max_diff=diff_b,
+                            cli_launches=cli_counts, split_launches=split_counts)
+    log(phase, f"codec of the NCCL workdir on a {raw.shape[0]}x{raw.shape[1]} PNG: CLI "
+        f"bitstream ({len(blob_cli)} B) "
+        f"decoded by the 2-strip codec {'equal' if same_a else f'max|diff| {diff_a}'} to the "
+        f"CLI's decode; 2-strip bitstream ({len(result.bitstring)} B, "
+        f"{'the same bytes' if blob_cli == result.bitstring else 'other bytes'}) decoded by the "
+        f"CLI {'equal' if same_b else f'max|diff| {diff_b}'} to the encoder's; launches CLI "
+        f"{cli_counts}, 2-strip codec {split_counts}")
+    check(same_a and same_b and split_counts[tl.STATS.name] == 2 * 2,
+          f"split and unsplit bitstreams across: {summary['codec']}")
+    launches["codec cli"] = cli_counts
+    launches["codec 2 strips"] = split_counts
+  summary["launches"] = launches
+  summary["seconds"] = time.time() - t_phase
+  log(phase, f"{summary['seconds']:.1f} s")
+  return summary
+
+
 def main():
   import torch
   if not torch.cuda.is_available():
@@ -2509,6 +2863,9 @@ def main():
 
   # --- 17. experiments: the config-script CLIs, warm start, PNGs, eval -----
   experiments = experiments_phase(smi)
+
+  # --- 18. parallel: DDP (gloo, NCCL), the height-split eval and codec -----
+  parallel = parallel_phase(images[0], zero_counts, read_counts, smi)
   codec_fd = sum(codec_counts[k][tl.STATS.name]
                  for k in ("flagship_compress", "flagship_decompress"))
   codec_k16 = sum(codec_counts[k][jd.STATS.name] for k in ("k16_compress", "k16_decompress"))
@@ -2517,9 +2874,9 @@ def main():
       name=tl.STATS.name, route="cuda",
       source="shallow_ntc_tpu_torch/csrc/final_deconv.cu",
       replaces="shallow_ntc_tpu/ops/pallas/twolayer_final.py:273",
-      launches=experiments["launches"][tl.STATS.name],
-      path="experiments: the train, itinf and eval CLIs of the flagship's config script "
-           "(phase 17)",
+      launches=sum(v[tl.STATS.name] for v in parallel["launches"].values()),
+      path="parallel: the 2- and 4-strip eval, the DDP ranks and the one-process run, the "
+           "NCCL rank, the codec CLI and the 2-strip codec (phase 18)",
       max_abs_err=errs[("final_deconv_phase", cases[1])],
       **decode_t,
       shape=f"B={DECODE_BATCH} mid {mh}x{mw}x768 bf16 (decode)",
@@ -2531,10 +2888,11 @@ def main():
                             max_abs_err=errs[("final_deconv_phase", fd_itinf_bf16)],
                             **itinf_bf16_t),
       decode_mpx_per_s=pixels / decode_ms / 1e3)]
-  # Launches: this slice's path is the experiment workflow (phase 17: the
-  # train CLI's 4 steps and 2 val images with the chain on, 100 SGA steps of
-  # 2 images, eval --workdir of 2 images, each CLI in its own process). The
-  # earlier slices' paths beside them: the int8 decode and eval (phase 15)
+  # Launches: this slice's path is the multi-device one (phase 18: the
+  # split evals, both DDP ranks and the one-process run of the same steps,
+  # the NCCL rank, the codec CLI and the 2-strip codec, each counted from 0).
+  # The earlier slices' paths beside them: the experiment workflow (phase
+  # 17, each CLI in its own process), the int8 decode and eval (phase 15)
   # and ElicSynthesis with the chain on (phase 16), SGA (phase 12), the
   # codec of phase 6 (one compress and one decompress of image 0, a compress
   # with the chain, the JPEGL_K16 round trip), the training run of phase 7
@@ -2548,23 +2906,29 @@ def main():
       "int8": int8["final_deconv_launches"],
       "itinf": itinf_fd, "itinf bf16": itinf["bf16_launches"][tl.STATS.name],
       "codec": codec_fd, "eval+decode": launches, "train": train_counts[tl.STATS.name],
-      **{f"two_layer_syn2 {k}": v for k, v in fam_launches["two_layer_syn2"].items()}}
+      **{f"two_layer_syn2 {k}": v for k, v in fam_launches["two_layer_syn2"].items()},
+      **{f"parallel {k}": v[tl.STATS.name] for k, v in parallel["launches"].items()}}
   kernels[0]["family_decodes"] = fam_decode
   kernels[0]["factorized"] = fact
   kernels[0]["int8"] = int8
   kernels[0]["inference_extras"] = extras
   kernels[0]["experiments"] = experiments
+  kernels[0]["parallel"] = parallel
   kernels.append(dict(
       name=rb.STATS.name, route="cuda", source="shallow_ntc_tpu_torch/csrc/rb_chain.cu",
       replaces="shallow_ntc_tpu/ops/pallas/rb_chain.py:263",
-      launches=experiments["launches"][rb.STATS.name],
-      path="experiments: the flagship's train CLI with SNTC_FUSED_RB_CHAIN=1 (phase 17)",
+      launches=sum(v[rb.STATS.name] for v in parallel["launches"].values()),
+      path="parallel: the DDP ranks, the one-process run and the NCCL rank with "
+           "SNTC_FUSED_RB_CHAIN=1, the codec's analyses (phase 18)",
       launches_by_path={"experiments train": experiments["launches"][rb.STATS.name],
                         "ElicSynthesis": extras["chain_launches"],
                         "int8 encode precedence": int8["chain_launches"],
                         "itinf": itinf["launches"][rb.STATS.name],
                         "codec": codec_counts["chain_compress"][rb.STATS.name],
-                        "train": train_counts[rb.STATS.name]},
+                        "train": train_counts[rb.STATS.name],
+                        **{f"parallel {k}": parallel["launches"][k][rb.STATS.name]
+                           for k in ("ddp rank 0", "ddp rank 1", "ddp one process",
+                                     "nccl train")}},
       **chain_t["train f32"], other_shapes={k: v for k, v in chain_t.items() if k != "train f32"}))
   kernels.append(dict(
       name=resblock.STATS.name, route="cuda", source="shallow_ntc_tpu_torch/csrc/rb_chain.cu",

@@ -19,6 +19,13 @@ device leg sits between the host halves.
 
 The container is byte-compatible with the JAX package's: a blob written by
 one package parses in the other.
+
+spatial_devices > 1 (or a devices= list) runs the pixel-space transforms,
+the analysis and the synthesis, on height strips over that many devices
+(parallel/mesh.ModelHeightSplit), as the JAX codec shards them
+(api.py:160-191). The coding tables, the hyper-analysis and the
+hyper-synthesis stay on the canonical single-device path, so a bitstream
+written under one setting decodes under any other.
 """
 
 import contextlib
@@ -34,6 +41,7 @@ from shallow_ntc_tpu_torch.models import base as models_base
 from shallow_ntc_tpu_torch.models import factorized
 from shallow_ntc_tpu_torch.models import mshyper
 from shallow_ntc_tpu_torch.ops import entropy
+from shallow_ntc_tpu_torch.parallel import mesh as mesh_lib
 
 MAGIC = b"SNTC"
 VERSION = 2  # v2: each tensor is N interleaved rANS stripes (parallel decode)
@@ -169,13 +177,18 @@ def _drain_recs(pending, keep, hw, out):
 
 class _ModelCodec:
   """What both families' codecs share: the model (float32), uploads and
-  fetches, and the synthesis to uint8."""
+  fetches, the height split of the pixel-space transforms (`_pixels`, a
+  `with` context) and the synthesis to uint8."""
 
-  def __init__(self, model):
+  def __init__(self, model, spatial_devices: int = 1, devices=None):
     if any(p.dtype != torch.float32 for p in model.parameters()):
       raise ValueError("the codec runs the model in float32")
     self.model = model
     self.device = next(model.parameters()).device
+    self._pixels = contextlib.nullcontext()
+    if devices is not None or spatial_devices > 1:
+      self._pixels = mesh_lib.ModelHeightSplit(
+          model, mesh_lib.spatial_device_list(spatial_devices, devices))
 
   def _upload(self, a: np.ndarray) -> torch.Tensor:
     t = torch.from_numpy(np.ascontiguousarray(a, np.float32))
@@ -206,7 +219,7 @@ class _ModelCodec:
   def _synth_u8(self, y_hat: np.ndarray) -> torch.Tensor:
     """y_hat [B, ...] -> uint8 [B, H_pad, W_pad, 3] on the device (1 byte a
     pixel to fetch)."""
-    with coding_numerics():
+    with coding_numerics(), self._pixels:
       rec = self.model.synthesize(self._upload(y_hat))
       return models_base.floats_to_pixels(rec, training=False).to(torch.uint8)
 
@@ -236,8 +249,8 @@ class MSHyperCodec(_ModelCodec):
   under the caller's settings.
   """
 
-  def __init__(self, model: mshyper.Model):
-    super().__init__(model)
+  def __init__(self, model: mshyper.Model, spatial_devices: int = 1, devices=None):
+    super().__init__(model, spatial_devices, devices)
     with coding_numerics():
       self.z_tables = tables_lib.build_factorized_tables(
           model._prior, offset_heuristic=model.offset_heuristic)
@@ -247,7 +260,8 @@ class MSHyperCodec(_ModelCodec):
   @torch.no_grad()
   def _analyze(self, x: np.ndarray):
     """[B, H, W, 3] normalized floats -> (z, y) on the device."""
-    latents = self.model.infer_latent_rvs(self._upload(x))
+    with self._pixels:
+      latents = self.model.infer_latent_rvs(self._upload(x))
     return latents.uq[0].loc, latents.uq[1].loc
 
   @torch.no_grad()
@@ -442,8 +456,8 @@ class FactorizedCodec(_ModelCodec):
   the per-image path's; only the synthesis batches.
   """
 
-  def __init__(self, model: factorized.Model):
-    super().__init__(model)
+  def __init__(self, model: factorized.Model, spatial_devices: int = 1, devices=None):
+    super().__init__(model, spatial_devices, devices)
     with coding_numerics():
       self.tables = tables_lib.build_factorized_tables(
           model._prior, offset_heuristic=model.offset_heuristic)
@@ -451,7 +465,8 @@ class FactorizedCodec(_ModelCodec):
   @torch.no_grad()
   def _analyze(self, x: np.ndarray) -> torch.Tensor:
     """[B, H, W, 3] normalized floats -> y on the device."""
-    return self.model.infer_latent_rvs(self._upload(x)).uq[0].loc
+    with self._pixels:
+      return self.model.infer_latent_rvs(self._upload(x)).uq[0].loc
 
   def _encode_host(self, y: np.ndarray, h: int, w: int):
     """Host encode of ONE image's y: (blob, y_hat on the coding grid)."""
@@ -547,11 +562,13 @@ class FactorizedCodec(_ModelCodec):
     return out
 
 
-def make_codec(model):
+def make_codec(model, spatial_devices: int = 1, devices=None):
   """The codec of a model, by its family; TypeError for anything else, as
-  the JAX package's make_codec."""
+  the JAX package's make_codec. spatial_devices > 1 splits the analysis and
+  the synthesis over cuda:0 ... cuda:N-1 by height, `devices` over the
+  devices it names (eval_lib.evaluate_images')."""
   if isinstance(model, mshyper.Model):
-    return MSHyperCodec(model)
+    return MSHyperCodec(model, spatial_devices, devices)
   if isinstance(model, factorized.Model):
-    return FactorizedCodec(model)
+    return FactorizedCodec(model, spatial_devices, devices)
   raise TypeError(type(model))

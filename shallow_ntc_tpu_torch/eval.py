@@ -32,7 +32,9 @@ for cuDNN convolutions and matmuls; default leaves TF32 on.
 too (ops/int8ops.py); float (the default) leaves SNTC_INT8_DECODE in charge.
 Each record gets "lpips" when the LPIPS weights file exists
 (models/lpips.default_weights_path); without it the metric is omitted.
---spatial_devices (multi-GPU) is not ported.
+--spatial_devices N splits each image's height over cuda:0 ... cuda:N-1 for
+the analysis and the synthesis (eval_lib.evaluate_images), as the JAX
+eval's spatial sharding.
 """
 
 import argparse
@@ -78,6 +80,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Optional[str]:
   parser.add_argument("--config", default="two_layer_syn_rd", choices=configs.EVAL_CONFIG_NAMES)
   parser.add_argument("--matmul_precision", default="highest", choices=("highest", "default"))
   parser.add_argument("--decode_dtype", default="float", choices=sorted(DECODE_MODES))
+  parser.add_argument("--spatial_devices", type=int, default=1,
+                      help="split each image's height over this many GPUs")
   args = parser.parse_args(argv)
   if args.profile and args.workdir is None:
     parser.error("--profile times a --workdir's model")
@@ -112,7 +116,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Optional[str]:
       path = eval_lib.eval_workdir(
           args.workdir, images, args.dataset or args.images, results_dir,
           skip_existing=args.skip_existing, model_family=args.model_family,
-          lpips_fn=lpips_fn, profile=args.profile, model_cls=model_cls, device=args.device)
+          lpips_fn=lpips_fn, profile=args.profile, model_cls=model_cls, device=args.device,
+          spatial_devices=args.spatial_devices)
     else:
       model_config, runname, family = configs.eval_config(args.config)
       step = 0
@@ -125,7 +130,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Optional[str]:
         model = eval_lib.build_model(model_config, init_seed=args.init_seed,
                                      device=args.device, family=family)
         xid = f"init_seed={args.init_seed}"
-      path = eval_lib.eval_to_json(model, images, results_dir, runname, xid, step, lpips_fn)
+      path = eval_lib.eval_to_json(model, images, results_dir, runname, xid, step, lpips_fn,
+                                   args.spatial_devices)
 
   if args.profile and path:
     # A link in the common results directory (the root eval.py's).

@@ -1,22 +1,25 @@
 """Per-image R-D evaluation of either model family, and of a trained
 workdir (mirrors shallow_ntc_tpu/eval_lib.py).
 
-No spatial sharding yet. The JSON written by eval_to_json and eval_workdir
-has the JAX eval's record keys: the model's metrics, "lpips" when an
-lpips_fn is given (models/lpips.make_lpips_fn), the transforms' times with
-profile=True, instance_id and the run-name hparams. A workdir's model is
-rebuilt from its config.json and the newest checkpoint under
-train/checkpoints; the model sources copied beside them are provenance
-only, as in the JAX package.
+The JSON written by eval_to_json and eval_workdir has the JAX eval's
+record keys: the model's metrics, "lpips" when an lpips_fn is given
+(models/lpips.make_lpips_fn), the transforms' times with profile=True,
+instance_id and the run-name hparams. spatial_devices > 1 (or a devices=
+list) splits each image's height over that many devices
+(parallel/mesh.ModelHeightSplit), as the JAX eval's spatial sharding
+does. A workdir's model is rebuilt from its config.json and the newest
+checkpoint under train/checkpoints; the model sources copied beside them
+are provenance only, as in the JAX package.
 """
 
+import contextlib
 import copy
 import glob
 import importlib.util
 import json
 import logging
 import os
-from typing import Any, Dict, Iterable, Iterator, List, Mapping, Optional, Tuple
+from typing import Any, Dict, Iterable, Iterator, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -26,6 +29,7 @@ from shallow_ntc_tpu_torch import configs
 from shallow_ntc_tpu_torch import params as params_lib
 from shallow_ntc_tpu_torch.models import base as models_base
 from shallow_ntc_tpu_torch.models import families
+from shallow_ntc_tpu_torch.parallel import mesh as mesh_lib
 from shallow_ntc_tpu_torch.utils import runname as runname_utils
 from shallow_ntc_tpu_torch.utils.runname import parse_runname
 
@@ -61,18 +65,29 @@ def read_params(path: str):
   return params, int(params.pop("step", 0))
 
 
-def evaluate_images(model: nn.Module, images: Iterable, step: int = 0,
-                    lpips_fn=None) -> Iterator[Dict[str, float]]:
+def evaluate_images(model: nn.Module, images: Iterable, step: int = 0, lpips_fn=None,
+                    spatial_devices: int = 1,
+                    devices: Optional[Sequence] = None) -> Iterator[Dict[str, float]]:
   """Yield one metrics dict per image.
 
   `images` yields [1, H, W, 3] normalized arrays (or is a [B, ...] array,
   split into singles). Images go to the model's device. With an lpips_fn
   ((x255, y255) -> LPIPS) each record gets "lpips" of the image's pixels
   against the reconstruction, as the JAX eval's (eval_lib.py:200-202).
+
+  spatial_devices > 1 runs the analysis and the synthesis on that many
+  height strips, on cuda:0 ... cuda:N-1 (a ValueError when fewer are
+  present, as JAX's make_mesh asserts); `devices` names the strips'
+  devices instead (it may name one device twice). The rest of the model
+  runs whole on the model's device (eval_lib.py:150-200).
   """
   device = next(model.parameters()).device
   if hasattr(images, "shape"):
     images = [images[i : i + 1] for i in range(images.shape[0])]
+  split = contextlib.nullcontext()
+  if devices is not None or spatial_devices > 1:
+    split = mesh_lib.ModelHeightSplit(model, mesh_lib.spatial_device_list(spatial_devices,
+                                                                          devices))
   # The prior's offset depends on its frozen parameters alone: one bisection
   # per pass, not one per image.
   offset = model.prior_quantization_offset()
@@ -80,7 +95,7 @@ def evaluate_images(model: nn.Module, images: Iterable, step: int = 0,
     img = torch.as_tensor(np.asarray(img, np.float32), device=device)
     if img.ndim == 3:
       img = img[None]
-    with torch.no_grad():
+    with torch.no_grad(), split:
       _, metrics, rec = model.frame_loss_given_latent_rvs(
           img, model.infer_latent_rvs(img), training=False, step=step, frozen_offset=offset)
     out = {k: float(v) for k, v in metrics.items()}
@@ -91,11 +106,12 @@ def evaluate_images(model: nn.Module, images: Iterable, step: int = 0,
 
 
 def eval_to_json(model: nn.Module, images: Iterable, results_dir: str, runname: str,
-                 xid: str, step: int = 0, lpips_fn=None) -> str:
+                 xid: str, step: int = 0, lpips_fn=None, spatial_devices: int = 1) -> str:
   """Evaluate and dump a flat JSON list of per-image records; return its path."""
   hparams = parse_runname(runname)
   records: List[Dict] = []
-  for instance_id, metrics in enumerate(evaluate_images(model, images, step, lpips_fn)):
+  for instance_id, metrics in enumerate(evaluate_images(model, images, step, lpips_fn,
+                                                        spatial_devices)):
     record = dict(metrics)
     record["instance_id"] = instance_id
     record.update(hparams)
@@ -202,13 +218,15 @@ def load_latest_ckpt_from_experiment(experiment_dir: str, wid, model_family: Opt
 def eval_workdir(workdir: str, eval_data: Iterable, dataset_name: str, results_dir: str,
                  skip_existing: bool = False, model_family: Optional[str] = None,
                  lpips_fn=None, profile: bool = False, model_cls: Optional[type] = None,
-                 device: Optional[str] = "cuda") -> Optional[str]:
+                 device: Optional[str] = "cuda", spatial_devices: int = 1,
+                 devices: Optional[Sequence] = None) -> Optional[str]:
   """Evaluate a trained workdir on `eval_data` and dump a flat JSON list of
   per-image records to <results_dir>/<run name>-step=<n>-xid=<xid>.json
   (the run name without its wid= prefix, xid the experiment directory's
   name); return its path. With skip_existing an existing file is kept; with
   profile each record also gets the transforms' times of its image shape
-  (utils/profiling.transform_timings)."""
+  (utils/profiling.transform_timings), which stay unsplit.
+  spatial_devices and devices are evaluate_images'."""
   model, config = load_latest_ckpt(workdir, model_family, model_cls=model_cls, device=device)
   step = config["_restored_step"]
   wu_name = os.path.basename(os.path.normpath(workdir))
@@ -233,7 +251,8 @@ def eval_workdir(workdir: str, eval_data: Iterable, dataset_name: str, results_d
 
   timing_cache: Dict[tuple, Dict[str, float]] = {}
   records: List[Dict] = []
-  for instance_id, metrics in enumerate(evaluate_images(model, images(), step, lpips_fn)):
+  for instance_id, metrics in enumerate(evaluate_images(model, images(), step, lpips_fn,
+                                                        spatial_devices, devices)):
     record = dict(metrics)
     if profile:
       shape = shapes[instance_id]

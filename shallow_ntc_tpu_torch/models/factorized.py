@@ -24,6 +24,7 @@ from shallow_ntc_tpu_torch.models import base
 from shallow_ntc_tpu_torch.models.transforms import build_transform
 from shallow_ntc_tpu_torch.ops import entropy
 from shallow_ntc_tpu_torch.ops import metrics_ops
+from shallow_ntc_tpu_torch.ops import rounding
 
 
 class Model(nn.Module):
@@ -52,6 +53,15 @@ class Model(nn.Module):
   def infer_latent_rvs(self, x: torch.Tensor) -> LatentRVCollection:
     x = metrics_ops.pad_images(x, self.downsample_factor)
     return LatentRVCollection(uq=(UQLatentRV(loc=self._analysis(self._in_transforms_dtype(x))),))
+
+  def training_noise(self, image_shape, generator: torch.Generator):
+    """(u_y,): the uniform draw that a training step on a batch of
+    `image_shape` [B, H, W, 3] takes from `generator`, at y's shape; what
+    noise= takes (the mshyper model's training_noise)."""
+    b, h, w = image_shape[:3]
+    d = self.downsample_factor
+    shape = (b, -(-h // d), -(-w // d), self._analysis.output_depth)
+    return (rounding.uniform_noise(shape, generator, device=generator.device),)
 
   def synthesize(self, y_hat: torch.Tensor) -> torch.Tensor:
     return self._synthesis(self._in_transforms_dtype(y_hat))

@@ -33,6 +33,7 @@ from shallow_ntc_tpu_torch.models.transforms import build_transform
 from shallow_ntc_tpu_torch.ops import entropy
 from shallow_ntc_tpu_torch.ops import int8ops
 from shallow_ntc_tpu_torch.ops import metrics_ops
+from shallow_ntc_tpu_torch.ops import rounding
 
 
 class Model(nn.Module):
@@ -72,6 +73,19 @@ class Model(nn.Module):
     y = self._analysis(self._in_transforms_dtype(x))
     z = self._hyper_analysis(y)
     return LatentRVCollection(uq=(UQLatentRV(loc=z), UQLatentRV(loc=y)))
+
+  def training_noise(self, image_shape, generator: torch.Generator):
+    """(u_z, u_y): the uniform draws that a training step (unoise or mixedq)
+    on a batch of `image_shape` [B, H, W, 3] takes from `generator`, in its
+    order, at its latents' shapes; what noise= takes. The data-parallel step
+    draws them for the global batch and keeps its rows."""
+    b, h, w = image_shape[:3]
+    d, fa = self.downsample_factor, self._analysis.downsample_factor
+    fh = self._hyper_analysis.downsample_factor
+    yh, yw = -(-h // d) * d // fa, -(-w // d) * d // fa
+    shapes = ((b, yh // fh, yw // fh, self._hyper_analysis.output_depth),
+              (b, yh, yw, self._analysis.output_depth))
+    return tuple(rounding.uniform_noise(s, generator, device=generator.device) for s in shapes)
 
   def hyper_synthesize(self, z_hat: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """z_hat -> (mu, scale_indexes); the index is made positive by exp.

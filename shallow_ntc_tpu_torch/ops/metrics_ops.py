@@ -58,11 +58,19 @@ def _gaussian_kernel(size: int, sigma: float, device) -> torch.Tensor:
 
 
 def _filter2d_valid(x: torch.Tensor, kernel1d: torch.Tensor) -> torch.Tensor:
-  """Separable depthwise Gaussian filtering (VALID) on NCHW."""
+  """Separable depthwise Gaussian filtering (VALID) on NCHW, in full float32
+  whatever the process's TF32 setting (JAX's Precision.HIGHEST,
+  metrics_ops.py:109-124): under TF32 the E[x^2] - E[x]^2 cancellation
+  gives cs terms above 1 or below 0."""
   c = x.shape[1]
   k = kernel1d.shape[0]
-  x = F.conv2d(x, kernel1d.reshape(1, 1, 1, k).expand(c, 1, 1, k), groups=c)
-  return F.conv2d(x, kernel1d.reshape(1, 1, k, 1).expand(c, 1, k, 1), groups=c)
+  tf32 = torch.backends.cudnn.allow_tf32
+  torch.backends.cudnn.allow_tf32 = False
+  try:
+    x = F.conv2d(x, kernel1d.reshape(1, 1, 1, k).expand(c, 1, 1, k), groups=c)
+    return F.conv2d(x, kernel1d.reshape(1, 1, k, 1).expand(c, 1, k, 1), groups=c)
+  finally:
+    torch.backends.cudnn.allow_tf32 = tf32
 
 
 def _ssim_luminance_cs(x, y, max_val, filter_size=11, filter_sigma=1.5,

@@ -27,6 +27,12 @@ def _check_noise(noise: torch.Tensor, loc: torch.Tensor) -> torch.Tensor:
   return noise
 
 
+def uniform_noise(shape, generator: Optional[torch.Generator], dtype=torch.float32,
+                  device=None) -> torch.Tensor:
+  """One U(-.5, .5) draw of `shape` from `generator`: every training draw."""
+  return torch.rand(shape, generator=generator, dtype=dtype, device=device) - 0.5
+
+
 def sample_unoise(loc: torch.Tensor, noise: Optional[torch.Tensor] = None,
                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
   """Additive uniform noise U(-.5, .5): the Balle-2017 proxy for quantization.
@@ -35,7 +41,7 @@ def sample_unoise(loc: torch.Tensor, noise: Optional[torch.Tensor] = None,
   `generator` on loc's device.
   """
   if noise is None:
-    noise = torch.rand(loc.shape, generator=generator, dtype=loc.dtype, device=loc.device) - 0.5
+    noise = uniform_noise(loc.shape, generator, loc.dtype, loc.device)
   return loc + _check_noise(noise, loc)
 
 

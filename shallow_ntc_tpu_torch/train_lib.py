@@ -11,9 +11,22 @@ The experiment bookkeeping is JAX's: setup_workdir makes
 run_info.json and copies of the config script and the model sources, and
 train_eval_config's warm_start (a checkpoints directory, a workdir, or an
 experiment directory searched by warm_start_wid) starts a run from another
-run's params and step with a fresh optimizer. Not ported:
-steps_per_dispatch (a TPU scan window, accepted and ignored), the
-multi-host bookkeeping and the image grids.
+run's params and step with a fresh optimizer.
+
+Data parallel (train_lib.py:318-345, :371-378, :419-444): given a process
+group (parallel/distributed.py; None is the default group when one is
+initialized), every rank iterates the same seeded global batches and keeps
+its rows, the loss goes through DistributedDataParallel (parallel/mesh.py),
+which averages the gradients, and the optimizer clips and steps on that
+global gradient on every rank. The training noise is drawn for the global
+batch from the state's generator and each rank takes its rows, so the run
+equals a one-process run of the global batch, and the generators stay
+equal. Logged train metrics and val metrics are means over the global
+batch. Only rank 0 writes record.jsonl files, checkpoints and the workdir's
+files; the others wait at a barrier before they restore or warm-start.
+Checkpoints hold the plain module's state dict either way.
+Not ported: steps_per_dispatch (a TPU scan window, accepted and ignored)
+and the image grids.
 """
 
 import dataclasses
@@ -34,6 +47,8 @@ from shallow_ntc_tpu_torch import data as data_lib
 from shallow_ntc_tpu_torch import eval_lib
 from shallow_ntc_tpu_torch import schedule as schedule_lib
 from shallow_ntc_tpu_torch.models import families
+from shallow_ntc_tpu_torch.parallel import distributed
+from shallow_ntc_tpu_torch.parallel import mesh as mesh_lib
 from shallow_ntc_tpu_torch.utils import runname as runname_utils
 
 
@@ -158,21 +173,34 @@ def create_train_state(model: nn.Module, optimizer_config: Mapping[str, Any],
   return TrainState(model=model, optimizer=optimizer, step=0, generator=generator), lr_fn
 
 
-def make_train_step(model: nn.Module, optimizer: Adam, lr_fn: Callable[[int], float]):
+def make_train_step(model: nn.Module, optimizer: Adam, lr_fn: Callable[[int], float],
+                    group=None):
   """(state, batch, noise=None) -> metrics; updates the state in place.
 
   `noise`, one uniform draw per latent ((u_z, u_y) for mshyper, (u_y,) for
-  factorized), replaces the draws from the state's generator.
+  factorized) of the global batch, replaces the draws from the state's
+  generator. In a process group the batch is this rank's rows of the global
+  batch, the step takes its rows of the noise (drawn for the global batch
+  when not given) and DDP averages the gradients; the metrics are this
+  rank's.
   """
   params = list(model.parameters())
+  ddp = mesh_lib.data_parallel(model, group) if distributed.in_group(group) else None
 
   def train_step(state: TrainState, batch: torch.Tensor,
                  noise: Optional[Tuple[torch.Tensor, ...]] = None):
     for p in params:
       p.grad = None
-    loss, metrics, _ = model.end_to_end_frame_loss(
-        batch, training=True, step=state.step, noise=noise,
-        generator=None if noise is not None else state.generator)
+    if ddp is None:
+      loss, metrics, _ = model.end_to_end_frame_loss(
+          batch, training=True, step=state.step, noise=noise,
+          generator=None if noise is not None else state.generator)
+    else:
+      global_shape = (batch.shape[0] * distributed.process_count(group),) + tuple(batch.shape[1:])
+      if noise is None:
+        noise = model.training_noise(global_shape, state.generator)
+      start, stop = distributed.local_batch_slice(global_shape[0], group)
+      loss, metrics, _ = ddp(batch, state.step, tuple(n[start:stop] for n in noise))
     loss.backward()
     optimizer.update([p.grad if p.grad is not None else torch.zeros_like(p) for p in params])
     metrics = {k: v.detach() for k, v in metrics.items()}
@@ -327,48 +355,55 @@ class JsonlWriter:
 
 
 def evaluate_model(eval_step, state: TrainState, val_iter: Iterable,
-                   max_batches: Optional[int] = None) -> Metrics:
-  """Mean metrics of eval_step over up to `max_batches` batches."""
+                   max_batches: Optional[int] = None, group=None) -> Metrics:
+  """Mean metrics of eval_step over up to `max_batches` batches; in a
+  process group, each rank takes its rows of every batch and the means are
+  over the global batches."""
   device = next(state.model.parameters()).device
   all_metrics = []
-  for i, batch in enumerate(val_iter):
+  for i, batch in enumerate(distributed.shard_batches(val_iter, group)):
     if max_batches is not None and i >= max_batches:
       break
     metrics, _ = eval_step(state, torch.as_tensor(np.asarray(batch), device=device))
     m = Metrics()
     m.record_scalars({k: float(v) for k, v in metrics.items()})
     all_metrics.append(m)
-  return Metrics.merge_metrics(all_metrics)
+  merged = Metrics.merge_metrics(all_metrics)
+  merged.scalars = distributed.mean_over_processes(merged.scalars, group)
+  return merged
 
 
 def simple_train_eval_loop(train_eval_config: Mapping[str, Any], workdir: str, model: nn.Module,
                            optimizer_config: Mapping[str, Any], train_iter: Iterable,
                            val_iter_factory: Callable[[], Iterable],
-                           seed: int = 0) -> TrainState:
+                           seed: int = 0, group=None) -> TrainState:
   """Train with periodic logging, checkpoints and eval (train_lib.py:331-460);
   resumes from the newest checkpoint under `workdir`, or else warm-starts
-  from train_eval_config's warm_start (and warm_start_wid). Returns the
-  state."""
+  from train_eval_config's warm_start (and warm_start_wid). In a process
+  group (see the module docstring) only rank 0 writes. Returns the state."""
   cfg = dict(train_eval_config)
   num_steps = cfg.get("num_steps", 100)
   log_every = cfg.get("log_metrics_every_steps", 100)
   ckpt_every = cfg.get("checkpoint_every_steps", 10000)
   eval_every = cfg.get("eval_every_steps", 10000)
   max_val_batches = cfg.get("max_validation_steps", 16)
-  train_writer = JsonlWriter(os.path.join(workdir, "train"))
-  val_writer = JsonlWriter(os.path.join(workdir, "val"))
+  primary = distributed.is_primary(group)
+  if primary:
+    train_writer = JsonlWriter(os.path.join(workdir, "train"))
+    val_writer = JsonlWriter(os.path.join(workdir, "val"))
   device = next(model.parameters()).device
 
   state, lr_fn = create_train_state(model, optimizer_config, seed)
+  distributed.barrier(group)  # rank 0 has set up the workdir
   if latest_checkpoint_step(workdir) is not None:
     restore_checkpoint(workdir, state)
   elif cfg.get("warm_start"):
     restore_params_from_dir(resolve_warm_start_dir(cfg["warm_start"], cfg.get("warm_start_wid")),
                             state)
-  train_step = make_train_step(model, state.optimizer, lr_fn)
+  train_step = make_train_step(model, state.optimizer, lr_fn, group)
   eval_step = make_eval_step(model)
 
-  train_it = iter(train_iter)
+  train_it = iter(distributed.shard_batches(iter(train_iter), group))
   t_last, steps_since_log = time.time(), 0
   while state.step < num_steps:
     batch = torch.as_tensor(np.asarray(next(train_it)), device=device)
@@ -376,15 +411,19 @@ def simple_train_eval_loop(train_eval_config: Mapping[str, Any], workdir: str, m
     steps_since_log += 1
     step = state.step
     if step % log_every == 0 or step == num_steps:
-      scalars = {k: float(v) for k, v in metrics.items()}
+      scalars = distributed.mean_over_processes(metrics, group)
       scalars["steps_per_sec"] = steps_since_log / max(time.time() - t_last, 1e-9)
       t_last, steps_since_log = time.time(), 0
-      train_writer.write_scalars(step, scalars)
-    if step % ckpt_every == 0 or step == num_steps:
+      if primary:
+        train_writer.write_scalars(step, scalars)
+    if primary and (step % ckpt_every == 0 or step == num_steps):
       save_checkpoint(workdir, state, max_to_keep=cfg.get("max_to_keep", 1))
     if step % eval_every == 0 or step == num_steps:
-      val = evaluate_model(eval_step, state, val_iter_factory(), max_batches=max_val_batches)
-      val_writer.write_scalars(step, val.scalars_float())
+      val = evaluate_model(eval_step, state, val_iter_factory(), max_batches=max_val_batches,
+                           group=group)
+      if primary:
+        val_writer.write_scalars(step, val.scalars_float())
+  distributed.barrier(group)  # the last checkpoint is written
   return state
 
 
@@ -397,9 +436,10 @@ def build_model(model_config: Mapping[str, Any], init_seed: int, device: Optiona
 
 
 def _train(cfg: Dict[str, Any], family: str, workdir: str, device: Optional[str],
-           init_seed: int) -> TrainState:
+           init_seed: int, group=None) -> TrainState:
   """Build the `family` model of cfg["model_config"] and run the loop in
-  `workdir` on cfg's data (train_lib.py:529-583)."""
+  `workdir` on cfg's data (train_lib.py:529-583), data-parallel over
+  `group` when there is one."""
   model, optimizer_config = build_model(cfg["model_config"], init_seed, device, family)
   train_cfg = cfg["train_data_config"]
   val_cfg = cfg.get("val_data_config") or train_cfg
@@ -411,7 +451,7 @@ def _train(cfg: Dict[str, Any], family: str, workdir: str, device: Optional[str]
                                 val_cfg.get("patchsize"))
 
   return simple_train_eval_loop(cfg["train_eval_config"], workdir, model, optimizer_config,
-                                train_iter, val_iter_factory, seed=init_seed)
+                                train_iter, val_iter_factory, seed=init_seed, group=group)
 
 
 def _plain(config: Mapping[str, Any]) -> Dict[str, Any]:
@@ -467,10 +507,16 @@ def setup_workdir(config: Mapping[str, Any], experiments_dir: str, runname: str,
 def train_and_eval_experiment(config: Mapping[str, Any], model_family: str,
                               experiments_dir: str, runname: str,
                               config_script: Optional[str] = None,
-                              device: Optional[str] = "cuda") -> Tuple[TrainState, str]:
-  """The experiment CLIs' entry (train_lib.py:529-583): set up the workdir,
-  then train the `model_family` model of the resolved `config` on its
-  datasets, seeded 0 as the JAX package. Returns (state, workdir)."""
+                              device: Optional[str] = "cuda",
+                              group=None) -> Tuple[TrainState, str]:
+  """The experiment CLIs' entry (train_lib.py:529-583): set up the workdir
+  (rank 0 of a process group, which sends its path to the others: a
+  timestamp xid is rank 0's), then train the `model_family` model of the
+  resolved `config` on its datasets, seeded 0 as the JAX package,
+  data-parallel over `group` when there is one. Returns (state, workdir)."""
   cfg = _plain(config)
-  workdir = setup_workdir(cfg, experiments_dir, runname, config_script)
-  return _train(cfg, model_family, workdir, device, init_seed=0), workdir
+  workdir = None
+  if distributed.is_primary(group):
+    workdir = setup_workdir(cfg, experiments_dir, runname, config_script)
+  workdir = distributed.broadcast_from_primary(workdir, group)
+  return _train(cfg, model_family, workdir, device, init_seed=0, group=group), workdir

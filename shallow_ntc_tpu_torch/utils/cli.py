@@ -14,24 +14,40 @@ entry N of its get_hyper() sweep after the overrides. The run is named
 TF32 on for cuDNN convolutions and matmuls; highest turns it off. Runs on
 CUDA unless --device names another device. An int8 gate left on
 (SNTC_INT8_DECODE, SNTC_INT8_ENCODE) is an error: its quantizers have no
-gradient. The JAX CLIs' multi-device flags (--dp_devices, --coordinator,
---num_processes, --process_id) are not defined: the port runs on one GPU.
+gradient.
+
+The train CLIs train data-parallel with one process per device, as the JAX
+CLIs' flags say (shallow_ntc_tpu/utils/cli.py:29-50, :81-103):
+  --dp_devices N      N local ranks on 127.0.0.1 and a free port, started
+                      with torch.multiprocessing's spawn; rank i on cuda:i
+                      (cuda:i mod the device count under gloo). The default
+                      is every visible GPU (1 with --device cpu); 1 is the
+                      plain loop.
+  --coordinator host:port --num_processes P --process_id i
+                      join a group of P ranks as rank i, on
+                      cuda:(i mod the device count); not with --dp_devices.
+The backend is nccl on CUDA and gloo on the CPU; --dist_backend gloo lets
+ranks share a card, which nccl refuses.
 """
 
 import argparse
+import multiprocessing
+import socket
 import sys
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
 from shallow_ntc_tpu_torch.ops import int8ops
+from shallow_ntc_tpu_torch.parallel import distributed
 from shallow_ntc_tpu_torch.utils import config as config_lib
 from shallow_ntc_tpu_torch.utils.config import load_config_module
 
 
 def parse_args(argv: Optional[Sequence[str]], default_experiments_dir: str,
-               description: str) -> Tuple[argparse.Namespace, Dict]:
-  """(the parsed flags, the resolved config) of a train or itinf command line."""
+               description: str, parallel: bool = False) -> Tuple[argparse.Namespace, Dict]:
+  """(the parsed flags, the resolved config) of a train (parallel=True: with
+  the data-parallel flags) or itinf command line."""
   rest, overrides = config_lib.split_overrides(sys.argv[1:] if argv is None else argv)
   parser = argparse.ArgumentParser(description=description)
   parser.add_argument("--config", required=True, help="path of the config script")
@@ -42,7 +58,20 @@ def parse_args(argv: Optional[Sequence[str]], default_experiments_dir: str,
   parser.add_argument("--matmul_precision", default="default", choices=("default", "highest"),
                       help="default: TF32 on for cuDNN and matmuls; highest: TF32 off")
   parser.add_argument("--device", default="cuda")
+  if parallel:
+    parser.add_argument("--dp_devices", type=int,
+                        help="number of devices for data-parallel training (default: all)")
+    parser.add_argument("--coordinator", help="host:port of rank 0; joins a process group")
+    parser.add_argument("--num_processes", type=int, help="the group's process count")
+    parser.add_argument("--process_id", type=int, help="this process's rank")
+    parser.add_argument("--dist_backend", choices=("nccl", "gloo"),
+                        help="default: nccl on CUDA, gloo on the CPU")
   args = parser.parse_args(rest)
+  if parallel and args.coordinator:
+    if args.dp_devices is not None:
+      parser.error("--dp_devices starts local ranks; --coordinator joins a group: not both")
+    if args.num_processes is None or args.process_id is None:
+      parser.error("--coordinator needs --num_processes and --process_id")
   return args, config_lib.resolve_config(args.config, overrides, args.hid)
 
 
@@ -58,18 +87,73 @@ def _set_matmul_precision(args: argparse.Namespace) -> None:
   torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
-def run_train_main(family: str, argv: Optional[Sequence[str]] = None,
-                   default_experiments_dir: str = "./train_xms"):
-  """Body of the train CLIs; returns (the final TrainState, the workdir)."""
-  int8ops.assert_training_safe()
-  args, cfg = parse_args(argv, default_experiments_dir, f"Train the {family} family.")
-  _set_matmul_precision(args)
+def _free_port() -> int:
+  with socket.socket() as s:
+    s.bind(("127.0.0.1", 0))
+    return s.getsockname()[1]
+
+
+def _train(args: argparse.Namespace, cfg: Dict, family: str, device: str):
   from shallow_ntc_tpu_torch import train_lib
 
-  state, workdir = train_lib.train_and_eval_experiment(
+  return train_lib.train_and_eval_experiment(
       cfg, model_family=family, experiments_dir=args.experiments_dir,
       runname=get_runname(cfg, args.config, family), config_script=args.config,
-      device=args.device)
+      device=device)
+
+
+def _train_rank(rank: int, world: int, coordinator: str, args: argparse.Namespace, cfg: Dict,
+                family: str, workdir_queue=None):
+  """One rank of a data-parallel run: join the group, train, leave. Rank 0
+  puts the workdir on `workdir_queue` when given."""
+  device = torch.device(args.device)
+  if device.type == "cuda":
+    device = torch.device("cuda", rank % torch.cuda.device_count())
+    torch.cuda.set_device(device)
+  _set_matmul_precision(args)  # a spawned rank starts from a fresh interpreter
+  distributed.initialize(coordinator, world, rank, args.dist_backend, device)
+  try:
+    state, workdir = _train(args, cfg, family, str(device))
+    if workdir_queue is not None and rank == 0:
+      workdir_queue.put(workdir)
+    return state, workdir
+  finally:
+    distributed.shutdown()
+
+
+def run_train_main(family: str, argv: Optional[Sequence[str]] = None,
+                   default_experiments_dir: str = "./train_xms"):
+  """Body of the train CLIs; returns (the final TrainState, the workdir). A
+  run of --dp_devices N > 1 returns (None, the workdir): its states lived in
+  the spawned ranks."""
+  int8ops.assert_training_safe()
+  args, cfg = parse_args(argv, default_experiments_dir, f"Train the {family} family.",
+                         parallel=True)
+  _set_matmul_precision(args)
+  if args.coordinator:
+    state, workdir = _train_rank(args.process_id, args.num_processes, args.coordinator, args,
+                                 cfg, family)
+  else:
+    cuda = torch.device(args.device).type == "cuda"
+    n = args.dp_devices
+    if n is None:
+      n = torch.cuda.device_count() if cuda else 1
+    if n <= 1:
+      state, workdir = _train(args, cfg, family, args.device)
+    else:
+      if cuda and args.dist_backend != "gloo" and n > torch.cuda.device_count():
+        raise ValueError(f"--dp_devices {n} but {torch.cuda.device_count()} GPUs: nccl takes "
+                         "one rank a GPU (--dist_backend gloo shares them)")
+      from shallow_ntc_tpu_torch import train_lib
+
+      queue = multiprocessing.get_context("spawn").SimpleQueue()
+      torch.multiprocessing.start_processes(
+          _train_rank, args=(n, f"127.0.0.1:{_free_port()}", args, cfg, family, queue),
+          nprocs=n, start_method="spawn")
+      workdir = queue.get()
+      print(f"{n} ranks trained to the checkpoint of step "
+            f"{train_lib.latest_checkpoint_step(workdir)}; workdir {workdir}")
+      return None, workdir
   print(f"trained to step {state.step}; workdir {workdir}")
   return state, workdir
 

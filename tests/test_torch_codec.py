@@ -6,6 +6,7 @@ the JPEG-like model's codec and the CLI across two processes. ELIC at narrow
 widths (8, 8, 8, 16) with the flagship synthesis (tests/torch_parity.py)."""
 
 import copy
+import json
 import os
 import subprocess
 import sys
@@ -343,7 +344,8 @@ def test_jpeg_like_codec_roundtrip_and_symbols(name):
 def test_cli_roundtrips_across_two_processes(tmp_path):
   """compress in one process (--init_seed 0), decompress in another (the same
   weights from --params): the in-process codec's reconstruction and bytes;
-  roundtrip from a train checkpoint (--workdir) is bit-exact. Full width,
+  roundtrip from a trained workdir (--workdir: its config.json and newest
+  checkpoint) is bit-exact. Full width,
   a 40x56 image (padded to 64x64)."""
   img = np.random.default_rng(0).integers(0, 256, (40, 56, 3)).astype(np.uint8)
   np.save(tmp_path / "img.npy", img)
@@ -369,8 +371,10 @@ def test_cli_roundtrips_across_two_processes(tmp_path):
 
   params_lib.load_params(model, flat)
   os.makedirs(train_lib.checkpoint_dir(str(tmp_path)))
-  torch.save({"model": model.state_dict()},
+  torch.save({"model": model.state_dict(), "step": 3},
              os.path.join(train_lib.checkpoint_dir(str(tmp_path)), "ckpt_3.pt"))
+  with open(tmp_path / "config.json", "w") as f:  # --workdir reads the model from it
+    json.dump({"model_family": "mshyper", "model_config": configs.TWO_LAYER_SYN_RD}, f)
   line = compress_cli.main(["roundtrip", "--workdir", str(tmp_path),
                             "--input", str(tmp_path / "img.npy")] + common)
   assert line.endswith("bit_exact=True")

@@ -611,3 +611,46 @@ def test_d2s_residual_synthesis_on_the_card_matches_the_cpu(cuda_device):
     ref = module(z)
     out = module.to(cuda_device)(z.to(cuda_device)).cpu()
   torch.testing.assert_close(out, ref, rtol=0, atol=1e-4 * max(1.0, ref.abs().max().item()))
+
+
+@pytest.mark.parametrize("tf32", [True, False])
+def test_msssim_filter_restores_the_tf32_setting(monkeypatch, tf32):
+  """The moment filters turn cuDNN's TF32 off for their two convolutions
+  and leave the caller's setting as it was (CPU: the flag only)."""
+  from shallow_ntc_tpu_torch.ops import metrics_ops
+
+  monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", tf32)
+  seen = []
+  real_conv = metrics_ops.F.conv2d
+
+  def conv(*args, **kwargs):
+    seen.append(torch.backends.cudnn.allow_tf32)
+    return real_conv(*args, **kwargs)
+
+  monkeypatch.setattr(metrics_ops.F, "conv2d", conv)
+  x = torch.rand(1, 3, 24, 24)
+  metrics_ops._filter2d_valid(x, metrics_ops._gaussian_kernel(11, 1.5, "cpu"))
+  assert seen == [False, False] and torch.backends.cudnn.allow_tf32 == tf32
+
+
+@pytest.mark.gpu
+def test_msssim_filters_ignore_tf32(cuda_device, monkeypatch):
+  """MS-SSIM of a 512x768 pair (an image and a noisy copy, 0..255) with
+  cuDNN's TF32 on equals the value with it off bit for bit, and the CPU's
+  at rtol 1e-3; the filter leaves the caller's setting as it found it."""
+  from shallow_ntc_tpu_torch.ops import metrics_ops
+
+  rng = np.random.default_rng(0)
+  img = rng.integers(0, 256, (2, 512, 768, 3)).astype(np.float32)
+  rec = np.clip(img + rng.normal(0, 12, img.shape), 0, 255).astype(np.float32)
+  x, y = torch.from_numpy(img), torch.from_numpy(rec)
+  values = {}
+  for tf32 in (True, False):
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", tf32)
+    values[tf32] = metrics_ops.msssim(x.to(cuda_device), y.to(cuda_device)).cpu()
+    assert torch.backends.cudnn.allow_tf32 == tf32
+  cpu = metrics_ops.msssim(x, y)
+  print(f"MS-SSIM TF32 on {values[True].tolist()}, off {values[False].tolist()}, "
+        f"CPU {cpu.tolist()}")
+  assert torch.equal(values[True], values[False])
+  np.testing.assert_allclose(values[True].numpy(), cpu.numpy(), rtol=1e-3)
