@@ -136,14 +136,18 @@ Phases, one flushed line each with its seconds (TF32 off throughout):
                times); the eval twice with and without deterministic
                settings, and the first module whose output differs run to
                run; the train CLI with --dp_devices 2 --dist_backend gloo
-               (two spawned ranks on cuda:0, 3 steps at B=8 256x256, the
-               chain on, each rank's launch counts) against --dp_devices 1
-               on the same global batches (rd_loss rtol 1e-4, params rtol
-               2e-3 atol 2e-6, ms a step); one NCCL rank through
-               --coordinator (2 steps) whose checkpoint evaluates; the codec
-               CLI (--spatial_devices 1) on a PNG of that workdir, its
-               bitstream decoded by a 2-strip codec and a 2-strip bitstream
-               by the CLI, each bit for bit.
+               (two spawned ranks on cuda:0, 3 steps at B=8 256x256 and lr
+               1e-4 without warm-up, the chain on, each rank's launch
+               counts; every run of this part under deterministic cuDNN)
+               against --dp_devices 1 on the same global batches (rd_loss
+               rtol 1e-4, ms a step), its params against one process that
+               averages the two half batches' gradients (rtol 2e-3 atol
+               2e-6; measured bit for bit), and a control with each rank on
+               its own gradients, which must exceed that tolerance; one
+               NCCL rank through --coordinator (2 steps) whose checkpoint
+               evaluates; the codec CLI (--spatial_devices 1) on a PNG of
+               that workdir, its bitstream decoded by a 2-strip codec and a
+               2-strip bitstream by the CLI, each bit for bit.
 Phase 11 also times the B=8 bf16 decodes of bls2017_rd, two_layer_syn2 and
 mbt2018.
 Then one JSON line of kernels, the nvidia-smi line, and the last line
@@ -1815,10 +1819,29 @@ PAR_STEPS, NCCL_STEPS = 3, 2  # the DDP comparison's steps; the NCCL run's
 PAR_STATS_MODULES = ("twolayer_final", "rb_chain", "resblock", "jpegl_decode")
 
 
+@contextlib.contextmanager
+def _deterministic():
+  """torch.use_deterministic_algorithms with cuDNN deterministic and no
+  autotuning (coding_numerics' settings), restored after: run to run, two
+  processes then compute the same shapes with the same algorithms."""
+  import torch
+
+  cudnn = torch.backends.cudnn
+  saved = (cudnn.deterministic, cudnn.benchmark)
+  torch.use_deterministic_algorithms(True, warn_only=True)
+  cudnn.deterministic, cudnn.benchmark = True, False
+  try:
+    yield
+  finally:
+    torch.use_deterministic_algorithms(False)
+    cudnn.deterministic, cudnn.benchmark = saved
+
+
 def _counted_train_rank(rank, *args):
   """utils/cli.py's _train_rank, which run_train_main spawns for
-  --dp_devices N, with this rank's launch counts written beside the
-  experiment at its end: phase 18 swaps it in for the spawn."""
+  --dp_devices N, under _deterministic(), with this rank's launch counts
+  written beside the experiment at its end: phase 18 swaps it in for the
+  spawn."""
   import importlib
 
   import torch
@@ -1828,11 +1851,51 @@ def _counted_train_rank(rank, *args):
            for m in PAR_STATS_MODULES]
   for st in stats:
     st.launches = 0
-  out = cli._train_rank(rank, *args)
+  with _deterministic():
+    out = cli._train_rank(rank, *args)
   torch.cuda.synchronize()
   with open(os.path.join(args[2].experiments_dir, f"launches_rank{rank}.json"), "w") as f:
     json.dump({st.name: st.launches for st in stats}, f)
   return out
+
+
+def _unsynced_train_rank(rank, *args):
+  """_counted_train_rank with the loss called past DDP (mesh.FrameLoss
+  alone), so each rank steps on its own half-batch gradients: the control
+  that phase 18's DDP comparison must tell apart from the reference."""
+  from shallow_ntc_tpu_torch.parallel import mesh
+
+  mesh.data_parallel = mesh.FrameLoss
+  return _counted_train_rank(rank, *args)
+
+
+def _half_batch_train_step(model, optimizer, lr_fn):
+  """train_lib.make_train_step's step in one process with the gradient of
+  each half of the batch (with its rows of the noise, drawn for the whole
+  batch) taken apart and averaged: what two DDP ranks compute. Phase 18
+  swaps it in for make_train_step to make the reference of the DDP run."""
+  import torch
+
+  params = list(model.parameters())
+
+  def train_step(state, batch, noise=None):
+    if noise is None:
+      noise = model.training_noise(tuple(batch.shape), state.generator)
+    half = batch.shape[0] // 2
+    grads, metrics = [], []
+    for rows in (slice(0, half), slice(half, None)):
+      loss, m, _ = model.end_to_end_frame_loss(batch[rows], training=True, step=state.step,
+                                               noise=tuple(n[rows] for n in noise))
+      grads.append(torch.autograd.grad(loss, params))
+      metrics.append(m)
+    # DDP divides each rank's gradient by the world size, then sums.
+    optimizer.update([a / 2 + b / 2 for a, b in zip(*grads)])
+    state.step += 1
+    out = {k: (metrics[0][k].detach() + metrics[1][k].detach()) / 2 for k in metrics[0]}
+    out["scheduled_lr"] = torch.tensor(float(lr_fn(state.step - 1)))
+    return out
+
+  return train_step
 
 
 def parallel_phase(image, zero_counts, read_counts, smi):
@@ -1848,12 +1911,15 @@ def parallel_phase(image, zero_counts, read_counts, smi):
   from shallow_ntc_tpu_torch.ops import twolayer_final as tl
   from shallow_ntc_tpu_torch.parallel import distributed as dist_lib
   from shallow_ntc_tpu_torch.utils import cli
+  from shallow_ntc_tpu_torch.utils import config as config_lib
 
   phase = "parallel"
   t_phase = time.time()
   dev = torch.device("cuda", 0)
   summary = {"nvidia_smi": smi}
-  launches = {}
+  # The launches of the parallel paths, and those of the runs they are
+  # held against (the one process, the DDP control, the unsplit codec CLI).
+  launches, reference = {}, {}
   x = torch.from_numpy(image[None]).to(dev)
 
   # 1. MS-SSIM's moment filters: F.conv2d with cuDNN's TF32 on (the code
@@ -1987,8 +2053,15 @@ def parallel_phase(image, zero_counts, read_counts, smi):
     te, td, vd = "--config.train_eval_config.", "--config.train_data_config.", \
         "--config.val_data_config."
 
+    # No warm-up: the flagship's default (2% of 30000 steps) would keep the
+    # learning rate near 1e-7 for these steps, where no gradient could move
+    # a parameter past the comparison's atol.
+    optimizer = dict(config_lib.load_config_module(script).get_config()["model_config"]
+                     ["optimizer_config"], warmup_until=0.0)
+
     def argv(xid, steps):
       return ["--config", script, "--hid", "3", "--matmul_precision", "highest",
+              f"--config.model_config.optimizer_config={optimizer!r}",
               "--experiments_dir", os.path.join(tmp, xid), f"{te}num_steps={steps}",
               f"{te}log_metrics_every_steps=1", f"{te}eval_every_steps={steps}",
               f"{te}checkpoint_every_steps={steps}", f"{te}max_validation_steps=1",
@@ -2002,56 +2075,113 @@ def parallel_phase(image, zero_counts, read_counts, smi):
 
     # 4. DDP: two gloo ranks on cuda:0, spawned by the train CLI
     # (--dp_devices 2 --dist_backend gloo), 3 steps at B=8 256x256 with the
-    # chain kernel; each rank reports its launch counts.
-    os.environ["SLURM_ARRAY_JOB_ID"] = "ddp"
+    # chain kernel, under _deterministic(); each rank reports its launch
+    # counts. Then the control: the same run with each rank on its own
+    # gradients.
     real_rank = cli._train_rank
-    cli._train_rank = _counted_train_rank
-    try:
+
+    def two_ranks(xid, rank_fn):
+      os.environ["SLURM_ARRAY_JOB_ID"] = xid
+      cli._train_rank = rank_fn
+      try:
+        t = time.time()
+        _, workdir = cli.run_train_main("mshyper", argv(xid, PAR_STEPS)
+                                        + ["--dp_devices", "2", "--dist_backend", "gloo"])
+        secs = time.time() - t
+      finally:
+        cli._train_rank = real_rank
+      counts = []
+      for r in range(2):
+        with open(os.path.join(tmp, xid, f"launches_rank{r}.json")) as f:
+          counts.append(json.load(f))
+      return workdir, secs, counts
+
+    ddp_dir, ddp_s, ranks = two_ranks("ddp", _counted_train_rank)
+    ctl_dir, _, ctl_ranks = two_ranks("ctl", _unsynced_train_rank)
+    # 5. The same 3 steps in one process (--dp_devices 1) under
+    # _deterministic(), on the same global batches and noise: at B=8, and
+    # the reference, each half batch's gradient taken apart and averaged.
+    def one_process(xid):
+      os.environ["SLURM_ARRAY_JOB_ID"] = xid
+      zero_counts()
       t = time.time()
-      _, ddp_dir = cli.run_train_main("mshyper", argv("ddp", PAR_STEPS)
-                                      + ["--dp_devices", "2", "--dist_backend", "gloo"])
-      ddp_s = time.time() - t
+      with _deterministic():
+        _, workdir = cli.run_train_main("mshyper", argv(xid, PAR_STEPS) + ["--dp_devices", "1"])
+      return workdir, time.time() - t, read_counts()
+
+    one_dir, one_s, one_counts = one_process("one")
+    real_step = train_lib.make_train_step
+    train_lib.make_train_step = _half_batch_train_step
+    try:
+      ref_dir, _, _ = one_process("ref")
     finally:
-      cli._train_rank = real_rank
-    ranks = []
-    for r in range(2):
-      with open(os.path.join(tmp, "ddp", f"launches_rank{r}.json")) as f:
-        ranks.append(json.load(f))
-    # 5. The same 3 steps in one process (--dp_devices 1): the same global
-    # batches and noise.
-    os.environ["SLURM_ARRAY_JOB_ID"] = "one"
-    zero_counts()
-    t = time.time()
-    _, one_dir = cli.run_train_main("mshyper", argv("one", PAR_STEPS) + ["--dp_devices", "1"])
-    one_s = time.time() - t
-    one_counts = read_counts()
-    r_ddp, r_one = rows(ddp_dir), rows(one_dir)
+      train_lib.make_train_step = real_step
+
+    # The parameters after the steps, each run's against the reference's
+    # and the B=8 run's: p at tests/test_parallel.py's tolerance (rtol
+    # 2e-3, atol 2e-6), bit for bit, and the change from the seeded init
+    # (p - p0) as one vector, its L2 distance over its norm.
+    with open(os.path.join(one_dir, "config.json")) as f:
+      init, _ = train_lib.build_model(json.load(f)["model_config"], 0, dev)
+    p0 = {k: v.detach().cpu() for k, v in init.state_dict().items()}
+    del init
+
+    def final_params(workdir):
+      return train_lib.load_newest_checkpoint(train_lib.checkpoint_dir(workdir))["model"]
+
+    p_one, p_ref = final_params(one_dir), final_params(ref_dir)
+
+    def against(workdir, want):
+      p = final_params(workdir)
+      over_tol = max(((p[k] - want[k]).abs() / (2e-6 + 2e-3 * want[k].abs())).max().item()
+                     for k in want)
+      d = torch.cat([(p[k] - p0[k]).flatten() for k in p0])
+      d_want = torch.cat([(want[k] - p0[k]).flatten() for k in p0])
+      return dict(err_over_tol=over_tol, equal=all(torch.equal(p[k], want[k]) for k in want),
+                  change_rel_l2=((d - d_want).norm() / d_want.norm()).item())
+
+    r_ddp, r_one, r_ctl = rows(ddp_dir), rows(one_dir), rows(ctl_dir)
     loss_rel = [abs(a["rd_loss"] - b["rd_loss"]) / abs(b["rd_loss"]) for a, b in zip(r_ddp, r_one)]
-    p_ddp = train_lib.load_newest_checkpoint(train_lib.checkpoint_dir(ddp_dir))["model"]
-    p_one = train_lib.load_newest_checkpoint(train_lib.checkpoint_dir(one_dir))["model"]
-    worst = max(((p_ddp[k] - p_one[k]).abs() / (2e-6 + 2e-3 * p_one[k].abs())).max().item()
-                for k in p_one)
+    ctl_loss_rel = [abs(a["rd_loss"] - b["rd_loss"]) / abs(b["rd_loss"])
+                    for a, b in zip(r_ctl, r_one)]
+    vs_ref, vs_one = against(ddp_dir, p_ref), against(ddp_dir, p_one)
+    ctl_vs_ref = against(ctl_dir, p_ref)
     ddp_ms = [1e3 / r["steps_per_sec"] for r in r_ddp]
     one_ms = [1e3 / r["steps_per_sec"] for r in r_one]
+    max_change = max((p_one[k] - p0[k]).abs().max().item() for k in p0)
     summary["ddp"] = dict(seconds=ddp_s, one_process_seconds=one_s, rd_loss_rel=loss_rel,
-                          param_err_over_tol=worst, step_ms=ddp_ms, one_process_step_ms=one_ms,
+                          params_vs_reference=vs_ref, params_vs_one_process=vs_one,
+                          one_process_max_abs_change=max_change,
+                          reference_vs_one_process=against(ref_dir, p_one),
+                          control=dict(rd_loss_rel=ctl_loss_rel, params_vs_reference=ctl_vs_ref,
+                                       launches_by_rank=ctl_ranks),
+                          step_ms=ddp_ms, one_process_step_ms=one_ms,
                           launches_by_rank=ranks, one_process_launches=one_counts,
                           val=rows(ddp_dir, "val"), one_process_val=rows(one_dir, "val"))
     log(phase, f"DDP, 2 gloo ranks on cuda:0 (train CLI --dp_devices 2), {PAR_STEPS} steps of "
-        f"B={TRAIN_BATCH} {TRAIN_HW}x{TRAIN_HW} f32, chain on, in {ddp_s:.1f} s; one process "
-        f"in {one_s:.1f} s: rd_loss rel {[f'{v:.2e}' for v in loss_rel]} (tol 1e-4), params "
-        f"max |diff| / (2e-6 + 2e-3 |p|) {worst:.3f} (<= 1); ms a step (record.jsonl) DDP "
+        f"B={TRAIN_BATCH} {TRAIN_HW}x{TRAIN_HW} f32 at lr 1e-4 without warm-up, chain on, "
+        f"deterministic, in {ddp_s:.1f} s; one process at B={TRAIN_BATCH} in {one_s:.1f} s "
+        f"(max |p - p0| {max_change:.3e}): rd_loss rel {[f'{v:.2e}' for v in loss_rel]} (tol "
+        f"1e-4); params against the half-batch reference: max |diff| / (2e-6 + 2e-3 |p|) "
+        f"{vs_ref['err_over_tol']:.3f} (<= 1), bit for bit {vs_ref['equal']}, change rel "
+        f"{vs_ref['change_rel_l2']:.3e}; against the B={TRAIN_BATCH} run "
+        f"{vs_one['err_over_tol']:.3f}, change rel {vs_one['change_rel_l2']:.3e}; the control "
+        f"(each rank on its own gradients): rd_loss rel {[f'{v:.2e}' for v in ctl_loss_rel]}, "
+        f"params {ctl_vs_ref['err_over_tol']:.3f} (must be > 1), change rel "
+        f"{ctl_vs_ref['change_rel_l2']:.3e}; ms a step (record.jsonl) DDP "
         f"{' / '.join(f'{v:.1f}' for v in ddp_ms)}, one process "
         f"{' / '.join(f'{v:.1f}' for v in one_ms)}; launches by rank {ranks}, one process "
         f"{one_counts}  [{smi}]")
     forwards = PAR_STEPS + 1  # 3 steps and 1 val batch, a rank's half of each
-    check(len(r_ddp) == len(r_one) == PAR_STEPS and max(loss_rel) <= 1e-4 and worst <= 1
+    check(len(r_ddp) == len(r_one) == PAR_STEPS and max(loss_rel) <= 1e-4
+          and vs_ref["err_over_tol"] <= 1 and ctl_vs_ref["err_over_tol"] > 1
           and all(r[tl.STATS.name] == forwards and r["fused_rb_chain"] == 7 * forwards
                   for r in ranks)
           and one_counts[tl.STATS.name] == PAR_STEPS + 1,
           f"the DDP run against one process: {summary['ddp']}")
     launches["ddp rank 0"], launches["ddp rank 1"] = ranks
-    launches["ddp one process"] = one_counts
+    reference["ddp one process"] = one_counts
+    reference["ddp control rank 0"], reference["ddp control rank 1"] = ctl_ranks
 
     # 6. One NCCL rank (world size 1) through the train CLI's --coordinator,
     # 2 steps, in this process (the CLI leaves the group at its end); its
@@ -2140,9 +2270,10 @@ def parallel_phase(image, zero_counts, read_counts, smi):
         f"{cli_counts}, 2-strip codec {split_counts}")
     check(same_a and same_b and split_counts[tl.STATS.name] == 2 * 2,
           f"split and unsplit bitstreams across: {summary['codec']}")
-    launches["codec cli"] = cli_counts
+    reference["codec cli"] = cli_counts
     launches["codec 2 strips"] = split_counts
   summary["launches"] = launches
+  summary["reference_launches"] = reference
   summary["seconds"] = time.time() - t_phase
   log(phase, f"{summary['seconds']:.1f} s")
   return summary
@@ -2875,8 +3006,8 @@ def main():
       source="shallow_ntc_tpu_torch/csrc/final_deconv.cu",
       replaces="shallow_ntc_tpu/ops/pallas/twolayer_final.py:273",
       launches=sum(v[tl.STATS.name] for v in parallel["launches"].values()),
-      path="parallel: the 2- and 4-strip eval, the DDP ranks and the one-process run, the "
-           "NCCL rank, the codec CLI and the 2-strip codec (phase 18)",
+      path="parallel: the 2- and 4-strip eval, the DDP ranks, the NCCL rank and the 2-strip "
+           "codec (phase 18; the runs they are held against under 'reference')",
       max_abs_err=errs[("final_deconv_phase", cases[1])],
       **decode_t,
       shape=f"B={DECODE_BATCH} mid {mh}x{mw}x768 bf16 (decode)",
@@ -2889,8 +3020,11 @@ def main():
                             **itinf_bf16_t),
       decode_mpx_per_s=pixels / decode_ms / 1e3)]
   # Launches: this slice's path is the multi-device one (phase 18: the
-  # split evals, both DDP ranks and the one-process run of the same steps,
-  # the NCCL rank, the codec CLI and the 2-strip codec, each counted from 0).
+  # split evals, both DDP ranks, the NCCL rank and the 2-strip codec, each
+  # counted from 0); "launches" is their sum, "parallel <path>" each. The
+  # runs they are held against (the one-process run of the same steps, the
+  # DDP control, the codec CLI at --spatial_devices 1) are listed as
+  # "reference <run>" and not summed.
   # The earlier slices' paths beside them: the experiment workflow (phase
   # 17, each CLI in its own process), the int8 decode and eval (phase 15)
   # and ElicSynthesis with the chain on (phase 16), SGA (phase 12), the
@@ -2907,7 +3041,8 @@ def main():
       "itinf": itinf_fd, "itinf bf16": itinf["bf16_launches"][tl.STATS.name],
       "codec": codec_fd, "eval+decode": launches, "train": train_counts[tl.STATS.name],
       **{f"two_layer_syn2 {k}": v for k, v in fam_launches["two_layer_syn2"].items()},
-      **{f"parallel {k}": v[tl.STATS.name] for k, v in parallel["launches"].items()}}
+      **{f"parallel {k}": v[tl.STATS.name] for k, v in parallel["launches"].items()},
+      **{f"reference {k}": v[tl.STATS.name] for k, v in parallel["reference_launches"].items()}}
   kernels[0]["family_decodes"] = fam_decode
   kernels[0]["factorized"] = fact
   kernels[0]["int8"] = int8
@@ -2918,17 +3053,19 @@ def main():
       name=rb.STATS.name, route="cuda", source="shallow_ntc_tpu_torch/csrc/rb_chain.cu",
       replaces="shallow_ntc_tpu/ops/pallas/rb_chain.py:263",
       launches=sum(v[rb.STATS.name] for v in parallel["launches"].values()),
-      path="parallel: the DDP ranks, the one-process run and the NCCL rank with "
-           "SNTC_FUSED_RB_CHAIN=1, the codec's analyses (phase 18)",
+      path="parallel: the DDP ranks and the NCCL rank with SNTC_FUSED_RB_CHAIN=1, the "
+           "2-strip codec's analyses (phase 18; the runs they are held against under "
+           "'reference')",
       launches_by_path={"experiments train": experiments["launches"][rb.STATS.name],
                         "ElicSynthesis": extras["chain_launches"],
                         "int8 encode precedence": int8["chain_launches"],
                         "itinf": itinf["launches"][rb.STATS.name],
                         "codec": codec_counts["chain_compress"][rb.STATS.name],
                         "train": train_counts[rb.STATS.name],
-                        **{f"parallel {k}": parallel["launches"][k][rb.STATS.name]
-                           for k in ("ddp rank 0", "ddp rank 1", "ddp one process",
-                                     "nccl train")}},
+                        **{f"parallel {k}": v[rb.STATS.name]
+                           for k, v in parallel["launches"].items()},
+                        **{f"reference {k}": v[rb.STATS.name]
+                           for k, v in parallel["reference_launches"].items()}},
       **chain_t["train f32"], other_shapes={k: v for k, v in chain_t.items() if k != "train f32"}))
   kernels.append(dict(
       name=resblock.STATS.name, route="cuda", source="shallow_ntc_tpu_torch/csrc/rb_chain.cu",

@@ -20,8 +20,8 @@ device leg sits between the host halves.
 The container is byte-compatible with the JAX package's: a blob written by
 one package parses in the other.
 
-spatial_devices > 1 (or a devices= list) runs the pixel-space transforms,
-the analysis and the synthesis, on height strips over that many devices
+A `devices` list runs the pixel-space transforms, the analysis and the
+synthesis, on height strips over those devices
 (parallel/mesh.ModelHeightSplit), as the JAX codec shards them
 (api.py:160-191). The coding tables, the hyper-analysis and the
 hyper-synthesis stay on the canonical single-device path, so a bitstream
@@ -180,15 +180,14 @@ class _ModelCodec:
   fetches, the height split of the pixel-space transforms (`_pixels`, a
   `with` context) and the synthesis to uint8."""
 
-  def __init__(self, model, spatial_devices: int = 1, devices=None):
+  def __init__(self, model, devices=None):
     if any(p.dtype != torch.float32 for p in model.parameters()):
       raise ValueError("the codec runs the model in float32")
     self.model = model
     self.device = next(model.parameters()).device
     self._pixels = contextlib.nullcontext()
-    if devices is not None or spatial_devices > 1:
-      self._pixels = mesh_lib.ModelHeightSplit(
-          model, mesh_lib.spatial_device_list(spatial_devices, devices))
+    if devices is not None:
+      self._pixels = mesh_lib.ModelHeightSplit(model, devices)
 
   def _upload(self, a: np.ndarray) -> torch.Tensor:
     t = torch.from_numpy(np.ascontiguousarray(a, np.float32))
@@ -249,8 +248,8 @@ class MSHyperCodec(_ModelCodec):
   under the caller's settings.
   """
 
-  def __init__(self, model: mshyper.Model, spatial_devices: int = 1, devices=None):
-    super().__init__(model, spatial_devices, devices)
+  def __init__(self, model: mshyper.Model, devices=None):
+    super().__init__(model, devices)
     with coding_numerics():
       self.z_tables = tables_lib.build_factorized_tables(
           model._prior, offset_heuristic=model.offset_heuristic)
@@ -456,8 +455,8 @@ class FactorizedCodec(_ModelCodec):
   the per-image path's; only the synthesis batches.
   """
 
-  def __init__(self, model: factorized.Model, spatial_devices: int = 1, devices=None):
-    super().__init__(model, spatial_devices, devices)
+  def __init__(self, model: factorized.Model, devices=None):
+    super().__init__(model, devices)
     with coding_numerics():
       self.tables = tables_lib.build_factorized_tables(
           model._prior, offset_heuristic=model.offset_heuristic)
@@ -562,13 +561,13 @@ class FactorizedCodec(_ModelCodec):
     return out
 
 
-def make_codec(model, spatial_devices: int = 1, devices=None):
+def make_codec(model, devices=None):
   """The codec of a model, by its family; TypeError for anything else, as
-  the JAX package's make_codec. spatial_devices > 1 splits the analysis and
-  the synthesis over cuda:0 ... cuda:N-1 by height, `devices` over the
-  devices it names (eval_lib.evaluate_images')."""
+  the JAX package's make_codec. A `devices` list splits the analysis and
+  the synthesis by height over the devices it names
+  (eval_lib.evaluate_images'; None: unsplit)."""
   if isinstance(model, mshyper.Model):
-    return MSHyperCodec(model, spatial_devices, devices)
+    return MSHyperCodec(model, devices)
   if isinstance(model, factorized.Model):
-    return FactorizedCodec(model, spatial_devices, devices)
+    return FactorizedCodec(model, devices)
   raise TypeError(type(model))

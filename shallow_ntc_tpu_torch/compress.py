@@ -43,6 +43,7 @@ from shallow_ntc_tpu_torch.codec import api as codec_api
 from shallow_ntc_tpu_torch.models import base as models_base
 from shallow_ntc_tpu_torch.ops import int8ops
 from shallow_ntc_tpu_torch.ops import metrics_ops
+from shallow_ntc_tpu_torch.parallel import mesh
 
 
 def load_image(path: str) -> np.ndarray:
@@ -96,7 +97,7 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
   tf32 = args.matmul_precision == "default"
   torch.backends.cudnn.allow_tf32 = tf32
   torch.backends.cuda.matmul.allow_tf32 = tf32
-  codec = codec_api.make_codec(load_model(args), args.spatial_devices)
+  codec = codec_api.make_codec(load_model(args), mesh.spatial_device_list(args.spatial_devices))
   with int8ops.decode_mode("syn" if args.decode_dtype == "int8_syn" else None):
     line = _run(args, codec)
   print(line)

@@ -50,6 +50,7 @@ from shallow_ntc_tpu_torch import data as data_lib
 from shallow_ntc_tpu_torch import eval_lib
 from shallow_ntc_tpu_torch.models import lpips
 from shallow_ntc_tpu_torch.ops import int8ops
+from shallow_ntc_tpu_torch.parallel import mesh
 
 # --decode_dtype -> int8ops.decode_mode (None: the environment's mode).
 DECODE_MODES = {"float": None, "int8_syn": "syn", "int8_all": "all"}
@@ -91,6 +92,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Optional[str]:
   torch.backends.cudnn.allow_tf32 = tf32
   torch.backends.cuda.matmul.allow_tf32 = tf32
   device = eval_lib.resolve_device(args.device)
+  devices = mesh.spatial_device_list(args.spatial_devices)
 
   if args.dataset is not None:
     images = data_lib.get_dataset(args.dataset, "test", args.batchsize, args.patchsize)
@@ -117,7 +119,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Optional[str]:
           args.workdir, images, args.dataset or args.images, results_dir,
           skip_existing=args.skip_existing, model_family=args.model_family,
           lpips_fn=lpips_fn, profile=args.profile, model_cls=model_cls, device=args.device,
-          spatial_devices=args.spatial_devices)
+          devices=devices)
     else:
       model_config, runname, family = configs.eval_config(args.config)
       step = 0
@@ -131,7 +133,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Optional[str]:
                                      device=args.device, family=family)
         xid = f"init_seed={args.init_seed}"
       path = eval_lib.eval_to_json(model, images, results_dir, runname, xid, step, lpips_fn,
-                                   args.spatial_devices)
+                                   devices)
 
   if args.profile and path:
     # A link in the common results directory (the root eval.py's).

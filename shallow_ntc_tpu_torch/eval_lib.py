@@ -4,12 +4,12 @@ workdir (mirrors shallow_ntc_tpu/eval_lib.py).
 The JSON written by eval_to_json and eval_workdir has the JAX eval's
 record keys: the model's metrics, "lpips" when an lpips_fn is given
 (models/lpips.make_lpips_fn), the transforms' times with profile=True,
-instance_id and the run-name hparams. spatial_devices > 1 (or a devices=
-list) splits each image's height over that many devices
-(parallel/mesh.ModelHeightSplit), as the JAX eval's spatial sharding
-does. A workdir's model is rebuilt from its config.json and the newest
-checkpoint under train/checkpoints; the model sources copied beside them
-are provenance only, as in the JAX package.
+instance_id and the run-name hparams. A `devices` list splits each
+image's height over those devices (parallel/mesh.ModelHeightSplit), as
+the JAX eval's spatial sharding does. A workdir's model is rebuilt from
+its config.json and the newest checkpoint under train/checkpoints; the
+model sources copied beside them are provenance only, as in the JAX
+package.
 """
 
 import contextlib
@@ -66,7 +66,6 @@ def read_params(path: str):
 
 
 def evaluate_images(model: nn.Module, images: Iterable, step: int = 0, lpips_fn=None,
-                    spatial_devices: int = 1,
                     devices: Optional[Sequence] = None) -> Iterator[Dict[str, float]]:
   """Yield one metrics dict per image.
 
@@ -75,19 +74,18 @@ def evaluate_images(model: nn.Module, images: Iterable, step: int = 0, lpips_fn=
   ((x255, y255) -> LPIPS) each record gets "lpips" of the image's pixels
   against the reconstruction, as the JAX eval's (eval_lib.py:200-202).
 
-  spatial_devices > 1 runs the analysis and the synthesis on that many
-  height strips, on cuda:0 ... cuda:N-1 (a ValueError when fewer are
-  present, as JAX's make_mesh asserts); `devices` names the strips'
-  devices instead (it may name one device twice). The rest of the model
-  runs whole on the model's device (eval_lib.py:150-200).
+  `devices` (None: unsplit) runs the analysis and the synthesis on
+  len(devices) height strips, strip i on devices[i] (a list may name one
+  device twice; the CLIs' --spatial_devices N is
+  mesh.spatial_device_list(N)). The rest of the model runs whole on the
+  model's device (eval_lib.py:150-200).
   """
   device = next(model.parameters()).device
   if hasattr(images, "shape"):
     images = [images[i : i + 1] for i in range(images.shape[0])]
   split = contextlib.nullcontext()
-  if devices is not None or spatial_devices > 1:
-    split = mesh_lib.ModelHeightSplit(model, mesh_lib.spatial_device_list(spatial_devices,
-                                                                          devices))
+  if devices is not None:
+    split = mesh_lib.ModelHeightSplit(model, devices)
   # The prior's offset depends on its frozen parameters alone: one bisection
   # per pass, not one per image.
   offset = model.prior_quantization_offset()
@@ -106,12 +104,13 @@ def evaluate_images(model: nn.Module, images: Iterable, step: int = 0, lpips_fn=
 
 
 def eval_to_json(model: nn.Module, images: Iterable, results_dir: str, runname: str,
-                 xid: str, step: int = 0, lpips_fn=None, spatial_devices: int = 1) -> str:
+                 xid: str, step: int = 0, lpips_fn=None,
+                 devices: Optional[Sequence] = None) -> str:
   """Evaluate and dump a flat JSON list of per-image records; return its path."""
   hparams = parse_runname(runname)
   records: List[Dict] = []
   for instance_id, metrics in enumerate(evaluate_images(model, images, step, lpips_fn,
-                                                        spatial_devices)):
+                                                        devices)):
     record = dict(metrics)
     record["instance_id"] = instance_id
     record.update(hparams)
@@ -218,7 +217,7 @@ def load_latest_ckpt_from_experiment(experiment_dir: str, wid, model_family: Opt
 def eval_workdir(workdir: str, eval_data: Iterable, dataset_name: str, results_dir: str,
                  skip_existing: bool = False, model_family: Optional[str] = None,
                  lpips_fn=None, profile: bool = False, model_cls: Optional[type] = None,
-                 device: Optional[str] = "cuda", spatial_devices: int = 1,
+                 device: Optional[str] = "cuda",
                  devices: Optional[Sequence] = None) -> Optional[str]:
   """Evaluate a trained workdir on `eval_data` and dump a flat JSON list of
   per-image records to <results_dir>/<run name>-step=<n>-xid=<xid>.json
@@ -226,7 +225,7 @@ def eval_workdir(workdir: str, eval_data: Iterable, dataset_name: str, results_d
   name); return its path. With skip_existing an existing file is kept; with
   profile each record also gets the transforms' times of its image shape
   (utils/profiling.transform_timings), which stay unsplit.
-  spatial_devices and devices are evaluate_images'."""
+  `devices` is evaluate_images'."""
   model, config = load_latest_ckpt(workdir, model_family, model_cls=model_cls, device=device)
   step = config["_restored_step"]
   wu_name = os.path.basename(os.path.normpath(workdir))
@@ -252,7 +251,7 @@ def eval_workdir(workdir: str, eval_data: Iterable, dataset_name: str, results_d
   timing_cache: Dict[tuple, Dict[str, float]] = {}
   records: List[Dict] = []
   for instance_id, metrics in enumerate(evaluate_images(model, images(), step, lpips_fn,
-                                                        spatial_devices, devices)):
+                                                        devices)):
     record = dict(metrics)
     if profile:
       shape = shapes[instance_id]

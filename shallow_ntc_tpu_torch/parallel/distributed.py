@@ -9,8 +9,9 @@ keeps its rows (`shard_batches`); DistributedDataParallel averages the
 gradients over the group (parallel/mesh.py). `is_primary()` gates workdir
 bookkeeping to rank 0.
 
-The helpers take a process group; None is torch's default group when one
-is initialized, else a single process.
+The helpers act on torch's default group when one is initialized, as
+JAX's read jax.process_count() and jax.process_index(); without one they
+describe a single process.
 """
 
 from typing import Dict, Iterator, Mapping, Optional
@@ -41,81 +42,80 @@ def shutdown() -> None:
     dist.destroy_process_group()
 
 
-def in_group(group=None) -> bool:
-  """True when `group` (or the default group) exists: the data-parallel path."""
-  return group is not None or (dist.is_available() and dist.is_initialized())
+def in_group() -> bool:
+  """True when the default group exists: the data-parallel path."""
+  return dist.is_available() and dist.is_initialized()
 
 
-def process_count(group=None) -> int:
-  return dist.get_world_size(group) if in_group(group) else 1
+def process_count() -> int:
+  return dist.get_world_size() if in_group() else 1
 
 
-def process_index(group=None) -> int:
-  return dist.get_rank(group) if in_group(group) else 0
+def process_index() -> int:
+  return dist.get_rank() if in_group() else 0
 
 
-def is_multiprocess(group=None) -> bool:
-  return process_count(group) > 1
+def is_multiprocess() -> bool:
+  return process_count() > 1
 
 
-def is_primary(group=None) -> bool:
+def is_primary() -> bool:
   """True on the process that owns bookkeeping (workdir files, writers)."""
-  return process_index(group) == 0
+  return process_index() == 0
 
 
-def barrier(group=None) -> None:
-  if in_group(group):
-    dist.barrier(group)
+def barrier() -> None:
+  if in_group():
+    dist.barrier()
 
 
-def broadcast_from_primary(value, group=None):
+def broadcast_from_primary(value):
   """Rank 0's `value` on every rank (a picklable object; the others pass
   anything, None say)."""
-  if not in_group(group):
+  if not in_group():
     return value
   box = [value]
-  dist.broadcast_object_list(box, src=dist.get_global_rank(group, 0) if group else 0,
-                             group=group)
+  dist.broadcast_object_list(box, src=0)
   return box[0]
 
 
-def local_batch_slice(global_batchsize: int, group=None):
+def local_batch_slice(global_batchsize: int):
   """This process's [start, stop) rows of a globally-seeded batch."""
-  count = process_count(group)
+  count = process_count()
   if global_batchsize % count:
     raise ValueError(
         f"global batchsize {global_batchsize} not divisible by process count {count}")
   per = global_batchsize // count
-  start = process_index(group) * per
+  start = process_index() * per
   return start, start + per
 
 
-def shard_batches(batches, group=None) -> Iterator:
+def shard_batches(batches) -> Iterator:
   """Slice each globally-identical host batch to this process's rows.
 
   The data stream must be seeded identically on every process (the default:
   seeds are pure functions of the config), so every process sees the same
   global batch and keeps a disjoint slice of it.
   """
-  if not is_multiprocess(group):
+  if not is_multiprocess():
     yield from batches
     return
   for batch in batches:
-    start, stop = local_batch_slice(batch.shape[0], group)
+    start, stop = local_batch_slice(batch.shape[0])
     yield batch[start:stop]
 
 
-def mean_over_processes(scalars: Mapping[str, float], group=None) -> Dict[str, float]:
+def mean_over_processes(scalars: Mapping[str, float]) -> Dict[str, float]:
   """Each scalar's mean over the group's processes (float64 all-reduce; a
   CUDA tensor under nccl, a CPU one under gloo); every rank passes the
   same keys. With equal shards the mean of per-process means is the mean
   over the global batch."""
-  if not is_multiprocess(group):
+  if not is_multiprocess():
     return {k: float(v) for k, v in scalars.items()}
   keys = list(scalars)  # every rank builds its dict in the same order
   device = (torch.device("cuda", torch.cuda.current_device())
-            if dist.get_backend(group) == "nccl" else torch.device("cpu"))
+            if dist.get_backend() == "nccl" else torch.device("cpu"))
   values = torch.tensor([float(scalars[k]) for k in keys], dtype=torch.float64, device=device)
-  dist.all_reduce(values, group=group)
-  values = (values / process_count(group)).cpu().numpy()
+  dist.all_reduce(values)
+  values = (values / process_count()).cpu().numpy()
   return {k: float(v) for k, v in zip(keys, np.asarray(values))}

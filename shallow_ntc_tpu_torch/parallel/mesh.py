@@ -30,7 +30,8 @@ import torch
 from torch import nn
 
 from shallow_ntc_tpu_torch.models.elic import SimpleAttention
-from shallow_ntc_tpu_torch.models.transforms import Conv, FastConvTranspose, TwoLayerResSynthesis
+from shallow_ntc_tpu_torch.models.transforms import (GDN, Conv, FastConvTranspose, Pointwise, PReLU,
+                                                     TwoLayerResSynthesis)
 from shallow_ntc_tpu_torch.ops import int8ops
 
 
@@ -49,13 +50,13 @@ class FrameLoss(nn.Module):
     return self.model.end_to_end_frame_loss(batch, training=True, step=step, noise=noise)
 
 
-def data_parallel(model: nn.Module, group=None) -> nn.parallel.DistributedDataParallel:
-  """DDP over `group` of the model's training loss. Rank 0's parameters are
-  broadcast to the others here (every rank builds the same init anyway)."""
+def data_parallel(model: nn.Module) -> nn.parallel.DistributedDataParallel:
+  """DDP over the default group of the model's training loss. Rank 0's
+  parameters are broadcast to the others here (every rank builds the same
+  init anyway)."""
   device = next(model.parameters()).device
   return nn.parallel.DistributedDataParallel(
-      FrameLoss(model), device_ids=[device] if device.type == "cuda" else None,
-      process_group=group)
+      FrameLoss(model), device_ids=[device] if device.type == "cuda" else None)
 
 
 # ---------------------------------------------------------------------------
@@ -68,30 +69,37 @@ def _indexed(device) -> torch.device:
   return device
 
 
-def spatial_device_list(spatial_devices: int = 1,
-                        devices: Optional[Sequence] = None) -> List[torch.device]:
-  """`devices` when given (a list may name one device several times), else
-  cuda:0 ... cuda:N-1; raises when fewer CUDA devices are present, as JAX's
-  make_mesh does."""
-  if devices is not None:
-    return [_indexed(d) for d in devices]
+def spatial_device_list(spatial_devices: int) -> Optional[List[torch.device]]:
+  """The strips' devices of the CLIs' --spatial_devices N: cuda:0 ...
+  cuda:N-1, or None (unsplit) for 1; raises when fewer CUDA devices are
+  present, as JAX's make_mesh does."""
+  if spatial_devices <= 1:
+    return None
   available = torch.cuda.device_count() if torch.cuda.is_available() else 0
   if spatial_devices > available:
     raise ValueError(f"spatial_devices={spatial_devices} but {available} CUDA devices are "
-                     "present; pass devices= to name them")
+                     "present")
   return [torch.device("cuda", i) for i in range(spatial_devices)]
+
+
+# Leaf modules that reach no other row: the activations (GDN acts across
+# channels only).
+POINTWISE_LEAVES = (GDN, PReLU, Pointwise)
 
 
 def row_layers(module: nn.Module) -> List[Tuple[str, int, int]]:
   """(kind, kernel, stride) of the convolutions along the longest path of
   rows through `module`, in order; kind "conv" (SAME) or "deconv" (SAME
-  transposed). Pointwise layers (activations, GDN, pixel shuffles) reach no
-  other row and add nothing. Of two parallel branches only the one that
-  reaches farther counts."""
+  transposed). Pointwise leaves (POINTWISE_LEAVES) add nothing, and any
+  other leaf module raises, so that a transform with a spatial layer of
+  another kind is not split on a halo too short. Of two parallel branches
+  only the one that reaches farther counts."""
   if isinstance(module, Conv):
     return [("conv", module.kernel.shape[0], module.stride)]
   if isinstance(module, FastConvTranspose):
     return [("deconv", module.kernel.shape[0], module.stride)]
+  if isinstance(module, POINTWISE_LEAVES):
+    return []
   if isinstance(module, SimpleAttention):
     # trunk (blocks 0-2) beside branch (blocks 3-5 then Conv_0): equal chains
     children = [module.ResidualBlock_0, module.ResidualBlock_1, module.ResidualBlock_2,
@@ -101,6 +109,8 @@ def row_layers(module: nn.Module) -> List[Tuple[str, int, int]]:
     children = [module.base_conv, module.out_conv]
   else:
     children = list(module.children())
+    if not children:
+      raise TypeError(f"{type(module).__name__}: no row halo is known for this layer")
   return [layer for child in children for layer in row_layers(child)]
 
 
@@ -158,15 +168,14 @@ def strip_bounds(rows: int, n: int) -> List[Tuple[int, int]]:
 
 class HeightSplit(nn.Module):
   """`transform` run on len(devices) row strips, strip i on devices[i]
-  (see the module docstring). `halo` overrides row_halo's (top, bottom),
-  for tests that show a shorter one fails. The result lies on devices[0]."""
+  (see the module docstring; a list may name one device several times).
+  The result lies on devices[0]."""
 
-  def __init__(self, transform: nn.Module, devices: Sequence,
-               halo: Optional[Tuple[int, int]] = None):
+  def __init__(self, transform: nn.Module, devices: Sequence):
     super().__init__()
     self.devices = [_indexed(d) for d in devices]
     top, bottom, self.rows_in, self.rows_out = row_halo(transform)
-    self.halo = (top, bottom) if halo is None else tuple(halo)
+    self.halo = (top, bottom)
     self.transform = transform
     own = next(transform.parameters()).device
     # The copies on other devices are a cache, not parameters of the module.

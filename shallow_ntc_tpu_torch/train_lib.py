@@ -13,17 +13,18 @@ train_eval_config's warm_start (a checkpoints directory, a workdir, or an
 experiment directory searched by warm_start_wid) starts a run from another
 run's params and step with a fresh optimizer.
 
-Data parallel (train_lib.py:318-345, :371-378, :419-444): given a process
-group (parallel/distributed.py; None is the default group when one is
-initialized), every rank iterates the same seeded global batches and keeps
-its rows, the loss goes through DistributedDataParallel (parallel/mesh.py),
-which averages the gradients, and the optimizer clips and steps on that
-global gradient on every rank. The training noise is drawn for the global
-batch from the state's generator and each rank takes its rows, so the run
-equals a one-process run of the global batch, and the generators stay
-equal. Logged train metrics and val metrics are means over the global
-batch. Only rank 0 writes record.jsonl files, checkpoints and the workdir's
-files; the others wait at a barrier before they restore or warm-start.
+Data parallel (train_lib.py:318-345, :371-378, :419-444): in a process
+group (parallel/distributed.initialize), every rank iterates the same
+seeded global batches and keeps its rows, the loss goes through
+DistributedDataParallel (parallel/mesh.py), which averages the gradients,
+and the optimizer clips and steps on that global gradient on every rank.
+The training noise is drawn for the global batch from the state's
+generator and each rank takes its rows, so the run equals a one-process
+run of the global batch up to the order of its float sums, and the
+generators stay equal. Logged train
+metrics and val metrics are means over the global batch. Only rank 0
+writes record.jsonl files, checkpoints and the workdir's files; the
+others wait at a barrier before they restore or warm-start.
 Checkpoints hold the plain module's state dict either way.
 Not ported: steps_per_dispatch (a TPU scan window, accepted and ignored)
 and the image grids.
@@ -173,8 +174,7 @@ def create_train_state(model: nn.Module, optimizer_config: Mapping[str, Any],
   return TrainState(model=model, optimizer=optimizer, step=0, generator=generator), lr_fn
 
 
-def make_train_step(model: nn.Module, optimizer: Adam, lr_fn: Callable[[int], float],
-                    group=None):
+def make_train_step(model: nn.Module, optimizer: Adam, lr_fn: Callable[[int], float]):
   """(state, batch, noise=None) -> metrics; updates the state in place.
 
   `noise`, one uniform draw per latent ((u_z, u_y) for mshyper, (u_y,) for
@@ -185,7 +185,7 @@ def make_train_step(model: nn.Module, optimizer: Adam, lr_fn: Callable[[int], fl
   rank's.
   """
   params = list(model.parameters())
-  ddp = mesh_lib.data_parallel(model, group) if distributed.in_group(group) else None
+  ddp = mesh_lib.data_parallel(model) if distributed.in_group() else None
 
   def train_step(state: TrainState, batch: torch.Tensor,
                  noise: Optional[Tuple[torch.Tensor, ...]] = None):
@@ -196,10 +196,10 @@ def make_train_step(model: nn.Module, optimizer: Adam, lr_fn: Callable[[int], fl
           batch, training=True, step=state.step, noise=noise,
           generator=None if noise is not None else state.generator)
     else:
-      global_shape = (batch.shape[0] * distributed.process_count(group),) + tuple(batch.shape[1:])
+      global_shape = (batch.shape[0] * distributed.process_count(),) + tuple(batch.shape[1:])
       if noise is None:
         noise = model.training_noise(global_shape, state.generator)
-      start, stop = distributed.local_batch_slice(global_shape[0], group)
+      start, stop = distributed.local_batch_slice(global_shape[0])
       loss, metrics, _ = ddp(batch, state.step, tuple(n[start:stop] for n in noise))
     loss.backward()
     optimizer.update([p.grad if p.grad is not None else torch.zeros_like(p) for p in params])
@@ -355,13 +355,13 @@ class JsonlWriter:
 
 
 def evaluate_model(eval_step, state: TrainState, val_iter: Iterable,
-                   max_batches: Optional[int] = None, group=None) -> Metrics:
+                   max_batches: Optional[int] = None) -> Metrics:
   """Mean metrics of eval_step over up to `max_batches` batches; in a
   process group, each rank takes its rows of every batch and the means are
   over the global batches."""
   device = next(state.model.parameters()).device
   all_metrics = []
-  for i, batch in enumerate(distributed.shard_batches(val_iter, group)):
+  for i, batch in enumerate(distributed.shard_batches(val_iter)):
     if max_batches is not None and i >= max_batches:
       break
     metrics, _ = eval_step(state, torch.as_tensor(np.asarray(batch), device=device))
@@ -369,14 +369,14 @@ def evaluate_model(eval_step, state: TrainState, val_iter: Iterable,
     m.record_scalars({k: float(v) for k, v in metrics.items()})
     all_metrics.append(m)
   merged = Metrics.merge_metrics(all_metrics)
-  merged.scalars = distributed.mean_over_processes(merged.scalars, group)
+  merged.scalars = distributed.mean_over_processes(merged.scalars)
   return merged
 
 
 def simple_train_eval_loop(train_eval_config: Mapping[str, Any], workdir: str, model: nn.Module,
                            optimizer_config: Mapping[str, Any], train_iter: Iterable,
                            val_iter_factory: Callable[[], Iterable],
-                           seed: int = 0, group=None) -> TrainState:
+                           seed: int = 0) -> TrainState:
   """Train with periodic logging, checkpoints and eval (train_lib.py:331-460);
   resumes from the newest checkpoint under `workdir`, or else warm-starts
   from train_eval_config's warm_start (and warm_start_wid). In a process
@@ -387,23 +387,23 @@ def simple_train_eval_loop(train_eval_config: Mapping[str, Any], workdir: str, m
   ckpt_every = cfg.get("checkpoint_every_steps", 10000)
   eval_every = cfg.get("eval_every_steps", 10000)
   max_val_batches = cfg.get("max_validation_steps", 16)
-  primary = distributed.is_primary(group)
+  primary = distributed.is_primary()
   if primary:
     train_writer = JsonlWriter(os.path.join(workdir, "train"))
     val_writer = JsonlWriter(os.path.join(workdir, "val"))
   device = next(model.parameters()).device
 
   state, lr_fn = create_train_state(model, optimizer_config, seed)
-  distributed.barrier(group)  # rank 0 has set up the workdir
+  distributed.barrier()  # rank 0 has set up the workdir
   if latest_checkpoint_step(workdir) is not None:
     restore_checkpoint(workdir, state)
   elif cfg.get("warm_start"):
     restore_params_from_dir(resolve_warm_start_dir(cfg["warm_start"], cfg.get("warm_start_wid")),
                             state)
-  train_step = make_train_step(model, state.optimizer, lr_fn, group)
+  train_step = make_train_step(model, state.optimizer, lr_fn)
   eval_step = make_eval_step(model)
 
-  train_it = iter(distributed.shard_batches(iter(train_iter), group))
+  train_it = iter(distributed.shard_batches(iter(train_iter)))
   t_last, steps_since_log = time.time(), 0
   while state.step < num_steps:
     batch = torch.as_tensor(np.asarray(next(train_it)), device=device)
@@ -411,7 +411,7 @@ def simple_train_eval_loop(train_eval_config: Mapping[str, Any], workdir: str, m
     steps_since_log += 1
     step = state.step
     if step % log_every == 0 or step == num_steps:
-      scalars = distributed.mean_over_processes(metrics, group)
+      scalars = distributed.mean_over_processes(metrics)
       scalars["steps_per_sec"] = steps_since_log / max(time.time() - t_last, 1e-9)
       t_last, steps_since_log = time.time(), 0
       if primary:
@@ -419,11 +419,10 @@ def simple_train_eval_loop(train_eval_config: Mapping[str, Any], workdir: str, m
     if primary and (step % ckpt_every == 0 or step == num_steps):
       save_checkpoint(workdir, state, max_to_keep=cfg.get("max_to_keep", 1))
     if step % eval_every == 0 or step == num_steps:
-      val = evaluate_model(eval_step, state, val_iter_factory(), max_batches=max_val_batches,
-                           group=group)
+      val = evaluate_model(eval_step, state, val_iter_factory(), max_batches=max_val_batches)
       if primary:
         val_writer.write_scalars(step, val.scalars_float())
-  distributed.barrier(group)  # the last checkpoint is written
+  distributed.barrier()  # the last checkpoint is written
   return state
 
 
@@ -436,10 +435,10 @@ def build_model(model_config: Mapping[str, Any], init_seed: int, device: Optiona
 
 
 def _train(cfg: Dict[str, Any], family: str, workdir: str, device: Optional[str],
-           init_seed: int, group=None) -> TrainState:
+           init_seed: int) -> TrainState:
   """Build the `family` model of cfg["model_config"] and run the loop in
-  `workdir` on cfg's data (train_lib.py:529-583), data-parallel over
-  `group` when there is one."""
+  `workdir` on cfg's data (train_lib.py:529-583), data-parallel in a
+  process group."""
   model, optimizer_config = build_model(cfg["model_config"], init_seed, device, family)
   train_cfg = cfg["train_data_config"]
   val_cfg = cfg.get("val_data_config") or train_cfg
@@ -451,7 +450,7 @@ def _train(cfg: Dict[str, Any], family: str, workdir: str, device: Optional[str]
                                 val_cfg.get("patchsize"))
 
   return simple_train_eval_loop(cfg["train_eval_config"], workdir, model, optimizer_config,
-                                train_iter, val_iter_factory, seed=init_seed, group=group)
+                                train_iter, val_iter_factory, seed=init_seed)
 
 
 def _plain(config: Mapping[str, Any]) -> Dict[str, Any]:
@@ -507,16 +506,15 @@ def setup_workdir(config: Mapping[str, Any], experiments_dir: str, runname: str,
 def train_and_eval_experiment(config: Mapping[str, Any], model_family: str,
                               experiments_dir: str, runname: str,
                               config_script: Optional[str] = None,
-                              device: Optional[str] = "cuda",
-                              group=None) -> Tuple[TrainState, str]:
+                              device: Optional[str] = "cuda") -> Tuple[TrainState, str]:
   """The experiment CLIs' entry (train_lib.py:529-583): set up the workdir
   (rank 0 of a process group, which sends its path to the others: a
   timestamp xid is rank 0's), then train the `model_family` model of the
   resolved `config` on its datasets, seeded 0 as the JAX package,
-  data-parallel over `group` when there is one. Returns (state, workdir)."""
+  data-parallel in a process group. Returns (state, workdir)."""
   cfg = _plain(config)
   workdir = None
-  if distributed.is_primary(group):
+  if distributed.is_primary():
     workdir = setup_workdir(cfg, experiments_dir, runname, config_script)
-  workdir = distributed.broadcast_from_primary(workdir, group)
-  return _train(cfg, model_family, workdir, device, init_seed=0, group=group), workdir
+  workdir = distributed.broadcast_from_primary(workdir)
+  return _train(cfg, model_family, workdir, device, init_seed=0), workdir

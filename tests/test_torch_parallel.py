@@ -30,6 +30,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch import nn
 
 from shallow_ntc_tpu import eval_lib as jax_eval_lib
 from shallow_ntc_tpu import train_lib as jax_train_lib
@@ -86,8 +87,8 @@ def test_batch_slicing_matches_jax(monkeypatch, count, index, batchsize):
   ValueError when the batch does not divide."""
   monkeypatch.setattr(jax_distributed.jax, "process_count", lambda: count)
   monkeypatch.setattr(jax_distributed.jax, "process_index", lambda: index)
-  monkeypatch.setattr(distributed, "process_count", lambda group=None: count)
-  monkeypatch.setattr(distributed, "process_index", lambda group=None: index)
+  monkeypatch.setattr(distributed, "process_count", lambda: count)
+  monkeypatch.setattr(distributed, "process_index", lambda: index)
   batches = [np.arange(batchsize * 2 * k, batchsize * 2 * (k + 1)).reshape(batchsize, 2)
              for k in range(2)]
   if batchsize % count:
@@ -164,12 +165,10 @@ def _jax_draws(key, step, b, hw):
   return np.asarray(u_z), np.asarray(u_y)
 
 
-def test_dp_step_matches_jax_two_device_mesh(tmp_path):
-  """One step of two gloo ranks (train_lib.make_train_step in the default
-  group: DDP, each rank its rows of the global batch and noise) against
-  JAX's shard_train_functions step on a 2-device 'data' mesh, from the same
-  params, on the same global batch (4 x 64x64) and JAX's draws: the loss
-  within rtol 1e-4, every param within rtol 2e-3 atol 2e-6."""
+def _dp_step_against_jax(tmp_path, sync):
+  """(rank 0's result of one port step of two gloo ranks, JAX's metrics,
+  JAX's params) of test_dp_step_matches_jax_two_device_mesh; sync=False
+  steps each rank on its own gradients."""
   jax_model, params, port = models(TINY, seed=0)
   tx, lr_fn = jax_train_lib.make_optimizer(OPTIMIZER, jax_model.scheduled_num_steps)
   key = jax.random.PRNGKey(7)
@@ -187,12 +186,35 @@ def test_dp_step_matches_jax_two_device_mesh(tmp_path):
   torch.multiprocessing.start_processes(
       torch_parallel_worker.dp_step,
       args=(2, f"127.0.0.1:{_free_port()}", TINY, OPTIMIZER, flat, batch,
-            _jax_draws(key, 0, 4, 64), out), nprocs=2, start_method="spawn")
-  result = torch.load(out, weights_only=True)
+            _jax_draws(key, 0, 4, 64), out, sync), nprocs=2, start_method="spawn")
+  return (torch.load(out, weights_only=True), metrics_j,
+          _flat(jax.device_get(state_j.params)))
+
+
+def test_dp_step_matches_jax_two_device_mesh(tmp_path):
+  """One step of two gloo ranks (train_lib.make_train_step in the default
+  group: DDP, each rank its rows of the global batch and noise) against
+  JAX's shard_train_functions step on a 2-device 'data' mesh, from the same
+  params, on the same global batch (4 x 64x64) and JAX's draws: the loss
+  within rtol 1e-4, every param within rtol 2e-3 atol 2e-6."""
+  result, metrics_j, params_j = _dp_step_against_jax(tmp_path, sync=True)
   assert result["step"] == 1
   np.testing.assert_allclose(result["metrics"]["rd_loss"], float(metrics_j["rd_loss"]),
                              rtol=LOSS_RTOL)
-  _check_params(result["model"], _flat(jax.device_get(state_j.params)))
+  _check_params(result["model"], params_j)
+
+
+def test_dp_step_without_gradient_sync_differs(tmp_path):
+  """The control of the test above: the same step with each rank on its own
+  gradients (the loss called past DDP's forward) leaves params outside
+  that tolerance, so the comparison sees gradients that are not averaged."""
+  result, _, params_j = _dp_step_against_jax(tmp_path, sync=False)
+  assert result["step"] == 1
+  worst = max(np.max(np.abs(p.numpy() - params_j[name.replace(".", "/")])
+                      / (PARAM_ATOL + PARAM_RTOL * np.abs(params_j[name.replace(".", "/")])))
+              for name, p in result["model"].items())
+  print(f"max |p - p_jax| / (atol + rtol |p_jax|) without gradient sync: {worst:.3f}")
+  assert worst > 1
 
 
 # --- height split -----------------------------------------------------------------
@@ -235,14 +257,15 @@ def test_split_analysis_matches_the_whole(tiny, config, hw, strips):
 
 
 @pytest.mark.parametrize("part", ["analysis", "synthesis"])
-def test_a_halo_one_stride_short_differs(part):
+def test_a_halo_one_stride_short_differs(part, monkeypatch):
   """The flagship's transforms (ELIC at narrow widths) in float64 on 2
   strips: with row_halo's halo the strips equal the whole; with one coarse
-  row less at each edge (one stride of the input for the analysis) they
-  differ, at rows next to the strip edge only."""
+  row less at each edge (one stride of the input for the analysis; row_halo
+  patched) they differ, at rows next to the strip edge only."""
   port = models(SMALL_CONFIG, seed=0)[2].double()
   transform = getattr(port, f"_{part}")
-  top, bottom, _, rows_out = mesh.row_halo(transform)
+  halo = mesh.row_halo(transform)
+  top, bottom, _, rows_out = halo
   rng = np.random.default_rng(1)
   if part == "analysis":
     x = torch.from_numpy(rng.uniform(-0.5, 0.5, (1, 256, 64, 3)))
@@ -251,7 +274,8 @@ def test_a_halo_one_stride_short_differs(part):
   with torch.no_grad():
     whole = transform(x)
     exact = mesh.HeightSplit(transform, ["cpu"] * 2)(x)
-    short = mesh.HeightSplit(transform, ["cpu"] * 2, halo=(top - 1, bottom - 1))(x)
+    monkeypatch.setattr(mesh, "row_halo", lambda t: (top - 1, bottom - 1, *halo[2:]))
+    short = mesh.HeightSplit(transform, ["cpu"] * 2)(x)
   np.testing.assert_allclose(exact.numpy(), whole.numpy(), rtol=1e-12, atol=1e-12)
   rows = torch.nonzero((short - whole).abs().amax(dim=(0, 2, 3))).flatten().tolist()
   edge = whole.shape[1] // 2
@@ -320,6 +344,18 @@ def test_row_halo_of_the_flagship():
   assert mesh.strip_bounds(2, 4) == [(0, 1), (1, 2)]
 
 
+def test_row_halo_refuses_an_unknown_layer():
+  """A transform with a leaf layer that row_layers does not know (a plain
+  nn.Conv2d, 3 rows high, here) raises, and is not split on a halo that
+  leaves the layer out."""
+  transform = nn.Sequential(T.Conv(3, 8, 5, 2), T.GDN1(8), nn.Conv2d(8, 8, 3, padding=1))
+  with pytest.raises(TypeError, match="Conv2d"):
+    mesh.row_halo(transform)
+  with pytest.raises(TypeError, match="Conv2d"):
+    mesh.HeightSplit(transform, ["cpu"] * 2)
+  assert mesh.row_halo(nn.Sequential(T.Conv(3, 8, 5, 2), T.GDN1(8))) == (1, 1, 2, 1)
+
+
 def test_split_refuses_the_int8_paths(tiny, monkeypatch):
   monkeypatch.setenv("SNTC_INT8_ENCODE", "1")
   with pytest.raises(NotImplementedError, match="int8"):
@@ -380,7 +416,7 @@ def test_spatial_devices_needs_that_many_gpus(tmp_path):
   with pytest.raises(ValueError, match="spatial_devices=2"):
     compress_cli.main(["roundtrip", "--config", "bls2017_rd", "--init_seed", "0", "--input",
                        str(tmp_path / "img.npy"), "--device", "cpu", "--spatial_devices", "2"])
-  assert len(mesh.spatial_device_list(1, ["cpu", "cpu"])) == 2
+  assert mesh.spatial_device_list(1) is None
 
 
 def test_compress_cli_pngs_of_a_bls2017_rd_workdir(tmp_path, monkeypatch):

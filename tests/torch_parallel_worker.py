@@ -5,6 +5,8 @@ One rank of a gloo group on the CPU builds the port's model with the given
 flax-path params, takes one train step through train_lib.make_train_step in
 the group on its rows of the global batch and the given global noise, and
 rank 0 saves the params and the step's global-mean metrics to `out_path`.
+With sync=False the loss is called past DDP (FrameLoss alone), so each rank
+steps on its own gradients: the control that shows the comparison sees it.
 """
 
 import torch
@@ -12,11 +14,13 @@ import torch
 from shallow_ntc_tpu_torch import params as params_lib
 from shallow_ntc_tpu_torch import train_lib
 from shallow_ntc_tpu_torch.models import families
-from shallow_ntc_tpu_torch.parallel import distributed
+from shallow_ntc_tpu_torch.parallel import distributed, mesh
 
 
 def dp_step(rank, world, coordinator, model_config, optimizer_config, flat, batch, noise,
-            out_path):
+            out_path, sync=True):
+  if not sync:
+    mesh.data_parallel = mesh.FrameLoss
   distributed.initialize(coordinator, world, rank, device="cpu")
   try:
     model, _ = families.build_model(model_config, "mshyper")
