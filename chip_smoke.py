@@ -6,7 +6,8 @@
 Phases, one flushed line each with its seconds (TF32 off throughout):
   1. build     nvcc builds every CUDA kernel of the main paths (csrc/*.cu),
                one process per source, and g++ the codec's rANS coder
-               (codec/rans.cc), all started together.
+               (codec/rans.cc) and the image loader (dataio/loader.cc), all
+               started together.
   2. device    the card's name, and its name and power limit from nvidia-smi.
   3. kernels   each kernel against its plain PyTorch version on the card, at
                the main paths' shapes plus odd ones, f32 and bf16, and its
@@ -148,6 +149,25 @@ Phases, one flushed line each with its seconds (TF32 off throughout):
                evaluates; the codec CLI (--spatial_devices 1) on a PNG of
                that workdir, its bitstream decoded by a 2-strip codec and a
                2-strip bitstream by the CLI, each bit for bit.
+ 19. image-input  JPEG input on the native loader (dataio/): the host's
+               jpeglib.h / png.h / zlib.h, image libraries and g++; every
+               image of tests/data/jpeg/ decoded twice, equal to the
+               digests of the JAX package's reads (tests/data/jpeg_sha256.json:
+               PIL, and JAX's libjpeg/libpng loader; the CMYK JPEG must
+               raise); decode_crop_batch with 1 and 8 threads equal, centre
+               crops equal to the whole decode's window; the loader's ms per
+               B=8 batch of 256x256 crops of the 640x480 JPEGs (median of
+               20, 1 and 8 threads) beside phase 11's train step;
+               mshyper/configs/two_layer_syn.py (the paper's flagship,
+               dataset cocotrain) through python -m
+               shallow_ntc_tpu_torch.mshyper.train with
+               SHALLOW_NTC_DATA_DIR holding coco/train2017/*.jpg (the 8
+               JPEGs) and kodak_landscape/*.png (2 dead-leaves 512x768), 3
+               steps at B=8 256x256 with SNTC_FUSED_RB_CHAIN=1 (the chain 7
+               and final_deconv_phase once a forward), its checkpoint
+               evaluated; a DatasetIterable whose ImageStore's cache_limit
+               is under 10x the corpus takes the native branch, and 2 of its
+               batches go through the flagship's train step.
 Phase 11 also times the B=8 bf16 decodes of bls2017_rd, two_layer_syn2 and
 mbt2018.
 Then one JSON line of kernels, the nvidia-smi line, and the last line
@@ -2279,6 +2299,228 @@ def parallel_phase(image, zero_counts, read_counts, smi):
   return summary
 
 
+IMG_TRAIN_STEPS = 3  # two_layer_syn.py (cocotrain) trained through the CLI
+IMG_NATIVE_STEPS = 2  # native-branch batches fed to the flagship's train step
+IMG_LOADER_BATCHES = 20  # timed B=8 batches of the loader per thread count
+IMG_VAL_IMAGES = 2  # kodak_landscape stand-ins, 512x768 dead leaves, all validated
+
+
+def header_check():
+  """What the host offers an image decoder: zlib's, libjpeg's and libpng's
+  headers, the shared libraries the loader could link, and the compiler."""
+  headers = {h: os.path.exists(os.path.join("/usr/include", h))
+             for h in ("jpeglib.h", "png.h", "zlib.h")}
+  try:
+    ldconfig = subprocess.run(["ldconfig", "-p"], capture_output=True, text=True,
+                              timeout=60).stdout
+  except OSError as e:
+    ldconfig = f"ldconfig: {e}"
+  libs = sorted({line.split()[0] for line in ldconfig.splitlines()
+                 if any(k in line for k in ("jpeg", "png", "libz"))})
+  cxx = subprocess.run(["g++", "--version"], capture_output=True, text=True, timeout=60)
+  return dict(headers=headers, libraries=libs, gxx=cxx.stdout.splitlines()[0])
+
+
+def image_input_phase(zero_counts, read_counts, smi, train_step_ms):
+  """Phase 19: JPEG input. The host's image headers; every committed test
+  image decoded twice on the port's native loader, equal to the digests of
+  the JAX package's reads (tests/data/jpeg_sha256.json: PIL, and JAX's
+  libjpeg/libpng loader); decode_crop_batch with 1 and 8 threads, centre
+  crops against the whole decode; the loader's ms per B=8 batch of 256x256
+  crops beside the train step's; the paper's flagship config
+  (mshyper/configs/two_layer_syn.py, dataset cocotrain) trained through the
+  experiment CLI on the JPEGs with the chain kernel on, its checkpoint
+  evaluated; a DatasetIterable whose store's cache_limit sends it down the
+  native branch, 2 of its batches fed to the flagship's train step.
+  Returns the phase's numbers and its launches by path."""
+  import hashlib
+
+  import torch
+  from shallow_ntc_tpu_torch import data as data_lib
+  from shallow_ntc_tpu_torch import dataio, deadleaves, eval_lib, train_lib
+  from shallow_ntc_tpu_torch.utils import config as config_lib
+
+  phase = "image-input"
+  t_phase = time.time()
+  root = os.path.dirname(os.path.abspath(__file__))
+  fixtures = os.path.join(root, "tests", "data", "jpeg")
+  summary = {"nvidia_smi": smi, "host": header_check()}
+  log(phase, f"host: {json.dumps(summary['host'])}")
+  launches = {}
+
+  # 1. Every committed image, twice, against the JAX package's reads.
+  with open(os.path.join(root, "tests", "data", "jpeg_sha256.json")) as f:
+    refs = json.load(f)
+
+  def digest(x):
+    return hashlib.sha256(np.ascontiguousarray(x).tobytes()).hexdigest()
+
+  held = {}
+  for name, ref in sorted(refs.items()):
+    path = os.path.join(fixtures, name)
+    if ref["decode_image"] is None and name.endswith(".jpg"):  # CMYK: no RGB decode
+      try:
+        data_lib.read_png(path)
+        held[name] = "decoded"
+      except ValueError:
+        held[name] = "raises"
+      continue
+    a, b = dataio.decode_image(path), dataio.decode_image(path)
+    whole = data_lib.read_png(path)
+    held[name] = (np.array_equal(a, b) and list(whole.shape) == ref["shape"]
+                  and digest(whole) == ref["read_png"]
+                  and ref["decode_image"] in (None, digest(a)))
+  summary["decode_held"] = held
+  log(phase, f"{len(refs)} images decoded twice and held to the JAX package's reads: {held}")
+  check(all(v is True or v == "raises" for v in held.values()), f"image decodes: {held}")
+
+  coco = sorted(glob_lib.glob(os.path.join(fixtures, "coco_*.jpg")))
+  rng = np.random.default_rng(19)
+  seeds = rng.integers(0, 2**62, len(coco))
+  one = dataio.decode_crop_batch(coco, TRAIN_HW, seeds, threads=1)
+  eight = dataio.decode_crop_batch(coco, TRAIN_HW, seeds, threads=8)
+  centre = dataio.decode_crop_batch(coco, TRAIN_HW, [-1] * len(coco), threads=8)
+  y0, x0 = (480 - TRAIN_HW) // 2, (640 - TRAIN_HW) // 2
+  same_centre = all(np.array_equal(c, dataio.decode_image(p)[y0:y0 + TRAIN_HW, x0:x0 + TRAIN_HW])
+                    for c, p in zip(centre, coco))
+  log(phase, f"decode_crop_batch B={len(coco)} {TRAIN_HW}x{TRAIN_HW}: 1 thread = 8 threads "
+      f"{np.array_equal(one, eight)}; centre crops = the whole decode's window {same_centre}")
+  check(np.array_equal(one, eight) and same_centre, "decode_crop_batch differs by threads or "
+        "from the whole decode")
+
+  # 2. The loader's time per B=8 batch (host), beside the train step's.
+  loader_ms = {}
+  for threads in (1, 8):
+    times = []
+    for i in range(IMG_LOADER_BATCHES + 1):
+      t = time.perf_counter()
+      dataio.decode_crop_batch(coco, TRAIN_HW, seeds + i, threads=threads)
+      times.append(1e3 * (time.perf_counter() - t))
+    loader_ms[threads] = dict(median=float(np.median(times[1:])), min=float(min(times[1:])),
+                              max=float(max(times[1:])), n=IMG_LOADER_BATCHES)
+  summary["loader_ms_per_batch"] = loader_ms
+  log(phase, f"loader, B={len(coco)} {TRAIN_HW}x{TRAIN_HW} crops of 640x480 JPEGs (host, median "
+      f"of {IMG_LOADER_BATCHES}): 1 thread {loader_ms[1]['median']:.2f} ms "
+      f"({loader_ms[1]['min']:.2f}-{loader_ms[1]['max']:.2f}), 8 threads "
+      f"{loader_ms[8]['median']:.2f} ms ({loader_ms[8]['min']:.2f}-{loader_ms[8]['max']:.2f}); "
+      f"the train step (timing, chain off / on): {train_step_ms['off']:.2f} / "
+      f"{train_step_ms['on']:.2f} ms  [{smi}]")
+
+  with tempfile.TemporaryDirectory() as tmp:
+    # 3. The flagship config script through the experiment CLI, its data
+    # names resolved under SHALLOW_NTC_DATA_DIR.
+    data_root = os.path.join(tmp, "data")
+    os.makedirs(os.path.join(data_root, "coco", "train2017"))
+    for p in coco:
+      shutil.copy(p, os.path.join(data_root, "coco", "train2017"))
+    for i in range(IMG_VAL_IMAGES):
+      data_lib.write_png(os.path.join(data_root, "kodak_landscape", f"kodim{i + 1:02d}.png"),
+                         deadleaves.deadleaves_image(900_100 + i, *EVAL_HW))
+    env = dict(os.environ, PYTHONPATH=root, SHALLOW_NTC_DATA_DIR=data_root,
+               SHALLOW_NTC_PROJECT_DIR=tmp, SLURM_ARRAY_JOB_ID="smoke", SLURM_ARRAY_TASK_ID="0",
+               SNTC_FUSED_RB_CHAIN="1")
+    env.pop("SNTC_FUSED_RESBLOCK", None)
+    te = "--config.train_eval_config."
+    script = os.path.join(root, "shallow_ntc_tpu_torch", "mshyper", "configs", "two_layer_syn.py")
+    xms = os.path.join(tmp, "train_xms")
+    counts_path = os.path.join(tmp, "train_counts.json")
+    t = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-c", _COUNTING_MAIN, counts_path, "shallow_ntc_tpu_torch.mshyper.train",
+         "--config", script, "--hid", "0", f"{te}num_steps={IMG_TRAIN_STEPS}",
+         f"{te}eval_every_steps={IMG_TRAIN_STEPS}",
+         f"{te}checkpoint_every_steps={IMG_TRAIN_STEPS}", f"{te}log_metrics_every_steps=1",
+         "--matmul_precision", "highest", "--experiments_dir", xms],
+        cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
+    train_s = time.time() - t
+    if proc.returncode:
+      print(proc.stdout[-4000:], proc.stderr[-8000:], file=sys.stderr, flush=True)
+      raise RuntimeError(f"the train CLI of two_layer_syn.py exited with {proc.returncode}")
+    with open(counts_path) as f:
+      counts = json.load(f)
+    launches["cocotrain CLI"] = counts
+    workdirs = glob_lib.glob(os.path.join(xms, "smoke", "wid=0-*"))
+    check(len(workdirs) == 1, f"workdirs {workdirs}")
+    workdir = workdirs[0]
+    with open(os.path.join(workdir, "config.json")) as f:
+      saved = json.load(f)
+    with open(os.path.join(workdir, "train", "record.jsonl")) as f:
+      rows = [json.loads(line) for line in f]
+    with open(os.path.join(workdir, "val", "record.jsonl")) as f:
+      val_rows = [json.loads(line) for line in f]
+    step_ms = [1e3 / r["steps_per_sec"] for r in rows]
+    forwards = IMG_TRAIN_STEPS + IMG_VAL_IMAGES
+    summary["train"] = dict(workdir=os.path.relpath(workdir, tmp), seconds=train_s,
+                            step_ms=step_ms, rd_loss=[r["rd_loss"] for r in rows], val=val_rows,
+                            launches=counts)
+    log(phase, f"two_layer_syn.py --hid 0 (dataset {saved['train_data_config']['dataset']}) "
+        f"through the train CLI in {train_s:.1f} s: workdir {os.path.basename(workdir)}, steps "
+        f"{[r['step'] for r in rows]}, ms a step (record.jsonl) "
+        f"{' / '.join(f'{x:.1f}' for x in step_ms)}, rd_loss "
+        f"{' / '.join(f'{r['rd_loss']:.3f}' for r in rows)}; val {val_rows}; launches {counts}"
+        f"  [{smi}]")
+    check(saved["train_data_config"]["dataset"] == "cocotrain"
+          and saved["model_config"]["transform_config"]["analysis"]["channels"] == [192, 192,
+                                                                                    192, 320]
+          and [r["step"] for r in rows] == list(range(1, IMG_TRAIN_STEPS + 1))
+          and all(np.isfinite(v) for r in rows + val_rows for v in r.values())
+          and train_lib.latest_checkpoint_step(workdir) == IMG_TRAIN_STEPS
+          and counts["fused_rb_chain"] == CHAINS_PER_FORWARD * forwards
+          and counts["final_deconv_phase"] == forwards, f"the train CLI's run: {summary['train']}")
+
+    # The checkpoint, evaluated in this process on the two validation images.
+    model, restored = eval_lib.load_latest_ckpt(workdir, device="cuda")
+    val_glob = os.path.join(data_root, "kodak_landscape", "*.png")
+    records = list(eval_lib.evaluate_images(model, data_lib.get_dataset(val_glob, "test", 1, None),
+                                            step=IMG_TRAIN_STEPS))
+    del model
+    summary["eval"] = [{k: r[k] for k in ("bpp", "psnr", "rd_loss")} for r in records]
+    log(phase, f"checkpoint step {restored['_restored_step']} evaluated on {len(records)} "
+        f"images: {summary['eval']}")
+    check(restored["_restored_step"] == IMG_TRAIN_STEPS and len(records) == IMG_VAL_IMAGES
+          and all(np.isfinite(v) for r in summary["eval"] for v in r.values()),
+          f"the checkpoint's eval: {summary['eval']}")
+
+  # 4. The native branch in this process: a store whose cache cannot hold
+  # the decoded corpus (compressed bytes x 10), its batches fed to the
+  # flagship's train step with the chain kernel on.
+  limit = sum(os.path.getsize(p) for p in coco) * 10 - 1
+  ds = data_lib.DatasetIterable(data_lib.ImageStore(coco, cache_limit_bytes=limit), "train",
+                                TRAIN_BATCH, TRAIN_HW, shuffle=True, repeat=True,
+                                drop_remainder=True, seed=0)
+  check(ds._native_loader_usable(), "the dataset did not take the native branch")
+  cfg = config_lib.resolve_config(script, [], 0)
+  model, opt_cfg = train_lib.build_model(cfg["model_config"], init_seed=0, device="cuda")
+  state, lr_fn = train_lib.create_train_state(model, opt_cfg)
+  step = train_lib.make_train_step(model, state.optimizer, lr_fn)
+  native_rows = []
+  batches = iter(ds)
+  zero_counts()
+  with switch_on("SNTC_FUSED_RB_CHAIN"):
+    for _ in range(IMG_NATIVE_STEPS):
+      batch = next(batches)
+      metrics = step(state, torch.from_numpy(batch).to("cuda"))
+      native_rows.append({k: float(v) for k, v in metrics.items()})
+  launches["native branch"] = read_counts()
+  batches.close()
+  del model, state, step
+  summary["native"] = dict(batch_shape=list(batch.shape), metrics=native_rows,
+                           launches=launches["native branch"])
+  log(phase, f"native branch (cache_limit {limit} bytes < 10x the corpus): "
+      f"{IMG_NATIVE_STEPS} batches {list(batch.shape)} {batch.dtype} through the flagship's "
+      f"train step: rd_loss {[round(r['rd_loss'], 4) for r in native_rows]}; launches "
+      f"{launches['native branch']}")
+  check(batch.shape == (TRAIN_BATCH, TRAIN_HW, TRAIN_HW, 3) and batch.dtype == np.float32
+        and all(np.isfinite(v) for r in native_rows for v in r.values())
+        and launches["native branch"]["fused_rb_chain"] == CHAINS_PER_FORWARD * IMG_NATIVE_STEPS
+        and launches["native branch"]["final_deconv_phase"] >= IMG_NATIVE_STEPS,
+        f"the native branch's steps: {summary['native']}")
+  summary["launches"] = launches
+  summary["seconds"] = time.time() - t_phase
+  log(phase, f"launches in this phase {launches}; {summary['seconds']:.1f} s")
+  return summary
+
+
 def main():
   import torch
   if not torch.cuda.is_available():
@@ -2286,6 +2528,7 @@ def main():
     return 1
   try:
     from shallow_ntc_tpu_torch import configs, eval_lib, train_lib
+    from shallow_ntc_tpu_torch import dataio
     from shallow_ntc_tpu_torch.codec import bindings as rans
     from shallow_ntc_tpu_torch.ops import cuda_build
     from shallow_ntc_tpu_torch.ops import fast_deconv as fd
@@ -2301,14 +2544,15 @@ def main():
   # --- 1. build ------------------------------------------------------------
   t = time.time()
   sources = sorted({tl.SOURCE, rb.SOURCE, resblock.SOURCE, jd.SOURCE})
-  with concurrent.futures.ThreadPoolExecutor(len(sources) + 1) as pool:
+  with concurrent.futures.ThreadPoolExecutor(len(sources) + 2) as pool:
     librans = pool.submit(rans.build)
+    libloader = pool.submit(dataio.build)
     built = list(pool.map(cuda_build.build, sources))
-    built.append(librans.result())
-  for source, so in zip(sources + ["codec/rans.cc (g++)"], built):
+    built += [librans.result(), libloader.result()]
+  for source, so in zip(sources + ["codec/rans.cc (g++)", "dataio/loader.cc (g++)"], built):
     log("build", f"{source} -> {so}")
-  log("build", f"{len(sources)} CUDA sources and the rANS coder built in parallel in "
-      f"{time.time() - t:.1f}s")
+  log("build", f"{len(sources)} CUDA sources, the rANS coder and the image loader built in "
+      f"parallel in {time.time() - t:.1f}s")
   stats = (tl.STATS, rb.STATS, resblock.STATS, jd.STATS)
 
   def zero_counts():
@@ -2997,6 +3241,9 @@ def main():
 
   # --- 18. parallel: DDP (gloo, NCCL), the height-split eval and codec -----
   parallel = parallel_phase(images[0], zero_counts, read_counts, smi)
+
+  # --- 19. image-input: JPEG decode, the native loader, cocotrain ----------
+  image_input = image_input_phase(zero_counts, read_counts, smi, train_step_ms)
   codec_fd = sum(codec_counts[k][tl.STATS.name]
                  for k in ("flagship_compress", "flagship_decompress"))
   codec_k16 = sum(codec_counts[k][jd.STATS.name] for k in ("k16_compress", "k16_decompress"))
@@ -3005,9 +3252,9 @@ def main():
       name=tl.STATS.name, route="cuda",
       source="shallow_ntc_tpu_torch/csrc/final_deconv.cu",
       replaces="shallow_ntc_tpu/ops/pallas/twolayer_final.py:273",
-      launches=sum(v[tl.STATS.name] for v in parallel["launches"].values()),
-      path="parallel: the 2- and 4-strip eval, the DDP ranks, the NCCL rank and the 2-strip "
-           "codec (phase 18; the runs they are held against under 'reference')",
+      launches=sum(v[tl.STATS.name] for v in image_input["launches"].values()),
+      path="image-input: two_layer_syn.py (cocotrain) trained on JPEGs through the CLI and the "
+           "native branch's train steps (phase 19)",
       max_abs_err=errs[("final_deconv_phase", cases[1])],
       **decode_t,
       shape=f"B={DECODE_BATCH} mid {mh}x{mw}x768 bf16 (decode)",
@@ -3019,13 +3266,15 @@ def main():
                             max_abs_err=errs[("final_deconv_phase", fd_itinf_bf16)],
                             **itinf_bf16_t),
       decode_mpx_per_s=pixels / decode_ms / 1e3)]
-  # Launches: this slice's path is the multi-device one (phase 18: the
-  # split evals, both DDP ranks, the NCCL rank and the 2-strip codec, each
-  # counted from 0); "launches" is their sum, "parallel <path>" each. The
-  # runs they are held against (the one-process run of the same steps, the
-  # DDP control, the codec CLI at --spatial_devices 1) are listed as
-  # "reference <run>" and not summed.
-  # The earlier slices' paths beside them: the experiment workflow (phase
+  # Launches: this slice's path is the image input (phase 19: the train
+  # CLI of two_layer_syn.py on JPEGs, in its own process, and the native
+  # branch's train steps in this one, each counted from 0); "launches" is
+  # their sum, "image-input <path>" each.
+  # The earlier slices' paths beside them: the multi-device paths (phase
+  # 18: the split evals, both DDP ranks, the NCCL rank and the 2-strip
+  # codec as "parallel <path>"; the runs they are held against (the
+  # one-process run of the same steps, the DDP control, the codec CLI at
+  # --spatial_devices 1) as "reference <run>"), the experiment workflow (phase
   # 17, each CLI in its own process), the int8 decode and eval (phase 15)
   # and ElicSynthesis with the chain on (phase 16), SGA (phase 12), the
   # codec of phase 6 (one compress and one decompress of image 0, a compress
@@ -3034,6 +3283,7 @@ def main():
   # SNTC_FUSED_RESBLOCK=1 (fused_resblock's own path, phase 4), the K16 eval
   # of phase 9. The chain's times are at train stage 1 in f32.
   kernels[0]["launches_by_path"] = {
+      **{f"image-input {k}": v[tl.STATS.name] for k, v in image_input["launches"].items()},
       **{f"experiments {k}": v[tl.STATS.name] for k, v in (
           ("train", experiments["train"]["launches"]), ("itinf", experiments["itinf"]["launches"]),
           ("eval", experiments["eval"]["launches"]))},
@@ -3049,14 +3299,16 @@ def main():
   kernels[0]["inference_extras"] = extras
   kernels[0]["experiments"] = experiments
   kernels[0]["parallel"] = parallel
+  kernels[0]["image_input"] = image_input
   kernels.append(dict(
       name=rb.STATS.name, route="cuda", source="shallow_ntc_tpu_torch/csrc/rb_chain.cu",
       replaces="shallow_ntc_tpu/ops/pallas/rb_chain.py:263",
-      launches=sum(v[rb.STATS.name] for v in parallel["launches"].values()),
-      path="parallel: the DDP ranks and the NCCL rank with SNTC_FUSED_RB_CHAIN=1, the "
-           "2-strip codec's analyses (phase 18; the runs they are held against under "
-           "'reference')",
-      launches_by_path={"experiments train": experiments["launches"][rb.STATS.name],
+      launches=sum(v[rb.STATS.name] for v in image_input["launches"].values()),
+      path="image-input: two_layer_syn.py (cocotrain) trained on JPEGs through the CLI and the "
+           "native branch's train steps, SNTC_FUSED_RB_CHAIN=1 (phase 19)",
+      launches_by_path={**{f"image-input {k}": v[rb.STATS.name]
+                           for k, v in image_input["launches"].items()},
+                        "experiments train": experiments["launches"][rb.STATS.name],
                         "ElicSynthesis": extras["chain_launches"],
                         "int8 encode precedence": int8["chain_launches"],
                         "itinf": itinf["launches"][rb.STATS.name],

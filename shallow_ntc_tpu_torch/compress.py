@@ -14,7 +14,7 @@ as the eval CLI's) or --init_seed (a seeded full-width init). --config
 picks the model of --params and --init_seed and its codec:
 two_layer_syn_rd (the flagship, the default), jpegl_rd, two_layer_syn2,
 mbt2018 (MSHyperCodec), or the factorized family's bls2017_rd and bls2017
-(FactorizedCodec). Images are PNG (data.read_png) or .npy [H, W, 3] uint8,
+(FactorizedCodec). Images are PNG or JPEG (data.read_png) or .npy [H, W, 3] uint8,
 by their extension; decompress writes the --output's format, by default
 <input>.png. Runs on CUDA unless --device names another device.
 --matmul_precision highest (the default) turns TF32 off for the analysis;
@@ -47,8 +47,8 @@ from shallow_ntc_tpu_torch.parallel import mesh
 
 
 def load_image(path: str) -> np.ndarray:
-  """A PNG, or an .npy [H, W, 3] uint8 image."""
-  if path.lower().endswith(".png"):
+  """A PNG or JPEG, or an .npy [H, W, 3] uint8 image."""
+  if path.lower().endswith((".png", ".jpg", ".jpeg")):
     return data_lib.read_png(path)
   img = np.load(path)
   if img.ndim != 3 or img.shape[-1] != 3 or img.dtype != np.uint8:

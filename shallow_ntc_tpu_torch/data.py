@@ -1,21 +1,27 @@
-"""Image sources of the port: PNG files, .npy files and synthetic images
-(mirrors shallow_ntc_tpu/data.py).
+"""Image sources of the port: JPEG and PNG files, .npy files and synthetic
+images (mirrors shallow_ntc_tpu/data.py).
 
-read_png / write_png are PNG on the standard library's zlib and numpy (the
-GPU machine has no image library): bit depth 8, colour types 0, 2, 3, 4
-and 6, filters 0-4, not interlaced; read_png converts to RGB as PIL's
-convert("RGB") does (grey replicated, alpha dropped, palette looked up).
-Any other PNG, and any JPEG, raises an error that names the file.
+read_png reads a JPEG or a PNG to uint8 RGB, as the JAX package's read_png
+does through PIL. JPEG goes through the port's native loader (dataio/, its
+own libjpeg-equal decoder); PNG through the zlib and numpy reader below, at
+every bit depth and colour type, interlaced or not, with PIL's
+convert("RGB") rules (grey replicated, alpha and tRNS dropped, palette
+looked up, sub-byte grey scaled, 16-bit samples' high byte, except 16-bit
+grey, which PIL clips to 255). write_png writes 8-bit PNG.
 
 get_dataset resolves names as the JAX package does: "synthetic", then a
 name of project_configs.dataset_to_globs, then a glob. A glob of .npy files
 keeps the port's own sources (NpyRandomCrops for training, npy_images for
-testing); a glob of PNGs goes through DatasetIterable, the JAX package's
-cached numpy pipeline, which draws from one np.random.default_rng(seed) in
-JAX's order (the epoch's permutation, then each image's crop), so the same
-files and seed give JAX's batches byte for byte. The tfds names (clic,
-mnist, cifar10, cifar100) raise: tensorflow_datasets is not a dependency of
-the port.
+testing); a glob of JPEGs or PNGs goes through DatasetIterable, the JAX
+package's pipeline. It draws from one np.random.default_rng(seed) in JAX's
+order (the epoch's permutation, then each image's crop), and it takes JAX's
+branch: a corpus too large for the RAM cache (compressed bytes x 10 over
+ImageStore's cache_limit, as COCO train2017 is) is decoded and cropped
+batch by batch on the native loader's threads, with crop seeds drawn from
+the same generator; a smaller one is decoded once into the cache and
+cropped with numpy. So the same files and seed give JAX's batches byte for
+byte on either branch. The tfds names (clic, mnist, cifar10, cifar100)
+raise: tensorflow_datasets is not a dependency of the port.
 """
 
 import glob as glob_lib
@@ -28,15 +34,19 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from shallow_ntc_tpu_torch import project_configs
+from shallow_ntc_tpu_torch import dataio, project_configs
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_JPEG_SIGNATURE = b"\xff\xd8"
 # Colour type -> samples per pixel: grey, RGB, palette, grey + alpha, RGBA.
 _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+# Colour type -> the bit depths the PNG spec allows for it.
+_PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+# Adam7's passes: (first column, first row, column step, row step).
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+          (0, 1, 1, 2))
 _TFDS_NAMES = ("clic", "mnist", "cifar10", "cifar100")
-# Decoded images kept in RAM by ImageStore, and batches made ahead by
-# DatasetIterable's thread (the JAX loader's defaults).
-_CACHE_LIMIT_BYTES = 8 << 30
+# Batches made ahead by DatasetIterable's thread (the JAX loader's default).
 _PREFETCH = 4
 
 
@@ -51,8 +61,7 @@ def _png_header(head: bytes, filename) -> Tuple[int, int, int, int, int, int, in
   """(width, height, bit depth, colour type, compression, filter method,
   interlace) of the IHDR chunk that follows the signature in `head`."""
   if head[:8] != _PNG_SIGNATURE:
-    kind = "a JPEG" if head[:3] == b"\xff\xd8\xff" else "not a PNG"
-    raise ValueError(f"{filename}: {kind} file; the port reads PNG only")
+    raise ValueError(f"{filename}: neither a PNG nor a JPEG file")
   if len(head) < 33 or head[12:16] != b"IHDR":
     raise ValueError(f"{filename}: truncated PNG (no IHDR chunk)")
   return struct.unpack(">IIBBBBB", head[16:29])
@@ -115,43 +124,75 @@ def _unfilter(ftype: np.ndarray, filt: np.ndarray, bpp: int, filename) -> np.nda
   return out.reshape(h, stride)
 
 
-def read_png(filename) -> np.ndarray:
-  """Load a PNG file to a uint8 [H, W, 3] RGB array."""
-  with open(filename, "rb") as f:
-    data = f.read()
+def _png_samples(rows: np.ndarray, width: int, channels: int, depth: int) -> np.ndarray:
+  """Unfiltered scanlines [H, rowbytes] as samples [H, width, channels]."""
+  if depth == 16:
+    return rows.view(">u2").reshape(rows.shape[0], width, channels)
+  if depth == 8:
+    return rows.reshape(rows.shape[0], width, channels)
+  bits = np.unpackbits(rows, axis=1).reshape(rows.shape[0], -1, depth)
+  weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+  return (bits @ weights)[:, :width, None].astype(np.uint8)
+
+
+def _read_png(filename, data: bytes) -> np.ndarray:
+  """A PNG's pixels as uint8 [H, W, 3], by PIL's convert("RGB") rules."""
   width, height, depth, ctype, compression, filter_method, interlace = _png_header(
       data[:33], filename)
-  if depth != 8 or ctype not in _PNG_CHANNELS:
-    raise ValueError(f"{filename}: PNG of bit depth {depth}, colour type {ctype}; the port "
-                     "reads bit depth 8, colour types 0, 2, 3, 4 and 6")
-  if interlace or compression or filter_method:
-    raise ValueError(f"{filename}: interlaced or non-standard PNG; the port reads "
-                     "non-interlaced PNG only")
+  if depth not in _PNG_DEPTHS.get(ctype, ()) or compression or filter_method or interlace > 1:
+    raise ValueError(f"{filename}: invalid PNG header (bit depth {depth}, colour type {ctype}, "
+                     f"compression {compression}, filter {filter_method}, interlace {interlace})")
   idat, palette = [], None
   for kind, payload in _png_chunks(data, filename):
     if kind == b"IDAT":
       idat.append(payload)
     elif kind == b"PLTE":
       palette = np.frombuffer(payload, np.uint8).reshape(-1, 3)
-  bpp = _PNG_CHANNELS[ctype]
+  if ctype == 3 and palette is None:
+    raise ValueError(f"{filename}: palette PNG without a PLTE chunk")
+  channels = _PNG_CHANNELS[ctype]
+  bpp = max(1, channels * depth // 8)  # the filters' byte distance
+  passes = _ADAM7 if interlace else ((0, 0, 1, 1),)
+  sizes = [(-(-(height - y0) // dy), -(-(width - x0) // dx)) for x0, y0, dx, dy in passes]
+  rowbytes = [-(-pw * channels * depth // 8) for _, pw in sizes]
+  expected = sum(ph * (rb + 1) for (ph, pw), rb in zip(sizes, rowbytes) if ph > 0 and pw > 0)
   try:
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
   except zlib.error as e:
     raise ValueError(f"{filename}: corrupt PNG image data ({e})") from None
-  if raw.size != height * (width * bpp + 1):
-    raise ValueError(f"{filename}: PNG image data of {raw.size} bytes, expected "
-                     f"{height * (width * bpp + 1)}")
-  rows = raw.reshape(height, width * bpp + 1)
-  pixels = _unfilter(rows[:, 0], rows[:, 1:], bpp, filename).reshape(height, width, bpp)
+  if raw.size != expected:
+    raise ValueError(f"{filename}: PNG image data of {raw.size} bytes, expected {expected}")
+  samples = np.empty((height, width, channels), np.uint16 if depth == 16 else np.uint8)
+  pos = 0
+  for (x0, y0, dx, dy), (ph, pw), rb in zip(passes, sizes, rowbytes):
+    if ph <= 0 or pw <= 0:
+      continue
+    rows = raw[pos:pos + ph * (rb + 1)].reshape(ph, rb + 1)
+    pos += ph * (rb + 1)
+    unfiltered = _unfilter(rows[:, 0], rows[:, 1:], bpp, filename)
+    samples[y0::dy, x0::dx] = _png_samples(unfiltered, pw, channels, depth)
   if ctype == 3:
-    if palette is None:
-      raise ValueError(f"{filename}: palette PNG without a PLTE chunk")
     lut = np.zeros((256, 3), np.uint8)
     lut[:len(palette)] = palette[:256]
-    return lut[pixels[..., 0]]
+    return lut[samples[..., 0]]
+  if depth == 16:  # PIL keeps the high byte, but clips 16-bit grey ("I;16")
+    samples = np.minimum(samples, 255) if ctype == 0 else samples >> 8
+  elif depth < 8:  # grey 1, 2, 4 bits scaled to 0..255
+    samples = samples * (255 // ((1 << depth) - 1))
+  samples = samples.astype(np.uint8)
   if ctype in (0, 4):
-    return np.repeat(pixels[..., :1], 3, axis=-1)
-  return np.ascontiguousarray(pixels[..., :3])
+    return np.repeat(samples[..., :1], 3, axis=-1)
+  return np.ascontiguousarray(samples[..., :3])
+
+
+def read_png(filename) -> np.ndarray:
+  """Load a JPEG or PNG file to a uint8 [H, W, 3] RGB array (the JAX
+  package's read_png, data.py:31-37)."""
+  with open(filename, "rb") as f:
+    data = f.read()
+  if data[:2] == _JPEG_SIGNATURE:
+    return dataio.decode_image(filename)
+  return _read_png(filename, data)
 
 
 def _png_chunk(kind: bytes, payload: bytes) -> bytes:
@@ -207,9 +248,13 @@ def write_png(filename, image: np.ndarray):
 
 
 def image_dimensions(filename) -> Tuple[int, int]:
-  """(height, width) from the PNG header alone, without decoding pixels."""
+  """(height, width) from the PNG IHDR or the JPEG frame header alone,
+  without decoding pixels (as PIL's lazy open in the JAX package)."""
   with open(filename, "rb") as f:
-    width, height = _png_header(f.read(33), filename)[:2]
+    head = f.read(33)
+  if head[:2] == _JPEG_SIGNATURE:
+    return dataio.image_dims(filename)
+  width, height = _png_header(head, filename)[:2]
   return height, width
 
 
@@ -242,13 +287,19 @@ def process_image(image: np.ndarray, crop: Optional[str] = None,
 
 
 class ImageStore:
-  """Decoded images by index, cached in RAM (uint8) up to _CACHE_LIMIT_BYTES."""
+  """Decoded images by index, cached in RAM (uint8) up to cache_limit_bytes
+  (shallow_ntc_tpu/data.py:_ImageStore)."""
 
-  def __init__(self, files: Sequence[str]):
+  def __init__(self, files: Sequence[str], cache_limit_bytes: int = 8 << 30):
     self.files = list(files)
     self._cache = {}
     self._cache_bytes = 0
+    self._cache_limit = cache_limit_bytes
     self._lock = threading.Lock()
+
+  @property
+  def cache_limit(self) -> int:
+    return self._cache_limit
 
   def __len__(self):
     return len(self.files)
@@ -261,7 +312,7 @@ class ImageStore:
       return hit
     arr = read_png(f)
     with self._lock:
-      if self._cache_bytes + arr.nbytes <= _CACHE_LIMIT_BYTES:
+      if self._cache_bytes + arr.nbytes <= self._cache_limit:
         self._cache[f] = arr
         self._cache_bytes += arr.nbytes
     return arr
@@ -277,11 +328,13 @@ class ImageStore:
 
 
 class DatasetIterable:
-  """Batches of PNG images (shallow_ntc_tpu/data.py:DatasetIterable on its
-  cached numpy path): images smaller than the patch are left out by their
-  header size; a train split crops at random, a test split at the centre
-  (or not at all without a patchsize, yielding images of differing sizes
-  one at a time). A background thread keeps up to _PREFETCH batches ready.
+  """Batches of JPEG or PNG images (shallow_ntc_tpu/data.py:DatasetIterable):
+  images smaller than the patch are left out by their header size; a train
+  split crops at random, a test split at the centre (or not at all without
+  a patchsize, yielding images of differing sizes one at a time). Crops of
+  a corpus too large for the store's cache are decoded batch by batch by
+  the native loader (_native_loader_usable); others come from the cache.
+  A background thread keeps up to _PREFETCH batches ready.
   """
 
   def __init__(self, store: ImageStore, split: str, batchsize: int, patchsize: Optional[int],
@@ -312,9 +365,23 @@ class DatasetIterable:
       raise RuntimeError("No images large enough for the requested patchsize.")
     return idxs
 
+  def _native_loader_usable(self) -> bool:
+    """Whether crops come from the native loader's decode + crop fan-out
+    (shallow_ntc_tpu/data.py:188-206): only for fixed-size crops of a
+    corpus whose decoded size (compressed bytes x ~10) exceeds the cache,
+    which would otherwise be decoded again every epoch."""
+    if self.crop is None:
+      return False
+    try:
+      compressed = sum(os.path.getsize(f) for f in self.store.files)
+    except OSError:
+      return True
+    return compressed * 10 > self.store.cache_limit
+
   def _batches(self) -> Iterator[np.ndarray]:
     rng = np.random.default_rng(self.seed)
     idxs = self._eligible_indices()
+    use_native = self._native_loader_usable()
     while True:
       order = list(idxs)
       if self.shuffle:
@@ -322,6 +389,15 @@ class DatasetIterable:
       for start in range(0, len(order), self.batchsize):
         chunk = order[start:start + self.batchsize]
         if len(chunk) < self.batchsize and self.drop_remainder:
+          continue
+        if use_native:
+          if self.crop == "random":
+            seeds = rng.integers(0, 2**62, len(chunk))
+          else:
+            seeds = [-1] * len(chunk)
+          batch = dataio.decode_crop_batch([self.store.files[i] for i in chunk],
+                                           self.patchsize, seeds)
+          yield batch if self.raw_uint8 else normalize_image(batch.astype(np.float32))
           continue
         imgs = [process_image(self.store.get(i), crop=self.crop, patchsize=self.patchsize,
                               rng=rng, keep_uint8=self.raw_uint8)
@@ -374,7 +450,7 @@ class DatasetIterable:
 def get_dataset_from_glob(file_glob: str, shuffle: bool, repeat: bool, drop_remainder: bool,
                           batchsize: int, crop=None, patchsize=None, seed: int = 0,
                           raw_uint8: bool = False) -> DatasetIterable:
-  """The PNG pipeline over the sorted files of `file_glob`."""
+  """The JPEG/PNG pipeline over the sorted files of `file_glob`."""
   files = sorted(glob_lib.glob(os.path.expanduser(file_glob)))
   if not files:
     raise RuntimeError(f"No images found with glob '{file_glob}'.")

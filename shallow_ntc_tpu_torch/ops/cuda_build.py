@@ -60,8 +60,9 @@ def compile_library(cmd, out: str) -> str:
   try:
     proc = subprocess.run([*cmd, "-o", tmp], capture_output=True, text=True)
     if proc.returncode != 0:
+      source = next(a for a in cmd if a.endswith((".cu", ".cc")))
       raise RuntimeError(f"{os.path.basename(cmd[0])} failed ({proc.returncode}) for "
-                         f"{os.path.basename(cmd[-1])}:\n{proc.stderr}")
+                         f"{os.path.basename(source)}:\n{proc.stderr}")
     os.replace(tmp, out)  # atomic: concurrent builders never see a partial file
   finally:
     if os.path.exists(tmp):

@@ -1,5 +1,6 @@
-"""The port's PNG reader and writer, its glob datasets, its name resolution
-and its dead-leaves generator against the JAX package (PIL) and
+"""The port's PNG reader and writer, its reading of the images it once
+refused (JPEG, 16-bit, sub-byte, Adam7), its glob datasets, its name
+resolution and its dead-leaves generator against the JAX package (PIL) and
 scripts/make_deadleaves_dataset.py, on the CPU.
 
 Pixels are compared exactly, batches byte for byte.
@@ -8,10 +9,8 @@ Pixels are compared exactly, batches byte for byte.
 import importlib.util
 import json
 import os
-import struct
 import subprocess
 import sys
-import zlib
 
 import numpy as np
 import pytest
@@ -81,20 +80,24 @@ def test_read_png_undoes_each_filter(tmp_path, ftype):
       np.testing.assert_array_equal(data_lib.read_png(path), jax_data.read_png(path))
 
 
-def _interlaced(path, arr):
-  """A PNG whose header says Adam7 (the reader refuses it from the header)."""
-  data_lib.write_png(path, arr)
-  with open(path, "rb") as f:
-    data = bytearray(f.read())
-  data[28] = 1  # IHDR's interlace byte
-  data[29:33] = struct.pack(">I", zlib.crc32(bytes(data[12:29])))
+def _adam7(path, arr):
+  """An Adam7-interlaced 8-bit RGB PNG (PIL writes none), by the fixtures'
+  writer."""
+  sys.path.insert(0, os.path.join(REPO, "scripts"))
+  try:
+    import make_jpeg_fixtures
+  finally:
+    sys.path.pop(0)
   with open(path, "wb") as f:
-    f.write(bytes(data))
+    f.write(make_jpeg_fixtures.png_bytes(arr, 8, 2, interlace=True))
 
 
 @pytest.mark.parametrize("kind", ["16bit", "1bit", "4bit_palette", "interlaced", "jpeg",
                                   "truncated"])
 def test_unsupported_images_raise_naming_the_file(tmp_path, kind):
+  """The images the port's reader once refused (16-bit, 1-bit, 4-bit palette,
+  Adam7, JPEG) read to JAX's read_png pixels and header size; a truncated
+  PNG still raises, naming the file."""
   arr = np.random.default_rng(0).integers(0, 256, (8, 12, 3), dtype=np.uint8)
   path = str(tmp_path / f"img_{kind}.{'jpg' if kind == 'jpeg' else 'png'}")
   if kind == "16bit":
@@ -104,7 +107,7 @@ def test_unsupported_images_raise_naming_the_file(tmp_path, kind):
   elif kind == "4bit_palette":
     Image.fromarray(arr).convert("P", palette=Image.ADAPTIVE, colors=8).save(path)
   elif kind == "interlaced":
-    _interlaced(path, arr)
+    _adam7(path, arr)
   elif kind == "jpeg":
     Image.fromarray(arr).save(path)
   else:
@@ -113,11 +116,13 @@ def test_unsupported_images_raise_naming_the_file(tmp_path, kind):
       data = f.read()
     with open(path, "wb") as f:
       f.write(data[:-20])
-  with pytest.raises(ValueError, match=os.path.basename(path)):
-    data_lib.read_png(path)
-  if kind == "jpeg":
-    with pytest.raises(ValueError, match="JPEG"):
-      data_lib.image_dimensions(path)
+    with pytest.raises(ValueError, match=os.path.basename(path)):
+      data_lib.read_png(path)
+    return
+  got = data_lib.read_png(path)
+  assert got.dtype == np.uint8 and got.shape == (8, 12, 3)
+  np.testing.assert_array_equal(got, jax_data.read_png(path))
+  assert data_lib.image_dimensions(path) == jax_data.image_dimensions(path) == (8, 12)
 
 
 # Six images, two of them smaller than the patch on one side.
