@@ -57,7 +57,9 @@ Phases, one flushed line each with its seconds (TF32 off throughout):
                library call computing the same function, by CUDA events,
                beside its bound (final_deconv_phase at the decode, eval and
                train shapes, and at B=1 bf16, the SGA step's with bf16
-               transforms).
+               transforms); each decode's model FLOPs (utils/profiling
+               .get_flops on the card), TFLOP/s and share of the bf16 dense
+               peak.
  12. itinf     SGA iterative inference of the flagship (configs.ITINF) on one
                512x768 image at full width, seeded weights: 3 SGA steps on
                the card against the port's CPU step (plain versions), float32,
@@ -134,9 +136,12 @@ Phases, one flushed line each with its seconds (TF32 off throughout):
                ones; the height-split eval of a 512x768 image on 2 and 4
                strips (devices=[cuda:0] * N) against the unsplit eval (bpp,
                PSNR, rd_loss rtol 1e-4; final_deconv_phase once a strip;
-               times); the eval twice with and without deterministic
-               settings, and the first module whose output differs run to
-               run; the train CLI with --dp_devices 2 --dist_backend gloo
+               times); the eval twice (its forward under deterministic
+               cuDNN, held bit for bit) and its forward twice with cuDNN's
+               default algorithms (the first module whose output then
+               differs run to run), and the forward's ms both ways by CUDA
+               events in 40 alternating pairs, beside phase 4's eval ms per
+               image; the train CLI with --dp_devices 2 --dist_backend gloo
                (two spawned ranks on cuda:0, 3 steps at B=8 256x256 and lr
                1e-4 without warm-up, the chain on, each rank's launch
                counts; every run of this part under deterministic cuDNN)
@@ -168,6 +173,17 @@ Phases, one flushed line each with its seconds (TF32 off throughout):
                evaluated; a DatasetIterable whose ImageStore's cache_limit
                is under 10x the corpus takes the native branch, and 2 of its
                batches go through the flagship's train step.
+ 20. flops     model FLOPs counted from the shapes (utils/profiling.py):
+               scripts/torch_get_flops.py's table at 512x768 on the card (the
+               kernels on their routes) equal to a CPU count of the same run
+               and to results/flops_audit.csv (params equal, FLOPs within
+               2%); the eval of one 512x768 image counted on the card with
+               SNTC_FUSED_RB_CHAIN=1, with SNTC_FUSED_RESBLOCK=1 and for
+               JPEGL_K16, each equal to the CPU count, with
+               final_deconv_phase, fused_rb_chain, fused_resblock and
+               jpegl_synthesize launched in the counted forwards; the
+               decodes' model TFLOP/s of phase 11 beside the bf16 peak; a
+               profiling.trace of one decode that names the port's kernels.
 Phase 11 also times the B=8 bf16 decodes of bls2017_rd, two_layer_syn2 and
 mbt2018.
 Then one JSON line of kernels, the nvidia-smi line, and the last line
@@ -273,20 +289,16 @@ def final_deconv_bound_ms(mid_p, out, kernel, dtype_name):
 
   Bytes: mid read once, output written once, weights and bias once (in
   mid's type, as the kernel reads them).
-  Operations: 2 * c_in * c_out per valid (output pixel, tap) pair, the valid
-  taps counted exactly for this geometry (rows outside the image read none).
+  Operations: the wrapper's declared FLOPs of the call (twolayer_final.flops:
+  2 * c_in * c_out per (output pixel, tap) pair that reads a mid pixel
+  inside the image).
   """
-  b, h, w, _ = mid_p.shape
-  k, _, c_in, c_out = kernel.shape
+  from shallow_ntc_tpu_torch.ops import twolayer_final
 
-  def taps(n_mid):  # valid taps summed over the 2*n_mid output positions of one axis
-    p0 = k - 1 - max(k - 2, 0) // 2
-    return sum(1 for o in range(2 * n_mid) for t in range(k)
-               if (t - p0 + o % 2) % 2 == 0 and 0 <= o // 2 + (t - p0 + o % 2) // 2 < n_mid)
-
+  c_out = kernel.shape[3]
   n_bytes = (mid_p.numel() * mid_p.element_size() + out.numel() * out.element_size()
              + mid_p.element_size() * (kernel.numel() + c_out))
-  flops = 2 * c_in * c_out * b * taps(8 * h) * taps(8 * w)
+  flops = twolayer_final.flops(mid_p.shape, kernel.shape)
   t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
   t_ops = flops / H100_PEAK_FLOPS[dtype_name] * 1e3
   return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -296,12 +308,15 @@ def jpegl_bound_ms(z, out, kernel, dtype_name):
   """Least time for jpegl_synthesize on these inputs: bytes or operations.
 
   Bytes: z read once, the image written once, the weights and bias once
-  (in z's dtype, as the model's). Operations: 2 C per output element.
+  (in z's dtype, as the model's). Operations: the wrapper's declared FLOPs
+  (jpegl_decode.flops: 2 C per output element).
   """
-  k, _, c_in, c_out = kernel.shape
+  from shallow_ntc_tpu_torch.ops import jpegl_decode
+
+  c_out = kernel.shape[3]
   n_bytes = (z.numel() * z.element_size() + out.numel() * out.element_size()
              + (kernel.numel() + c_out) * z.element_size())
-  flops = 2 * c_in * out.numel()
+  flops = jpegl_decode.flops(z.shape, kernel.shape)
   t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
   t_ops = flops / H100_PEAK_FLOPS[dtype_name] * 1e3
   return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -311,15 +326,18 @@ def rb_chain_bound_ms(x, n_blocks, dtype_name):
   """Least time for n_blocks residual blocks on x: bytes or operations.
 
   Bytes: x read once, the output written once, the float32 weights and
-  biases once. Operations: per block and pixel 2 C Ch for each 1x1 conv,
-  and 2 Ch^2 per 3x3 tap that lands inside the image ((3H-2)(3W-2) taps per
-  image: SAME padding multiplies zeros at the edge, which is no work).
+  biases once. Operations: the wrapper's declared FLOPs (rb_chain.flops:
+  per block and pixel 2 C Ch for each 1x1 conv, and 2 Ch^2 per 3x3 tap that
+  lands inside the image: SAME padding multiplies zeros at the edge, which
+  is no work).
   """
-  b, h, w, c = x.shape
+  from shallow_ntc_tpu_torch.ops import rb_chain
+
+  c = x.shape[-1]
   ch = c // 2
   n_weights = n_blocks * (c * ch + ch + 9 * ch * ch + ch + ch * c + c)
   n_bytes = 2 * x.numel() * x.element_size() + 4 * n_weights
-  flops = n_blocks * b * (4 * c * ch * h * w + 2 * ch * ch * (3 * h - 2) * (3 * w - 2))
+  flops = rb_chain.flops(x.shape, ch, n_blocks)
   t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
   t_ops = flops / H100_PEAK_FLOPS[dtype_name] * 1e3
   return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -1918,9 +1936,10 @@ def _half_batch_train_step(model, optimizer, lr_fn):
   return train_step
 
 
-def parallel_phase(image, zero_counts, read_counts, smi):
+def parallel_phase(image, zero_counts, read_counts, smi, eval_ms_per_image):
   """Phase 18: the multi-device paths on one card, the flagship at full
-  width. Returns the phase's numbers and its launches by path."""
+  width; eval_ms_per_image are phase 4's ms per image of the eval. Returns
+  the phase's numbers and its launches by path."""
   import torch
   import torch.nn.functional as F
   from shallow_ntc_tpu_torch import compress as compress_cli
@@ -2006,53 +2025,87 @@ def parallel_phase(image, zero_counts, read_counts, smi):
   launches["split eval 2 strips"] = evals[2]["launches"]
   launches["split eval 4 strips"] = evals[4]["launches"]
 
-  # 3. Is the eval reproducible (ROADMAP queue 3 entry 6)? Twice under
-  # deterministic settings, twice without; without them, the first module
-  # (in call order) whose output differs between the two runs.
-  import warnings
+  # 3. Is the eval reproducible? The eval (each image's forward under cuDNN's
+  # deterministic algorithms, no autotuning) twice, held bit for bit; the
+  # same forward twice under cuDNN's default algorithms, and the first
+  # module (in call order) whose output then differs run to run. Then the
+  # forward alone both ways by CUDA events, in 40 pairs whose order
+  # alternates: the cost is the median of the pairs' differences, beside
+  # their spread and phase 4's ms per image of the eval.
+  offset = model.prior_quantization_offset()
 
-  def traced_eval():
+  def forward(deterministic):
+    flags = (torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                        allow_tf32=torch.backends.cudnn.allow_tf32)
+             if deterministic else contextlib.nullcontext())
+    with torch.no_grad(), flags:
+      return model.frame_loss_given_latent_rvs(x, model.infer_latent_rvs(x), training=False,
+                                               frozen_offset=offset)
+
+  def traced(run):
     outs = []
     hooks = [m.register_forward_hook(
         lambda mod, inp, out, name=name: outs.append(
             (name, out.detach().clone() if torch.is_tensor(out) else None)))
         for name, m in model.named_modules() if not list(m.children())]
     try:
-      (record,) = eval_lib.evaluate_images(model, image[None])
+      record = run()
     finally:
       for h in hooks:
         h.remove()
     return record, outs
 
-  cudnn = torch.backends.cudnn
-  saved = (cudnn.deterministic, cudnn.benchmark)
-  with warnings.catch_warnings(record=True) as caught:
-    warnings.simplefilter("always")
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    cudnn.deterministic, cudnn.benchmark = True, False
-    try:
-      det = [traced_eval()[0] for _ in range(2)]
-    finally:
-      torch.use_deterministic_algorithms(False)
-      cudnn.deterministic, cudnn.benchmark = saved
-  flagged = sorted({str(w.message).split("\n")[0][:160] for w in caught
-                    if "deterministic" in str(w.message)})
-  plain = [traced_eval() for _ in range(2)]
-  first = next(((name, (a - b).abs().max().item()) for (name, a), (_, b)
-                in zip(plain[0][1], plain[1][1])
-                if a is not None and not torch.equal(a, b)), None)
   def same(a, b):  # records equal, NaN equal to NaN
     return a.keys() == b.keys() and all(np.array_equal(a[k], b[k], equal_nan=True) for k in a)
 
-  det_equal, plain_equal = same(*det), same(plain[0][0], plain[1][0])
+  det = [traced(lambda: list(eval_lib.evaluate_images(model, image[None]))[0])
+         for _ in range(2)]
+  plain = [traced(lambda: {k: float(v) for k, v in forward(False)[1].items()})
+           for _ in range(2)]
+
+  def first_differing(runs):
+    return next(((name, (a - b).abs().max().item()) for (name, a), (_, b)
+                 in zip(runs[0][1], runs[1][1]) if a is not None and not torch.equal(a, b)),
+                None)
+
+  det_equal = same(det[0][0], det[1][0]) and first_differing(det) is None
+  plain_equal, first = same(plain[0][0], plain[1][0]), first_differing(plain)
+
+  def forward_ms(deterministic):
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    forward(deterministic)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+  ms = {False: [], True: []}
+  for i in range(40):
+    for deterministic in ((True, False) if i % 2 else (False, True)):
+      ms[deterministic].append(forward_ms(deterministic))
+  diffs = np.subtract(ms[True], ms[False])
+  cost_ms = float(np.median(diffs))
+  spread = [float(v) for v in np.percentile(diffs, [0, 25, 75, 100])]
+  eval_ms = float(np.mean(eval_ms_per_image))
   summary["repeat"] = dict(deterministic_equal=det_equal, plain_equal=plain_equal,
-                           first_differing_module=first, nondeterministic_ops=flagged,
-                           modules_traced=len(plain[0][1]))
-  log(phase, f"the eval twice under use_deterministic_algorithms + cudnn.deterministic: "
-      f"{'equal' if det_equal else 'DIFFERS'}; twice without: "
-      f"{'equal' if plain_equal else 'differs'}; first module of "
-      f"{len(plain[0][1])} whose output differs run to run: {first}; ops PyTorch flags as "
-      f"nondeterministic: {flagged}")
+                           first_differing_module=first, modules_traced=len(plain[0][1]),
+                           forward_ms_deterministic=float(np.median(ms[True])),
+                           forward_ms_default_algorithms=float(np.median(ms[False])),
+                           cost_ms_median_of_40_pairs=cost_ms,
+                           cost_ms_min_p25_p75_max=spread,
+                           eval_ms_per_image_phase4=eval_ms,
+                           cost_share_of_eval=cost_ms / eval_ms)
+  log(phase, f"the eval twice (deterministic cuDNN, its default): "
+      f"{'equal' if det_equal else 'DIFFERS'} in all {len(det[0][1])} modules' outputs; the "
+      f"forward twice with cuDNN's default algorithms: {'equal' if plain_equal else 'differs'}, "
+      f"first module whose output differs run to run: {first}; the forward of one "
+      f"{image.shape[0]}x{image.shape[1]} image (CUDA events, median of 40, order alternating) "
+      f"deterministic {np.median(ms[True]):.4f} ms, default algorithms "
+      f"{np.median(ms[False]):.4f} ms; cost (median of the 40 pair differences) "
+      f"{cost_ms:+.4f} ms, min/p25/p75/max {' / '.join(f'{v:+.4f}' for v in spread)} ms; "
+      f"phase 4's eval {eval_ms:.4f} ms an image, so the cost is {cost_ms / eval_ms:+.4%} of "
+      f"it  [{smi}]")
+  check(det_equal, "two evals under deterministic cuDNN differ")
 
   with contextlib.ExitStack() as stack:
     tmp = stack.enter_context(tempfile.TemporaryDirectory())
@@ -2521,6 +2574,127 @@ def image_input_phase(zero_counts, read_counts, smi, train_step_ms):
   return summary
 
 
+# This slice's path: the counted forwards of phase 20, each counted from 0.
+FLOPS_PATH = ("flops: scripts/torch_get_flops.py's table on the card and the counted evals "
+              "(flagship chain on, SNTC_FUSED_RESBLOCK=1, JPEGL_K16; phase 20)")
+# The __global__ functions of the port's CUDA sources (csrc/*.cu).
+KERNEL_SYMBOLS = ("final_deconv_kernel", "resblock_kernel", "jpegl_tiled_kernel",
+                  "jpegl_k16_bf16_kernel")
+
+
+def read_flops_audit():
+  """results/flops_audit.csv (the JAX package's XLA count at 512x768):
+  {transform: (FLOPs per pixel, params)}; the names hold unquoted commas."""
+  with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "results",
+                         "flops_audit.csv")) as f:
+    rows = [line.strip().rsplit(",", 2) for line in f if line.strip()]
+  return {name: (float(fpp), int(params)) for name, fpp, params in rows[1:]}
+
+
+def flops_phase(image, zero_counts, read_counts, smi, decode, decode_flops):
+  """Phase 20: model FLOPs counted on the card against the CPU; the
+  kernels launched in the counted forwards; the decodes' model rates; a
+  trace of one decode. Returns the phase's numbers and launches by path."""
+  import importlib.util
+
+  import torch
+  from shallow_ntc_tpu_torch import configs, eval_lib
+  from shallow_ntc_tpu_torch.ops import jpegl_decode as jd
+  from shallow_ntc_tpu_torch.ops import rb_chain as rb
+  from shallow_ntc_tpu_torch.ops import resblock
+  from shallow_ntc_tpu_torch.ops import twolayer_final as tl
+  from shallow_ntc_tpu_torch.utils import profiling
+
+  phase = "flops"
+  t_phase = time.time()
+  summary = {"nvidia_smi": smi}
+  launches = {}
+
+  # 1. scripts/torch_get_flops.py's table at 512x768 on the card (its
+  # kernels on their routes) and on the CPU, held equal (the counts are
+  # integers), beside results/flops_audit.csv (params equal, FLOPs within 2%).
+  spec = importlib.util.spec_from_file_location(
+      "torch_get_flops", os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                                      "torch_get_flops.py"))
+  script = importlib.util.module_from_spec(spec)
+  spec.loader.exec_module(script)
+  zero_counts()
+  gpu_rows, gpu_s = profiling.with_timing(script.rows)(*EVAL_HW, torch.device("cuda"))
+  launches["table"] = read_counts()
+  cpu_rows, cpu_s = profiling.with_timing(script.rows)(*EVAL_HW, torch.device("cpu"))
+  audit = read_flops_audit()
+  summary["table"] = {}
+  for (name, fpp, n_params), cpu_row in zip(gpu_rows, cpu_rows):
+    csv_fpp, csv_params = audit[name]
+    rel = fpp / csv_fpp - 1
+    summary["table"][name] = dict(flops_per_pixel=fpp, params=n_params, cpu_equal=cpu_row[1:] == (
+        fpp, n_params), rel_to_flops_audit=rel)
+    log(phase, f"{name}: {fpp:.1f} FLOPs/px (CPU {cpu_row[1]:.1f}), {n_params} params; "
+        f"flops_audit.csv {csv_fpp:.0f} ({rel:+.4%}), {csv_params} params")
+    check(cpu_row == (name, fpp, n_params) and n_params == csv_params and abs(rel) <= 0.02,
+          f"{name}: card {fpp} / {n_params}, CPU {cpu_row[1:]}, csv {audit[name]}")
+  log(phase, f"the table of {len(gpu_rows)} transforms at {EVAL_HW[0]}x{EVAL_HW[1]}: card "
+      f"{gpu_s:.2f} s, CPU {cpu_s:.2f} s (host clock); launches on the card {launches['table']}")
+  check(launches["table"][tl.STATS.name] >= 1, "the table's TwoLayerResSynthesis launched no "
+        "final_deconv_phase")
+
+  # 2. The eval of one 512x768 image counted on the card and on the CPU
+  # (plain versions), held equal: the flagship with the chain on and with
+  # SNTC_FUSED_RESBLOCK=1, and JPEGL_K16; each kernel launched in the
+  # counted forward on the card (the counts zeroed before and read after).
+  summary["eval"] = {}
+  for name, cfg, env in (("flagship chain", configs.TWO_LAYER_SYN_RD, "SNTC_FUSED_RB_CHAIN"),
+                         ("flagship resblock", configs.TWO_LAYER_SYN_RD, "SNTC_FUSED_RESBLOCK"),
+                         ("JPEGL_K16", configs.JPEGL_K16, None)):
+    counts = {}
+    with switch_on(env) if env else contextlib.nullcontext():
+      for dev in ("cuda", "cpu"):
+        m = eval_lib.build_model(cfg, init_seed=0, device=dev)
+        zero_counts()
+        counts[dev] = profiling.get_flops(lambda: list(eval_lib.evaluate_images(m, image[None])))
+        if dev == "cuda":
+          launches[name] = read_counts()
+        del m
+    summary["eval"][name] = dict(model_flops=counts["cuda"], cpu=counts["cpu"],
+                                 flops_per_pixel=counts["cuda"] / (EVAL_HW[0] * EVAL_HW[1]),
+                                 launches=launches[name])
+    log(phase, f"eval {name} {EVAL_HW[0]}x{EVAL_HW[1]} f32: card {counts['cuda']:.0f} FLOPs "
+        f"({counts['cuda'] / (EVAL_HW[0] * EVAL_HW[1]):.1f} a pixel), CPU {counts['cpu']:.0f}; "
+        f"launches {launches[name]}")
+    check(counts["cuda"] == counts["cpu"] > 0, f"eval {name} counts {counts}")
+  check(launches["flagship chain"][rb.STATS.name] == CHAINS_PER_FORWARD
+        and launches["flagship chain"][tl.STATS.name] >= 1
+        and launches["flagship resblock"][resblock.STATS.name] == BLOCKS_PER_FORWARD
+        and launches["flagship resblock"][tl.STATS.name] >= 1
+        and launches["JPEGL_K16"][jd.STATS.name] >= 1,
+        f"kernels not launched in the counted forwards: {launches}")
+
+  # 3. The B=8 bf16 decodes' model rates (phase 11's times and counts).
+  summary["decodes"] = decode_flops
+  for name, d in decode_flops.items():
+    log(phase, f"decode {name}: {d['model_flops_per_pixel']:.1f} FLOPs/px, {d['tflop_s']:.3f} "
+        f"TFLOP/s, {d['share_of_bf16_peak']:.5f} of the bf16 dense peak  [{smi}]")
+
+  # 4. profiling.trace around one flagship decode: a Chrome trace that names
+  # the port's kernels.
+  with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as logdir:
+    with profiling.trace(logdir):
+      decode()
+    traces = glob_lib.glob(os.path.join(logdir, "*.json"))
+    text = ""
+    for path in traces:
+      with open(path) as f:
+        text += f.read()
+  named = [k for k in KERNEL_SYMBOLS if k in text]
+  summary["trace"] = dict(files=len(traces), bytes=len(text), kernels_named=named)
+  log(phase, f"trace of one decode: {len(traces)} file(s), {len(text)} bytes, naming {named}")
+  check(named, "the trace of a decode names none of the port's kernels")
+  summary["seconds"] = time.time() - t_phase
+  summary["launches"] = launches
+  log(phase, f"done in {summary['seconds']:.1f} s")
+  return summary
+
+
 def main():
   import torch
   if not torch.cuda.is_available():
@@ -2536,6 +2710,7 @@ def main():
     from shallow_ntc_tpu_torch.ops import rb_chain as rb
     from shallow_ntc_tpu_torch.ops import resblock
     from shallow_ntc_tpu_torch.ops import twolayer_final as tl
+    from shallow_ntc_tpu_torch.utils import profiling
   except ImportError as e:
     print(f"chip_smoke: the port is not beside this script ({e})", file=sys.stderr)
     return 1
@@ -3115,6 +3290,22 @@ def main():
   decode_ms = cuda_ms(torch, decode, iters=20, warmup=3)
   log("timing", f"decode B={DECODE_BATCH} {EVAL_HW[0]}x{EVAL_HW[1]} bf16: {decode_ms:.4f} ms, "
       f"{pixels / decode_ms / 1e3:.2f} Mpx/s  [{smi}]")
+  decode_flops = {}
+
+  def model_rate(name, fn, ms):
+    """The decode's model FLOPs (profiling.get_flops of one call, on the
+    card) and their rate at `ms` a decode, beside the bf16 dense peak."""
+    flops = profiling.get_flops(fn)
+    rate = flops / (ms * 1e-3)
+    decode_flops[name] = dict(ms=ms, model_flops=flops, model_flops_per_pixel=flops / pixels,
+                              tflop_s=rate / 1e12,
+                              share_of_bf16_peak=rate / H100_PEAK_FLOPS["bfloat16"])
+    log("timing", f"decode {name} B={DECODE_BATCH} {EVAL_HW[0]}x{EVAL_HW[1]} bf16: "
+        f"{flops / 1e9:.4f} model GFLOP ({flops / pixels:.1f} a pixel) in {ms:.4f} ms: "
+        f"{rate / 1e12:.3f} TFLOP/s, {rate / H100_PEAK_FLOPS['bfloat16']:.5f} of the "
+        f"{H100_PEAK_FLOPS['bfloat16'] / 1e12:.0f} TFLOP/s bf16 dense peak  [{smi}]")
+
+  model_rate("two_layer_syn_rd", decode, decode_ms)
 
   def time_final(b, h, w, dtype):
     """The kernel with its weights and bias in the input's type, as the
@@ -3144,7 +3335,6 @@ def main():
   eval_t = time_final(1, mh, mw, torch.float32)
   train_fd_t = time_final(*fd_train[:4])
   itinf_bf16_t = time_final(*fd_itinf_bf16[:4])
-  del model_bf16
 
   # The JPEG-like decode at the same shape: k18 (cuDNN) and K16 (the kernel).
   jl_decode_ms, jl_decode_launches = {}, {}
@@ -3166,6 +3356,7 @@ def main():
     log("timing", f"decode {name} B={DECODE_BATCH} {EVAL_HW[0]}x{EVAL_HW[1]} bf16: "
         f"{jl_decode_ms[name]:.4f} ms, {pixels / jl_decode_ms[name] / 1e3:.2f} Mpx/s; "
         f"jpegl_synthesize launches in one decode: {jl_decode_launches[name]}  [{smi}]")
+    model_rate(name, decode_jpegl, jl_decode_ms[name])
     del m
   check(jl_decode_launches["JPEGL_K16"] == 1 and jl_decode_launches["jpegl_rd"] == 0,
         f"jpegl_synthesize launches per decode: {jl_decode_launches}")
@@ -3189,6 +3380,7 @@ def main():
     log("timing", f"decode {name} B={DECODE_BATCH} {EVAL_HW[0]}x{EVAL_HW[1]} bf16: {ms:.4f} ms, "
         f"{pixels / ms / 1e3:.2f} Mpx/s; final_deconv_phase launches in one decode: "
         f"{fd_launches}  [{smi}]")
+    model_rate(name, fn, ms)
     del m
   check([v["launches"] for v in fam_decode.values()] == [0, 1, 0],
         f"final_deconv_phase launches per decode: {fam_decode}")
@@ -3240,10 +3432,14 @@ def main():
   experiments = experiments_phase(smi)
 
   # --- 18. parallel: DDP (gloo, NCCL), the height-split eval and codec -----
-  parallel = parallel_phase(images[0], zero_counts, read_counts, smi)
+  parallel = parallel_phase(images[0], zero_counts, read_counts, smi,
+                            eval_ways["once per pass"])
 
   # --- 19. image-input: JPEG decode, the native loader, cocotrain ----------
   image_input = image_input_phase(zero_counts, read_counts, smi, train_step_ms)
+
+  # --- 20. flops: model FLOPs counted on the card, the decodes' rates -----
+  flops = flops_phase(images[0], zero_counts, read_counts, smi, decode, decode_flops)
   codec_fd = sum(codec_counts[k][tl.STATS.name]
                  for k in ("flagship_compress", "flagship_decompress"))
   codec_k16 = sum(codec_counts[k][jd.STATS.name] for k in ("k16_compress", "k16_decompress"))
@@ -3252,9 +3448,8 @@ def main():
       name=tl.STATS.name, route="cuda",
       source="shallow_ntc_tpu_torch/csrc/final_deconv.cu",
       replaces="shallow_ntc_tpu/ops/pallas/twolayer_final.py:273",
-      launches=sum(v[tl.STATS.name] for v in image_input["launches"].values()),
-      path="image-input: two_layer_syn.py (cocotrain) trained on JPEGs through the CLI and the "
-           "native branch's train steps (phase 19)",
+      launches=sum(v[tl.STATS.name] for v in flops["launches"].values()),
+      path=FLOPS_PATH,
       max_abs_err=errs[("final_deconv_phase", cases[1])],
       **decode_t,
       shape=f"B={DECODE_BATCH} mid {mh}x{mw}x768 bf16 (decode)",
@@ -3283,6 +3478,7 @@ def main():
   # SNTC_FUSED_RESBLOCK=1 (fused_resblock's own path, phase 4), the K16 eval
   # of phase 9. The chain's times are at train stage 1 in f32.
   kernels[0]["launches_by_path"] = {
+      **{f"flops {k}": v[tl.STATS.name] for k, v in flops["launches"].items()},
       **{f"image-input {k}": v[tl.STATS.name] for k, v in image_input["launches"].items()},
       **{f"experiments {k}": v[tl.STATS.name] for k, v in (
           ("train", experiments["train"]["launches"]), ("itinf", experiments["itinf"]["launches"]),
@@ -3300,13 +3496,14 @@ def main():
   kernels[0]["experiments"] = experiments
   kernels[0]["parallel"] = parallel
   kernels[0]["image_input"] = image_input
+  kernels[0]["flops"] = flops
   kernels.append(dict(
       name=rb.STATS.name, route="cuda", source="shallow_ntc_tpu_torch/csrc/rb_chain.cu",
       replaces="shallow_ntc_tpu/ops/pallas/rb_chain.py:263",
-      launches=sum(v[rb.STATS.name] for v in image_input["launches"].values()),
-      path="image-input: two_layer_syn.py (cocotrain) trained on JPEGs through the CLI and the "
-           "native branch's train steps, SNTC_FUSED_RB_CHAIN=1 (phase 19)",
-      launches_by_path={**{f"image-input {k}": v[rb.STATS.name]
+      launches=sum(v[rb.STATS.name] for v in flops["launches"].values()),
+      path=FLOPS_PATH,
+      launches_by_path={**{f"flops {k}": v[rb.STATS.name] for k, v in flops["launches"].items()},
+                        **{f"image-input {k}": v[rb.STATS.name]
                            for k, v in image_input["launches"].items()},
                         "experiments train": experiments["launches"][rb.STATS.name],
                         "ElicSynthesis": extras["chain_launches"],
@@ -3322,7 +3519,10 @@ def main():
   kernels.append(dict(
       name=resblock.STATS.name, route="cuda", source="shallow_ntc_tpu_torch/csrc/rb_chain.cu",
       replaces="shallow_ntc_tpu/ops/pallas/resblock.py:202",
-      launches=ways["resblock"][1][resblock.STATS.name], path="eval image 0, SNTC_FUSED_RESBLOCK=1",
+      launches=sum(v[resblock.STATS.name] for v in flops["launches"].values()), path=FLOPS_PATH,
+      launches_by_path={**{f"flops {k}": v[resblock.STATS.name]
+                           for k, v in flops["launches"].items()},
+                        "eval image 0": ways["resblock"][1][resblock.STATS.name]},
       **block_t["train f32"], other_shapes={"train bf16": block_t["train bf16"]}))
   kernels[1]["train_step_ms"] = train_step_ms
   kernels[0]["itinf_step_ms"] = itinf["step_ms"]
@@ -3332,12 +3532,13 @@ def main():
   kernels.append(dict(
       name=jd.STATS.name, route="cuda", source="shallow_ntc_tpu_torch/csrc/jpegl_decode.cu",
       replaces="shallow_ntc_tpu/ops/pallas/jpegl_decode.py:75",
-      launches=codec_k16, path="codec: JPEGL_K16 compress + decompress",
+      launches=sum(v[jd.STATS.name] for v in flops["launches"].values()), path=FLOPS_PATH,
       max_abs_err=errs[("jpegl_synthesize", jl_decode)], **jl_decode_t,
       shape=f"B={DECODE_BATCH} z {mh}x{mw}x320 bf16 (decode)",
       eval_shape=dict(shape=f"B=1 z {mh}x{mw}x320 f32 (eval)",
                       max_abs_err=errs[("jpegl_synthesize", jl_eval)], **jl_eval_t),
-      launches_by_path={"codec K16": codec_k16, "eval K16": jpegl_eval_launches,
+      launches_by_path={**{f"flops {k}": v[jd.STATS.name] for k, v in flops["launches"].items()},
+                        "codec K16": codec_k16, "eval K16": jpegl_eval_launches,
                         "decode K16": jl_decode_launches["JPEGL_K16"]},
       decode_mpx_per_s={k: pixels / v / 1e3 for k, v in jl_decode_ms.items()}))
   print(json.dumps({"kernels": kernels}), flush=True)

@@ -6,7 +6,9 @@ record keys: the model's metrics, "lpips" when an lpips_fn is given
 (models/lpips.make_lpips_fn), the transforms' times with profile=True,
 instance_id and the run-name hparams. A `devices` list splits each
 image's height over those devices (parallel/mesh.ModelHeightSplit), as
-the JAX eval's spatial sharding does. A workdir's model is rebuilt from
+the JAX eval's spatial sharding does. Each image's forward and its LPIPS
+take cuDNN's deterministic algorithms, so that two runs of an eval agree
+bit for bit. A workdir's model is rebuilt from
 its config.json and the newest checkpoint under train/checkpoints; the
 model sources copied beside them are provenance only, as in the JAX
 package.
@@ -78,7 +80,10 @@ def evaluate_images(model: nn.Module, images: Iterable, step: int = 0, lpips_fn=
   len(devices) height strips, strip i on devices[i] (a list may name one
   device twice; the CLIs' --spatial_devices N is
   mesh.spatial_device_list(N)). The rest of the model runs whole on the
-  model's device (eval_lib.py:150-200).
+  model's device (eval_lib.py:150-200). Each image runs under cuDNN's
+  deterministic algorithms, chosen by its heuristic (no benchmarking), with
+  the caller's TF32 setting: cuDNN's default algorithm for a transposed conv
+  may sum in another order from run to run.
   """
   device = next(model.parameters()).device
   if hasattr(images, "shape"):
@@ -93,13 +98,15 @@ def evaluate_images(model: nn.Module, images: Iterable, step: int = 0, lpips_fn=
     img = torch.as_tensor(np.asarray(img, np.float32), device=device)
     if img.ndim == 3:
       img = img[None]
-    with torch.no_grad(), split:
+    with torch.no_grad(), split, torch.backends.cudnn.flags(
+        enabled=True, benchmark=False, deterministic=True,
+        allow_tf32=torch.backends.cudnn.allow_tf32):
       _, metrics, rec = model.frame_loss_given_latent_rvs(
           img, model.infer_latent_rvs(img), training=False, step=step, frozen_offset=offset)
-    out = {k: float(v) for k, v in metrics.items()}
-    if lpips_fn is not None:
-      out["lpips"] = float(lpips_fn(models_base.floats_to_pixels(img, training=False),
-                                    rec.float()))
+      out = {k: float(v) for k, v in metrics.items()}
+      if lpips_fn is not None:
+        out["lpips"] = float(lpips_fn(models_base.floats_to_pixels(img, training=False),
+                                      rec.float()))
     yield out
 
 

@@ -32,6 +32,7 @@ from torch import nn
 
 from shallow_ntc_tpu_torch import train_lib
 from shallow_ntc_tpu_torch.latents import LatentRVCollection, UQLatentRV
+from shallow_ntc_tpu_torch.utils import writers as writers_lib
 
 Noise = Tuple[torch.Tensor, ...]  # one draw per latent, in the latents' order
 
@@ -133,8 +134,8 @@ def itinf_on_data_batch(model: nn.Module, data_batch, train_eval_config: Mapping
   eval_every = cfg.get("eval_every_steps", 200)
   writer = val_writer = None
   if workdir:
-    writer = train_lib.JsonlWriter(os.path.join(workdir, "train"))
-    val_writer = train_lib.JsonlWriter(os.path.join(workdir, "val"))
+    writer = writers_lib.create_default_writer(workdir, collection="train")
+    val_writer = writers_lib.create_default_writer(workdir, collection="val")
   fns = fns or make_itinf_functions(model, optimizer_config, num_steps)
   device = next(model.parameters()).device
   if offset is None:
@@ -163,6 +164,9 @@ def itinf_on_data_batch(model: nn.Module, data_batch, train_eval_config: Mapping
     val_m = _float_dict(fns.eval(batch, latents, step, offset))
     if val_writer is not None:
       val_writer.write_scalars(step, val_m)
+  if writer is not None:
+    writer.close()
+    val_writer.close()
   itinf_vars = {f"uq_{i}_loc": rv.loc.detach().cpu().numpy() for i, rv in enumerate(latents.uq)}
   return train_m, val_m, itinf_vars
 

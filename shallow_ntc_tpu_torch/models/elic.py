@@ -25,6 +25,7 @@ from torch import nn
 from shallow_ntc_tpu_torch.models.transforms import Conv, FastConvTranspose
 from shallow_ntc_tpu_torch.ops import rb_chain
 from shallow_ntc_tpu_torch.ops import resblock
+from shallow_ntc_tpu_torch.utils import profiling
 
 
 class ResidualBlock(nn.Module):
@@ -72,7 +73,9 @@ class SimpleAttention(nn.Module):
   def forward(self, x: torch.Tensor) -> torch.Tensor:
     trunk = run_rb_chain([getattr(self, f"ResidualBlock_{i}") for i in range(3)], x)
     branch = run_rb_chain([getattr(self, f"ResidualBlock_{i}") for i in range(3, 6)], x)
-    return x + trunk * torch.sigmoid(self.Conv_0(branch))
+    gate = torch.sigmoid(self.Conv_0(branch))
+    with profiling.counted(trunk.numel):  # the gating product: one multiply an element
+      return x + trunk * gate
 
 
 class _ElicStages(nn.Module):

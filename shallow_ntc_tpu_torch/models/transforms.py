@@ -21,6 +21,7 @@ from shallow_ntc_tpu_torch.ops import int8ops
 from shallow_ntc_tpu_torch.ops.jpegl_decode import jpegl_synthesize
 from shallow_ntc_tpu_torch.ops.math import lower_bound
 from shallow_ntc_tpu_torch.ops.twolayer_final import final_deconv_phase
+from shallow_ntc_tpu_torch.utils import profiling
 
 _GDN_PEDESTAL = 2.0**-18
 
@@ -29,12 +30,6 @@ def _nonneg(param: torch.Tensor, minimum: float = 0.0) -> torch.Tensor:
   """tfc GDNParameter reparameterization: value = max(p, bound)^2 - pedestal."""
   bound = math.sqrt(minimum + _GDN_PEDESTAL)
   return torch.square(lower_bound(param, bound)) - _GDN_PEDESTAL
-
-
-def _same_pads(n: int, k: int, s: int) -> Tuple[int, int]:
-  """lax SAME padding (low, high) of a stride-s conv over n samples."""
-  total = max((-(-n // s) - 1) * s + k - n, 0)
-  return total // 2, total - total // 2
 
 
 class Conv(nn.Module):
@@ -53,10 +48,14 @@ class Conv(nn.Module):
     self.kernel = nn.Parameter(torch.zeros(kernel_size, kernel_size, in_features, features))
     self.bias = nn.Parameter(torch.zeros(features))
 
+  def flops(self, shape) -> int:
+    """The conv's FLOPs at an input of `shape`, on the float or the int8 route."""
+    return profiling.conv_flops(shape, self.kernel.shape[3], self.kernel.shape[0], self.stride)
+
   def forward(self, x: torch.Tensor) -> torch.Tensor:
     k, s = self.kernel.shape[0], self.stride
-    h_lo, h_hi = _same_pads(x.shape[1], k, s)
-    w_lo, w_hi = _same_pads(x.shape[2], k, s)
+    h_lo, h_hi = profiling.same_pads(x.shape[1], k, s)
+    w_lo, w_hi = profiling.same_pads(x.shape[2], k, s)
     if s == 1 and x.shape[-1] >= 32 and int8ops.encode_enabled():
       out = int8ops.conv_s1_int8(x, self.kernel.to(x.dtype), h_lo, h_hi, x.dtype)
       return out + self.bias.to(out.dtype)
@@ -81,6 +80,11 @@ class FastConvTranspose(nn.Module):
     self.stride = stride
     self.kernel = nn.Parameter(torch.zeros(kernel_size, kernel_size, in_features, features))
     self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+
+  def flops(self, shape) -> int:
+    """The transposed conv's FLOPs at an input of `shape`, on every route."""
+    return profiling.conv_flops(shape, self.kernel.shape[3], self.kernel.shape[0], self.stride,
+                                transpose=True)
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
     return fd.fast_conv_transpose(x, self.kernel, self.bias, self.stride)
@@ -108,6 +112,11 @@ class GDN(nn.Module):
     """(beta, gamma) after the nonnegative reparameterization."""
     return _nonneg(self.beta, 1e-6).to(dtype), _nonneg(self.gamma, 0.0).to(dtype)
 
+  def flops(self, shape) -> int:
+    """The 1x1 conv of |x|^alpha with gamma, as XLA counts it (the
+    elementwise rest is not counted)."""
+    return 2 * math.prod(shape) * self.gamma.shape[0]
+
   def forward(self, x: torch.Tensor) -> torch.Tensor:
     beta, gamma = self.effective_params(x.dtype)
     if self.rectify:
@@ -130,6 +139,9 @@ class PReLU(nn.Module):
     super().__init__()
     self.negative_slope = nn.Parameter(torch.zeros(channels))
 
+  def flops(self, shape) -> int:
+    return 0  # elementwise: no linear map
+
   def forward(self, x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 0, x, x * self.negative_slope.to(x.dtype))
 
@@ -141,6 +153,9 @@ class Pointwise(nn.Module):
     super().__init__()
     self.name = name
     self.fn = fn
+
+  def flops(self, shape) -> int:
+    return 0  # elementwise: no linear map
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
     return self.fn(x)
@@ -427,6 +442,13 @@ class TwoLayerSynthesis(nn.Module):
     self.act = make_activation(activation_type, channels[0])
     self.conv2 = FastConvTranspose(channels[0], channels[1], kernel_sizes[1], strides[1])
 
+  def flops(self, shape) -> int:
+    """conv1, the activation and conv2, whichever route computes them."""
+    b, h, w, _ = shape
+    mid = (b, h * self.strides[0], w * self.strides[0], self.channels[0])
+    act = 0 if self.act is None else self.act.flops(mid)
+    return self.conv1.flops(shape) + act + self.conv2.flops(mid)
+
   def forward(self, z: torch.Tensor) -> torch.Tensor:
     if not self.fused or isinstance(self.act, PReLU):
       x = self.conv1(z)
@@ -477,6 +499,20 @@ class TwoLayerResSynthesis(nn.Module):
     else:
       raise NotImplementedError(res_type)
     self.out_conv = FastConvTranspose(c, channels[1], kernel_sizes[1], strides[1])
+
+  def flops(self, shape) -> int:
+    """The base and residual branches, the activation and the output
+    deconv, whichever route computes them (the fused phase form counts as
+    the two k13s8 deconvs and the k5s2 one it computes)."""
+    b, h, w, c_in = shape
+    mid = (b, h * self.strides[0], w * self.strides[0], self.channels[0])
+    if self.res_type == "conv":
+      res = self.res_conv.flops(shape)
+    else:
+      res = (self.res_conv1.flops((b, 2 * h, 2 * w, c_in // 4))
+             + self.res_conv2.flops((b, 4 * h, 4 * w, self.res_conv2.kernel.shape[2])))
+    act = 0 if self.base_act is None else self.base_act.flops(mid)
+    return self.base_conv.flops(shape) + act + res + self.out_conv.flops(mid)
 
   def _res(self, z: torch.Tensor) -> torch.Tensor:
     if self.res_type == "conv":

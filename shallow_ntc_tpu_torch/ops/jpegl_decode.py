@@ -29,6 +29,7 @@ from typing import Optional, Tuple
 import torch
 
 from shallow_ntc_tpu_torch.ops import cuda_build
+from shallow_ntc_tpu_torch.utils import profiling
 
 SOURCE = "jpegl_decode.cu"
 STATS = cuda_build.KernelStats("jpegl_synthesize")
@@ -124,7 +125,15 @@ class _JpeglSynthesize(torch.autograd.Function):
         "transposed conv (use_pallas=False)")
 
 
+def flops(z_shape, kernel_shape) -> int:
+  """Model FLOPs of one call: 2 C per output element (k == s: every tap of
+  every latent lands on its own output pixel)."""
+  k, _, c_in, c_out = kernel_shape
+  return profiling.conv_flops(z_shape, c_out, k, k, transpose=True)
+
+
 def jpegl_synthesize(z: torch.Tensor, kernel: torch.Tensor,
                      bias: Optional[torch.Tensor] = None) -> torch.Tensor:
   """z [B, H_l, W_l, C] -> image [B, H_l*k, W_l*k, c_out], kernel [k, k, C, c_out], k == s."""
-  return _JpeglSynthesize.apply(z, kernel, bias)
+  with profiling.counted(lambda: flops(z.shape, kernel.shape)):
+    return _JpeglSynthesize.apply(z, kernel, bias)

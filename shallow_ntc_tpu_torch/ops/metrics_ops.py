@@ -1,4 +1,5 @@
-"""Image math: padding, MSE/PSNR, SSIM and MS-SSIM on NHWC tensors.
+"""Image math: padding, MSE/PSNR, SSIM and MS-SSIM on NHWC tensors, and
+the image grids of the val records (numpy in, numpy out).
 
 Mirrors shallow_ntc_tpu/ops/metrics_ops.py (tf.image defaults: 11x11
 Gaussian, sigma 1.5, k1=.01, k2=.03, the five MS-SSIM power factors and
@@ -6,7 +7,9 @@ VALID-windowed statistics). All filtering runs in float32.
 """
 
 import math
+from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -49,6 +52,40 @@ def unpad_images(x: torch.Tensor, unpadded_shape) -> torch.Tensor:
 
 
 _MSSSIM_WEIGHTS = (0.0448, 0.2856, 0.3001, 0.2363, 0.1333)
+
+
+def center_crop_image(image, target_height: int, target_width: int):
+  """Center crop of [..., H, W, C] (metrics_ops.py:55-61)."""
+  h, w = image.shape[-3], image.shape[-2]
+  h0 = (h - target_height) // 2
+  w0 = (w - target_width) // 2
+  return image[..., h0 : h0 + target_height, w0 : w0 + target_width, :]
+
+
+def visualize_image_batch(images, crop_to_max_dim: Optional[int] = None,
+                          ncol: Optional[int] = None) -> np.ndarray:
+  """Tile a [B, H, W, C] batch into one [H', W', C] grid image, each image
+  first center-cropped to crop_to_max_dim when both its sides exceed it;
+  without ncol the grid takes the divisor pair of B nearest its square
+  root, wider than tall (metrics_ops.py:64-88)."""
+  images = np.asarray(images)
+  if (crop_to_max_dim and images.shape[1] > crop_to_max_dim
+      and images.shape[2] > crop_to_max_dim):
+    images = center_crop_image(images, crop_to_max_dim, crop_to_max_dim)
+  batch_size = images.shape[0]
+  if ncol is None:
+    ncol = int(math.ceil(math.sqrt(batch_size)))
+    while batch_size % ncol:
+      ncol -= 1
+    nrow = batch_size // ncol
+    nrow, ncol = min(ncol, nrow), max(ncol, nrow)
+  else:
+    nrow = batch_size // ncol
+    if nrow * ncol != batch_size:
+      raise ValueError(f"ncol={ncol} does not divide the batch of {batch_size}")
+  h, w = images.shape[1], images.shape[2]
+  grid = images.reshape(nrow, ncol, h, w, -1)
+  return grid.swapaxes(1, 2).reshape(nrow * h, ncol * w, -1)
 
 
 def _gaussian_kernel(size: int, sigma: float, device) -> torch.Tensor:

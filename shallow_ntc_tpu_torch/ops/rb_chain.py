@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from shallow_ntc_tpu_torch.ops import cuda_build
+from shallow_ntc_tpu_torch.utils import profiling
 
 SOURCE = "rb_chain.cu"
 MAX_HIDDEN = 160  # C/2 <= 160: the kernel's register tile (csrc/rb_chain.cu, RN <= 5)
@@ -181,9 +182,19 @@ class FusedBlocks(torch.autograd.Function):
     return (None,) + tuple(next(grads) if t.requires_grad else None for t in saved)
 
 
+def flops(x_shape: Sequence[int], hidden: int, n_blocks: int = 1) -> int:
+  """Model FLOPs of n_blocks residual blocks on x [B, H, W, C], C/2 = hidden:
+  2 B H W C hidden for each 1x1 conv, and the 3x3 SAME conv's 2 hidden^2
+  per tap that lands inside the image (padding is no work)."""
+  b, h, w, c = x_shape
+  return n_blocks * (4 * b * h * w * c * hidden
+                     + profiling.conv_flops((b, h, w, hidden), hidden, 3, 1))
+
+
 def fused_rb_chain(x: torch.Tensor, params: Sequence[BlockParams]) -> torch.Tensor:
   """x [B, H, W, C] through len(params) residual blocks; differentiable."""
   flat = [t for p in params for t in p]
   if len(flat) != 6 * len(params) or not params:
     raise ValueError("params must be a non-empty sequence of (w1, b1, w2, b2, w3, b3)")
-  return FusedBlocks.apply(rb_chain_cuda, x, *flat)
+  with profiling.counted(lambda: flops(x.shape, params[0][0].shape[-1], len(params))):
+    return FusedBlocks.apply(rb_chain_cuda, x, *flat)

@@ -12,6 +12,7 @@ import torch
 
 from shallow_ntc_tpu_torch.ops import cuda_build
 from shallow_ntc_tpu_torch.ops import rb_chain
+from shallow_ntc_tpu_torch.utils import profiling
 
 SOURCE = rb_chain.SOURCE
 STATS = cuda_build.KernelStats("fused_resblock")
@@ -32,4 +33,5 @@ def _one_block(x, params):
 
 def fused_resblock(x: torch.Tensor, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
   """x [B, H, W, C], w1 [C, C/2], w2 [3, 3, C/2, C/2], w3 [C/2, C]; differentiable."""
-  return rb_chain.FusedBlocks.apply(_one_block, x, w1, b1, w2, b2, w3, b3)
+  with profiling.counted(lambda: rb_chain.flops(x.shape, w1.shape[-1])):
+    return rb_chain.FusedBlocks.apply(_one_block, x, w1, b1, w2, b2, w3, b3)

@@ -24,6 +24,7 @@ import torch
 
 from shallow_ntc_tpu_torch.ops import cuda_build
 from shallow_ntc_tpu_torch.ops import fast_deconv as fd
+from shallow_ntc_tpu_torch.utils import profiling
 
 S1 = 8        # phase factor of the mid tensor
 S2 = 2        # stride of the final deconv
@@ -157,7 +158,17 @@ class _FinalDeconvPhase(torch.autograd.Function):
     return tuple(next(grads) if t.requires_grad else None for t in saved) + (None,)
 
 
+def flops(mid_shape, kernel_shape) -> int:
+  """Model FLOPs of one call: the stride-2 transposed conv of the
+  [B, 8H, 8W, c_in] mid tensor that mid_p [B, H, W, 64*c_in] holds, over
+  the taps that read a real mid pixel."""
+  b, h, w, _ = mid_shape
+  k, _, c_in, c_out = kernel_shape
+  return profiling.conv_flops((b, S1 * h, S1 * w, c_in), c_out, k, S2, transpose=True)
+
+
 def final_deconv_phase(mid_p: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
                        c_in: int) -> torch.Tensor:
   """mid_p [B, H, W, 64*c_in] -> image [B, 16H, 16W, c_out]; differentiable."""
-  return _FinalDeconvPhase.apply(mid_p, kernel, bias, c_in)
+  with profiling.counted(lambda: flops(mid_p.shape, kernel.shape)):
+    return _FinalDeconvPhase.apply(mid_p, kernel, bias, c_in)

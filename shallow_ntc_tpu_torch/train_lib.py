@@ -26,14 +26,18 @@ metrics and val metrics are means over the global batch. Only rank 0
 writes record.jsonl files, checkpoints and the workdir's files; the
 others wait at a barrier before they restore or warm-start.
 Checkpoints hold the plain module's state dict either way.
-Not ported: steps_per_dispatch (a TPU scan window, accepted and ignored)
-and the image grids.
+The writers are utils/writers.create_default_writer's (<workdir>/train/ and
+<workdir>/val/: record.jsonl, and TensorBoard when tensorboardX imports);
+each val pass also writes a grid of the first val batch's reconstruction
+(center crops of at most 256x256) as the image "reconstruction".
+Not ported: steps_per_dispatch (a TPU scan window, accepted and ignored).
 """
 
 import dataclasses
 import glob
 import hashlib
 import json
+import logging
 import os
 import re
 import shutil
@@ -48,22 +52,33 @@ from shallow_ntc_tpu_torch import data as data_lib
 from shallow_ntc_tpu_torch import eval_lib
 from shallow_ntc_tpu_torch import schedule as schedule_lib
 from shallow_ntc_tpu_torch.models import families
+from shallow_ntc_tpu_torch.ops import metrics_ops
 from shallow_ntc_tpu_torch.parallel import distributed
 from shallow_ntc_tpu_torch.parallel import mesh as mesh_lib
 from shallow_ntc_tpu_torch.utils import runname as runname_utils
+from shallow_ntc_tpu_torch.utils import writers as writers_lib
 
 
 class Metrics:
-  """Host-side accumulator of scalar dicts (train_lib.py:40-90, no images)."""
+  """Host-side accumulator of scalar dicts and image batches (train_lib.py:40-90)."""
 
   def __init__(self):
     self.scalars: Dict[str, Any] = {}
+    self.images: Dict[str, np.ndarray] = {}
 
   def record_scalars(self, d: Mapping[str, Any]):
     self.scalars.update(d)
 
+  def record_image(self, key: str, value):
+    self.images[key] = value
+
   def scalars_float(self) -> Dict[str, float]:
     return {k: float(v) for k, v in self.scalars.items()}
+
+  def images_grid(self, crop_to_max_dim: int = 256) -> Dict[str, np.ndarray]:
+    """Each image batch tiled into one grid (metrics_ops.visualize_image_batch)."""
+    return {k: metrics_ops.visualize_image_batch(v, crop_to_max_dim=crop_to_max_dim)
+            for k, v in self.images.items()}
 
   @staticmethod
   def merge_metrics(metrics_list: Iterable["Metrics"]) -> "Metrics":
@@ -336,40 +351,31 @@ def restore_params_from_dir(ckpt_dir: str, state: TrainState) -> TrainState:
 
 
 # ---------------------------------------------------------------------------
-# Writers and the loop
+# The loop
 # ---------------------------------------------------------------------------
-class JsonlWriter:
-  """record.jsonl: one {"step": ..., metric: ...} object per line
-  (shallow_ntc_tpu/utils/writers.py:JsonlWriter)."""
-
-  def __init__(self, logdir: str, filename: str = "record.jsonl"):
-    os.makedirs(logdir, exist_ok=True)
-    self.path = os.path.join(logdir, filename)
-
-  def write_scalars(self, step: int, scalars: Mapping[str, Any]):
-    if not scalars or set(scalars) == {"steps_per_sec"}:
-      return
-    record = {"step": int(step), **{k: float(v) for k, v in scalars.items()}}
-    with open(self.path, "a") as f:
-      f.write(json.dumps(record) + "\n")
-
-
 def evaluate_model(eval_step, state: TrainState, val_iter: Iterable,
                    max_batches: Optional[int] = None) -> Metrics:
-  """Mean metrics of eval_step over up to `max_batches` batches; in a
-  process group, each rank takes its rows of every batch and the means are
-  over the global batches."""
+  """Mean metrics of eval_step over up to `max_batches` batches, and the
+  first batch's reconstruction (0..255 floats) as the image
+  "reconstruction" (train_lib.py:318-348); in a process group, each rank
+  takes its rows of every batch (and keeps its rows of the image) and the
+  means are over the global batches."""
   device = next(state.model.parameters()).device
   all_metrics = []
+  images = None
   for i, batch in enumerate(distributed.shard_batches(val_iter)):
     if max_batches is not None and i >= max_batches:
       break
-    metrics, _ = eval_step(state, torch.as_tensor(np.asarray(batch), device=device))
+    metrics, rec = eval_step(state, torch.as_tensor(np.asarray(batch), device=device))
     m = Metrics()
     m.record_scalars({k: float(v) for k, v in metrics.items()})
     all_metrics.append(m)
+    if images is None:
+      images = rec.float().cpu().numpy()
   merged = Metrics.merge_metrics(all_metrics)
   merged.scalars = distributed.mean_over_processes(merged.scalars)
+  if images is not None:
+    merged.record_image("reconstruction", images)
   return merged
 
 
@@ -388,9 +394,10 @@ def simple_train_eval_loop(train_eval_config: Mapping[str, Any], workdir: str, m
   eval_every = cfg.get("eval_every_steps", 10000)
   max_val_batches = cfg.get("max_validation_steps", 16)
   primary = distributed.is_primary()
-  if primary:
-    train_writer = JsonlWriter(os.path.join(workdir, "train"))
-    val_writer = JsonlWriter(os.path.join(workdir, "val"))
+  train_writer = writers_lib.create_default_writer(workdir, just_logging=not primary,
+                                                   collection="train")
+  val_writer = writers_lib.create_default_writer(workdir, just_logging=not primary,
+                                                 collection="val")
   device = next(model.parameters()).device
 
   state, lr_fn = create_train_state(model, optimizer_config, seed)
@@ -414,14 +421,18 @@ def simple_train_eval_loop(train_eval_config: Mapping[str, Any], workdir: str, m
       scalars = distributed.mean_over_processes(metrics)
       scalars["steps_per_sec"] = steps_since_log / max(time.time() - t_last, 1e-9)
       t_last, steps_since_log = time.time(), 0
-      if primary:
-        train_writer.write_scalars(step, scalars)
+      train_writer.write_scalars(step, scalars)
     if primary and (step % ckpt_every == 0 or step == num_steps):
       save_checkpoint(workdir, state, max_to_keep=cfg.get("max_to_keep", 1))
     if step % eval_every == 0 or step == num_steps:
       val = evaluate_model(eval_step, state, val_iter_factory(), max_batches=max_val_batches)
-      if primary:
-        val_writer.write_scalars(step, val.scalars_float())
+      val_writer.write_scalars(step, val.scalars_float())
+      try:
+        val_writer.write_images(step, val.images_grid())
+      except ValueError as e:  # a grid cannot tile some ragged batches
+        logging.warning("Skipping image grid: %s", e)
+  train_writer.close()
+  val_writer.close()
   distributed.barrier()  # the last checkpoint is written
   return state
 

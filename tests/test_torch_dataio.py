@@ -388,16 +388,22 @@ def _imported_roots(path):
 
 def test_port_scripts_and_smoke_import_no_jax_or_pil():
   """Every import statement of the port (dataio/ included, also those inside
-  functions), of scripts/torch_*.py and of chip_smoke.py; then a process that
-  reads a JPEG and a native batch has loaded no JAX or PIL module."""
+  functions), of scripts/torch_*.py and of chip_smoke.py, tensorboardX only
+  in utils/writers.py; then a process that reads a JPEG and a native batch
+  and imports the profiling and writer modules has loaded no JAX or PIL
+  module, nor tensorboardX."""
   files = (glob.glob(os.path.join(REPO, "shallow_ntc_tpu_torch", "**", "*.py"), recursive=True)
            + glob.glob(os.path.join(REPO, "scripts", "torch_*.py"))
            + [os.path.join(REPO, "chip_smoke.py")])
   assert any(f.endswith(os.path.join("dataio", "__init__.py")) for f in files)
   bad = {os.path.relpath(f, REPO): sorted(set(_imported_roots(f)) & _FORBIDDEN) for f in files}
   assert not {k: v for k, v in bad.items() if v}
+  tensorboard = [os.path.relpath(f, REPO) for f in files if "tensorboardX" in _imported_roots(f)]
+  assert tensorboard == [os.path.join("shallow_ntc_tpu_torch", "utils", "writers.py")]
   code = ("import sys\n"
           "from shallow_ntc_tpu_torch import data, dataio\n"
+          "from shallow_ntc_tpu_torch.utils import profiling, writers\n"
+          "assert 'tensorboardX' not in sys.modules\n"
           f"assert data.read_png({COCO[0]!r}).shape == (480, 640, 3)\n"
           f"assert dataio.decode_crop_batch({COCO[:2]!r}, 64, [1, -1]).shape == (2, 64, 64, 3)\n"
           f"bad = sorted(n for n in sys.modules if n.split('.')[0] in {sorted(_FORBIDDEN)!r})\n"
