@@ -184,6 +184,19 @@ Phases, one flushed line each with its seconds (TF32 off throughout):
                jpegl_synthesize launched in the counted forwards; the
                decodes' model TFLOP/s of phase 11 beside the bf16 peak; a
                profiling.trace of one decode that names the port's kernels.
+ 21. tf-checkpoint  the reference's TF checkpoints without TensorFlow
+               (utils/tf_checkpoint.py, convert_tf_checkpoint.py): the
+               committed fixture tests/data/tf_ckpt/ read with its crc32c
+               checks, every variable equal to the digests of TF's reads
+               (tests/data/tf_ckpt_sha256.json); converted through the CLI
+               (its own process, --device cuda), the workdir evaluated on the
+               card against the CPU as in phase 5; the full-width flagship's
+               seeded params laid out as the reference's TF variables,
+               converted into a workdir on the card: params bit for bit the
+               seeded ones, and its eval of one 512x768 image with
+               SNTC_FUSED_RB_CHAIN=1 bit for bit the seeded model's, with
+               final_deconv_phase once and the chain 7 times; its ms an image
+               by CUDA events.
 Phase 11 also times the B=8 bf16 decodes of bls2017_rd, two_layer_syn2 and
 mbt2018.
 Then one JSON line of kernels, the nvidia-smi line, and the last line
@@ -2695,6 +2708,129 @@ def flops_phase(image, zero_counts, read_counts, smi, decode, decode_flops):
   return summary
 
 
+# This slice's path: the converted full-width flagship's eval of one image
+# with the chain on (phase 21), counted from 0.
+TF_CKPT_PATH = ("tf-checkpoint: the eval of one 512x768 image by the full-width flagship "
+                "converted from TF-layout variables, SNTC_FUSED_RB_CHAIN=1 (phase 21)")
+
+
+def tf_checkpoint_phase(image, zero_counts, read_counts, smi, reference):
+  """Phase 21: the reference's TF checkpoints imported without TensorFlow.
+  The committed fixture (tests/data/tf_ckpt/) read and held to the digests
+  of TF's reads, converted through the CLI, its workdir evaluated on the card
+  against the CPU; the full-width flagship's TF-layout variables (from the
+  seeded params, through the inverse layouts) converted, the params bit for
+  bit the seeded ones and the converted model's eval of `image` with the
+  chain on bit for bit the seeded model's. Returns the phase's numbers and
+  its launches."""
+  import hashlib
+
+  import torch
+  from shallow_ntc_tpu_torch import configs, eval_lib, train_lib
+  from shallow_ntc_tpu_torch import convert_tf_checkpoint as convert_lib
+  from shallow_ntc_tpu_torch import params as params_lib
+  from shallow_ntc_tpu_torch.models import families
+  from shallow_ntc_tpu_torch.ops import rb_chain as rb
+  from shallow_ntc_tpu_torch.ops import twolayer_final as tl
+  from shallow_ntc_tpu_torch.utils import tf_checkpoint, tf_convert
+
+  phase = "tf-checkpoint"
+  t_phase = time.time()
+  root = os.path.dirname(os.path.abspath(__file__))
+  fixture = os.path.join(root, "tests", "data", "tf_ckpt")
+  summary = {"nvidia_smi": smi}
+
+  # 1. The fixture read by the port's reader (crc32c held), every numeric
+  # variable equal to TF's read of it (tests/data/tf_ckpt_sha256.json).
+  with open(os.path.join(root, "tests", "data", "tf_ckpt_sha256.json")) as f:
+    digests = json.load(f)
+  prefix = tf_checkpoint.latest_checkpoint(os.path.join(fixture, "train", "checkpoints"))
+  t = time.time()
+  values = tf_checkpoint.read_variables(prefix)
+  read_s = time.time() - t
+  got = {name: dict(dtype=str(v.dtype), shape=list(v.shape),
+                    sha256=hashlib.sha256(v.tobytes()).hexdigest()) for name, v in values.items()}
+  differ = sorted(n for n in set(got) | set(digests) if got.get(n) != digests.get(n))
+  summary["fixture"] = dict(variables=len(values), read_s=read_s, differ=differ)
+  log(phase, f"fixture {os.path.relpath(prefix, root)}: {len(values)} variables read in "
+      f"{read_s:.3f} s (host clock), {len(got) - len(differ)} equal to TF's digests, differing "
+      f"{differ}")
+  check(not differ and len(got) == len(digests), f"the fixture's variables differ: {differ}")
+
+  with tempfile.TemporaryDirectory(prefix="chip_smoke_tf_") as tmp:
+    # 2. The CLI (default --device cuda) in its own process, then the GPU eval
+    # of the converted workdir against the CPU eval (the 192x256 crop of phase 5).
+    out = os.path.join(tmp, "fixture")
+    t = time.time()
+    proc = subprocess.run([sys.executable, "-m", "shallow_ntc_tpu_torch.convert_tf_checkpoint",
+                           "--workdir_tf", fixture, "--out", out], cwd=root, capture_output=True,
+                          text=True, timeout=300)
+    cli_s = time.time() - t
+    log(phase, f"CLI convert ({cli_s:.1f} s): rc {proc.returncode} {proc.stdout.strip()} "
+        f"{proc.stderr.strip()[-400:]}")
+    check(proc.returncode == 0, "the converter CLI failed")
+    model_gpu, _ = eval_lib.load_latest_ckpt(out, device="cuda")
+    model_cpu, _ = eval_lib.load_latest_ckpt(out, device="cpu")
+    summary["fixture"]["cli_s"] = cli_s
+    summary["fixture"]["reference_launches"] = reference(phase, model_gpu, model_cpu)
+    del model_gpu, model_cpu
+
+    # 3. The full-width flagship: its seeded params in the reference's TF
+    # layout (deconv kernels flipped and transposed back), converted on the
+    # card into a workdir.
+    model_config = copy.deepcopy(configs.TWO_LAYER_SYN_RD)
+    config = dict(model_family="mshyper", model_config=model_config)
+    flat = params_lib.init_params(families.build_model(model_config, "mshyper")[0], 0)
+    tf_vars = {}
+    for rel, (name, deconv) in convert_lib.build_translation(config, "mshyper").items():
+      value = flat[name.replace(".", "/")]
+      tf_vars[rel] = tf_convert.conv_transpose_kernel_flax_to_tf(value) if deconv else value
+    out = os.path.join(tmp, "flagship")
+    t = time.time()
+    convert_lib.convert_variables(config, tf_vars, out, "mshyper", "cuda")
+    convert_s = time.time() - t
+    saved = train_lib.load_newest_checkpoint(train_lib.checkpoint_dir(out))["model"]
+    differ = sorted(k for k, v in flat.items()
+                    if not np.array_equal(saved[k.replace("/", ".")].numpy(), v))
+    n_params = sum(v.size for v in flat.values())
+    log(phase, f"flagship: {len(tf_vars)} TF variables ({n_params} params) converted and saved "
+        f"in {convert_s:.2f} s; params differing from the seeded ones: {differ}")
+    check(not differ and len(saved) == len(flat), f"converted params differ: {differ}")
+
+    # 4. Its eval of one 512x768 f32 image with the chain, counted from 0,
+    # bit for bit the seeded model's (eval_lib runs the forward under
+    # deterministic cuDNN); then its ms an image by CUDA events.
+    converted, _ = eval_lib.load_latest_ckpt(out, device="cuda")
+    seeded = eval_lib.build_model(model_config, params=flat, device="cuda")
+    with switch_on("SNTC_FUSED_RB_CHAIN"):
+      zero_counts()
+      rec_conv = list(eval_lib.evaluate_images(converted, image[None]))
+      launches = read_counts()
+      rec_seed = list(eval_lib.evaluate_images(seeded, image[None]))
+      ms = cuda_ms(torch, lambda: list(eval_lib.evaluate_images(converted, image[None])),
+                   iters=5, warmup=1)
+    # The same pass with the residual blocks as cuDNN convs, for scale (each
+    # pass also bisects the prior's offset once).
+    cudnn_ms = cuda_ms(torch, lambda: list(eval_lib.evaluate_images(converted, image[None])),
+                       iters=5, warmup=1)
+    r = rec_conv[0]
+    same = json.dumps(rec_conv) == json.dumps(rec_seed)  # float reprs, NaN too
+    log(phase, f"converted flagship eval {EVAL_HW[0]}x{EVAL_HW[1]} f32, chain on: bpp "
+        f"{r['bpp']:.6f} psnr {r['psnr']:.5f} rd_loss {r['rd_loss']:.5f}; equal to the seeded "
+        f"model's bit for bit: {same}; launches {launches}; {ms:.4f} ms a one-image pass "
+        f"(CUDA events, mean of 5; chain off {cudnn_ms:.4f})  [{smi}]")
+    check(same, f"converted {rec_conv} != seeded {rec_seed}")
+    check(all(np.isfinite(r[k]) for k in ("bpp", "psnr", "rd_loss")), "eval not finite")
+    check(launches[tl.STATS.name] == 1 and launches[rb.STATS.name] == CHAINS_PER_FORWARD,
+          f"the converted eval's launches {launches}")
+  summary["flagship"] = dict(params=n_params, convert_s=convert_s, eval=r, eval_ms=ms,
+                             eval_ms_chain_off=cudnn_ms, launches=launches)
+  summary["launches"] = launches
+  summary["seconds"] = time.time() - t_phase
+  log(phase, f"done in {summary['seconds']:.1f} s")
+  return summary
+
+
 def main():
   import torch
   if not torch.cuda.is_available():
@@ -3440,6 +3576,9 @@ def main():
 
   # --- 20. flops: model FLOPs counted on the card, the decodes' rates -----
   flops = flops_phase(images[0], zero_counts, read_counts, smi, decode, decode_flops)
+
+  # --- 21. tf-checkpoint: the reference's TF checkpoints, no TensorFlow ---
+  tf_ckpt = tf_checkpoint_phase(images[0], zero_counts, read_counts, smi, reference)
   codec_fd = sum(codec_counts[k][tl.STATS.name]
                  for k in ("flagship_compress", "flagship_decompress"))
   codec_k16 = sum(codec_counts[k][jd.STATS.name] for k in ("k16_compress", "k16_decompress"))
@@ -3448,8 +3587,7 @@ def main():
       name=tl.STATS.name, route="cuda",
       source="shallow_ntc_tpu_torch/csrc/final_deconv.cu",
       replaces="shallow_ntc_tpu/ops/pallas/twolayer_final.py:273",
-      launches=sum(v[tl.STATS.name] for v in flops["launches"].values()),
-      path=FLOPS_PATH,
+      launches=tf_ckpt["launches"][tl.STATS.name], path=TF_CKPT_PATH,
       max_abs_err=errs[("final_deconv_phase", cases[1])],
       **decode_t,
       shape=f"B={DECODE_BATCH} mid {mh}x{mw}x768 bf16 (decode)",
@@ -3461,11 +3599,14 @@ def main():
                             max_abs_err=errs[("final_deconv_phase", fd_itinf_bf16)],
                             **itinf_bf16_t),
       decode_mpx_per_s=pixels / decode_ms / 1e3)]
-  # Launches: this slice's path is the image input (phase 19: the train
-  # CLI of two_layer_syn.py on JPEGs, in its own process, and the native
-  # branch's train steps in this one, each counted from 0); "launches" is
-  # their sum, "image-input <path>" each.
-  # The earlier slices' paths beside them: the multi-device paths (phase
+  # Launches: this slice's path is the converted full-width flagship's
+  # eval with the chain (phase 21, counted from 0): "launches" of
+  # final_deconv_phase and fused_rb_chain. fused_resblock and
+  # jpegl_synthesize, which it does not run, keep phase 20's counted
+  # forwards ("path" says which). The earlier slices' paths beside them:
+  # phase 20's counted forwards ("flops <path>"), the image input (phase
+  # 19: the train CLI of two_layer_syn.py on JPEGs, in its own process, and
+  # the native branch's train steps, "image-input <path>"), the multi-device paths (phase
   # 18: the split evals, both DDP ranks, the NCCL rank and the 2-strip
   # codec as "parallel <path>"; the runs they are held against (the
   # one-process run of the same steps, the DDP control, the codec CLI at
@@ -3478,6 +3619,8 @@ def main():
   # SNTC_FUSED_RESBLOCK=1 (fused_resblock's own path, phase 4), the K16 eval
   # of phase 9. The chain's times are at train stage 1 in f32.
   kernels[0]["launches_by_path"] = {
+      "tf-checkpoint flagship eval": tf_ckpt["launches"][tl.STATS.name],
+      "tf-checkpoint fixture GPU eval": tf_ckpt["fixture"]["reference_launches"][tl.STATS.name],
       **{f"flops {k}": v[tl.STATS.name] for k, v in flops["launches"].items()},
       **{f"image-input {k}": v[tl.STATS.name] for k, v in image_input["launches"].items()},
       **{f"experiments {k}": v[tl.STATS.name] for k, v in (
@@ -3497,12 +3640,13 @@ def main():
   kernels[0]["parallel"] = parallel
   kernels[0]["image_input"] = image_input
   kernels[0]["flops"] = flops
+  kernels[0]["tf_checkpoint"] = tf_ckpt
   kernels.append(dict(
       name=rb.STATS.name, route="cuda", source="shallow_ntc_tpu_torch/csrc/rb_chain.cu",
       replaces="shallow_ntc_tpu/ops/pallas/rb_chain.py:263",
-      launches=sum(v[rb.STATS.name] for v in flops["launches"].values()),
-      path=FLOPS_PATH,
-      launches_by_path={**{f"flops {k}": v[rb.STATS.name] for k, v in flops["launches"].items()},
+      launches=tf_ckpt["launches"][rb.STATS.name], path=TF_CKPT_PATH,
+      launches_by_path={"tf-checkpoint flagship eval": tf_ckpt["launches"][rb.STATS.name],
+                        **{f"flops {k}": v[rb.STATS.name] for k, v in flops["launches"].items()},
                         **{f"image-input {k}": v[rb.STATS.name]
                            for k, v in image_input["launches"].items()},
                         "experiments train": experiments["launches"][rb.STATS.name],
