@@ -197,6 +197,20 @@ Phases, one flushed line each with its seconds (TF32 off throughout):
                SNTC_FUSED_RB_CHAIN=1 bit for bit the seeded model's, with
                final_deconv_phase once and the chain 7 times; its ms an image
                by CUDA events.
+ 22. rd-pipeline  the R-D result tools (shallow_ntc_tpu_torch/results.py),
+               each CLI in its own process on phase 17's workdirs (the
+               full-width two_layer_syn_rd.py --hid 3 trained 4 steps, its
+               100-step SGA of 2 images): scripts/torch_itinf_to_results.py
+               and scripts/aggregate_results.py over its SGA workdir and
+               eval JSON; codec overhead and int8 quality of the 2 512x768
+               eval images, the basis grid and the saved-latent eval on the
+               card (SNTC_FUSED_RB_CHAIN=1) against --device cpu runs: every
+               round trip lossless, PSNR and y's rate within phase 5's rtol
+               1e-3 (the real bytes and z's rate reported, as phase 5
+               reports them), int8_syn's rate the float path's, the basis
+               within 1e-3, final_deconv_phase and fused_rb_chain launched
+               as each process should; 3 SGA steps of jpegl_rd (k18s16) on
+               the card against the CPU on phase 5's crop.
 Phase 11 also times the B=8 bf16 decodes of bls2017_rd, two_layer_syn2 and
 mbt2018.
 Then one JSON line of kernels, the nvidia-smi line, and the last line
@@ -638,29 +652,13 @@ ITINF_REFERENCE_STEPS = 3
 ITINF_BF16_STEPS = 300
 
 
-def itinf_phase(image, zero_counts, read_counts, smi):
-  """Phase 12: SGA iterative inference of the flagship (configs.ITINF) on one
-  512x768 image at full width, seeded weights: the card against the CPU for
-  3 steps; ms per step; the config's run; 300 steps with bf16 transforms;
-  an init with the chain kernel. Returns the launch counts and times."""
-  import itertools
-
+def sga_gpu_against_cpu(phase, models, xs, opt_cfg, num_steps):
+  """SGA on the card against the CPU: `models` and `xs` map "cuda" and "cpu"
+  to a model with the same params and the image batch."""
   import torch
-  from shallow_ntc_tpu_torch import configs, eval_lib, itinf_lib
-  from shallow_ntc_tpu_torch.ops import rb_chain as rb
-  from shallow_ntc_tpu_torch.ops import twolayer_final as tl
+  from shallow_ntc_tpu_torch import itinf_lib
 
-  phase = "itinf"
-  cfg = copy.deepcopy(configs.ITINF)
-  opt_cfg = cfg["model_config"]["optimizer_config"]
-  te = cfg["train_eval_config"]
-  x_np = image[None]
   t = time.time()
-  models = {d: eval_lib.build_model(cfg["model_config"], init_seed=0, device=d)
-            for d in ("cuda", "cpu")}
-  model = models["cuda"]
-  xs = {d: torch.from_numpy(x_np).to(d) for d in models}
-
   # GPU against CPU: 3 SGA steps from the CPU's latents with the same
   # logistic draws, float32, TF32 off. Latents: each element within 0.05 *
   # the sum of the steps' lr (Adam moves an element by ~lr whatever the size
@@ -669,7 +667,7 @@ def itinf_phase(image, zero_counts, read_counts, smi):
   # L2 of the latent's movement (a gradient within rounding of 0 may take
   # the other sign on the other device, and Adam's first step moves that
   # element by lr either way); rd_loss, bpp and PSNR of each step rtol 1e-4.
-  fns = {d: itinf_lib.make_itinf_functions(m, opt_cfg, te["num_steps"])
+  fns = {d: itinf_lib.make_itinf_functions(m, opt_cfg, num_steps)
          for d, m in models.items()}
   state = {d: fns[d].init(xs[d]) for d in models}
   failures = []
@@ -708,10 +706,36 @@ def itinf_phase(image, zero_counts, read_counts, smi):
           f"L2 of the movement {l2_rel:.2e} (fallback tol 1e-2)")
       if beyond and l2_rel > 1e-2:
         failures.append(f"step {step} latent {name}")
-  log(phase, f"GPU against CPU, {ITINF_REFERENCE_STEPS} steps at {EVAL_HW[0]}x{EVAL_HW[1]} "
-      f"f32: done in {time.time() - t:.1f}s")
+  h, w = xs["cpu"].shape[1:3]
+  log(phase, f"GPU against CPU, {ITINF_REFERENCE_STEPS} SGA steps at {h}x{w} f32: done in "
+      f"{time.time() - t:.1f}s")
   check(not failures, f"the GPU SGA steps disagree with the CPU's: {failures}")
-  del models["cpu"], fns, state
+
+
+def itinf_phase(image, zero_counts, read_counts, smi):
+  """Phase 12: SGA iterative inference of the flagship (configs.ITINF) on one
+  512x768 image at full width, seeded weights: the card against the CPU for
+  3 steps; ms per step; the config's run; 300 steps with bf16 transforms;
+  an init with the chain kernel. Returns the launch counts and times."""
+  import itertools
+
+  import torch
+  from shallow_ntc_tpu_torch import configs, eval_lib, itinf_lib
+  from shallow_ntc_tpu_torch.ops import rb_chain as rb
+  from shallow_ntc_tpu_torch.ops import twolayer_final as tl
+
+  phase = "itinf"
+  cfg = copy.deepcopy(configs.ITINF)
+  opt_cfg = cfg["model_config"]["optimizer_config"]
+  te = cfg["train_eval_config"]
+  x_np = image[None]
+  models = {d: eval_lib.build_model(cfg["model_config"], init_seed=0, device=d)
+            for d in ("cuda", "cpu")}
+  model = models["cuda"]
+  xs = {d: torch.from_numpy(x_np).to(d) for d in models}
+
+  sga_gpu_against_cpu(phase, models, xs, opt_cfg, te["num_steps"])
+  del models["cpu"]
 
   # ms per SGA step by CUDA events, what a caller waits, beside the device
   # time of its kernels summed by torch.profiler over 5 steps. (cuda_ms's
@@ -1604,31 +1628,48 @@ def extras_phase(images, zero_counts, read_counts, smi):
   return summary
 
 
-# Runs an entry module as `python -m` does, then writes the launch counts of
-# the port's CUDA kernels in that process (which start at 0) to argv[1].
-_COUNTING_MAIN = """
-import json, runpy, sys
-counts_path, sys.argv = sys.argv[1], sys.argv[2:]
-runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
-import torch
-from shallow_ntc_tpu_torch.ops import jpegl_decode, rb_chain, resblock, twolayer_final
-torch.cuda.synchronize()
-with open(counts_path, "w") as f:
-  json.dump({m.STATS.name: m.STATS.launches
-             for m in (twolayer_final, rb_chain, resblock, jpegl_decode)}, f)
-"""
 EXP_HID = 3  # two_layer_syn_rd.py's and itinf.py's work unit 3: rd_lambda 0.01, wid 3
 EXP_TRAIN_STEPS, EXP_SGA_STEPS = 4, 100
 
 
-def experiments_phase(smi):
+# Runs a CLI in a process of its own and writes its launch counts, which
+# start at 0, at its end: [*COUNTED, counts.json, module or script, args...].
+COUNTED = [sys.executable, "-m", "shallow_ntc_tpu_torch.utils.counted"]
+
+
+def run_counted(phase, cwd, env, name, target, args, launches=None, lock=None):
+  """Run `target` (a module or a script path) with `args` in a process of its
+  own under COUNTED in `cwd`; add its launch counts to `launches` (under
+  `lock`). Returns (its counts, its seconds, its stdout); raises if it
+  fails."""
+  counts_path = os.path.join(cwd, f"{name}_counts.json")
+  t = time.time()
+  proc = subprocess.run([*COUNTED, counts_path, target, *args], cwd=cwd, env=env,
+                        capture_output=True, text=True, timeout=600)
+  secs = time.time() - t
+  if proc.returncode:
+    print(proc.stdout[-4000:], proc.stderr[-8000:], file=sys.stderr, flush=True)
+    raise RuntimeError(f"{target} {' '.join(args)} exited with {proc.returncode}")
+  with open(counts_path) as f:
+    counts = json.load(f)
+  if launches is not None:
+    with lock:
+      for k, v in counts.items():
+        launches[k] += v
+  shown = os.path.basename(target) if target.endswith(".py") else f"python -m {target}"
+  log(phase, f"{name}: {shown} in {secs:.1f} s, launches {counts}")
+  return counts, secs, proc.stdout
+
+
+def experiments_phase(smi, tmp):
   """Phase 17: the experiment workflow through its CLIs, each in a process of
   its own that starts with every launch count at 0 and reports them at its
-  end, everything under a temporary directory (SHALLOW_NTC_PROJECT_DIR):
+  end, everything under the directory `tmp` (SHALLOW_NTC_PROJECT_DIR):
   dead-leaves PNGs generated, the flagship config script trained (hid 3,
   the chain kernel on), SGA warm-started from that experiment by wid, eval
   --workdir with --profile, then bls2017_rd.py trained and evaluated.
-  Returns the phase's numbers and its launches by kernel."""
+  Returns the phase's numbers, its launches by kernel and (under "paths")
+  the workdirs and the eval's JSON, which phase 22 reads."""
   import torch
   from shallow_ntc_tpu_torch import data as data_lib
   from shallow_ntc_tpu_torch import eval_lib, train_lib
@@ -1643,7 +1684,6 @@ def experiments_phase(smi):
   launches = {"final_deconv_phase": 0, "fused_rb_chain": 0, "fused_resblock": 0,
               "jpegl_synthesize": 0}
   with contextlib.ExitStack() as stack:
-    tmp = stack.enter_context(tempfile.TemporaryDirectory())
     env = dict(os.environ, PYTHONPATH=root, SHALLOW_NTC_PROJECT_DIR=tmp,
                SLURM_ARRAY_JOB_ID="smoke", SLURM_ARRAY_TASK_ID=str(EXP_HID))
     env.pop("SNTC_FUSED_RB_CHAIN", None)
@@ -1651,22 +1691,7 @@ def experiments_phase(smi):
     lock = threading.Lock()
 
     def run_cli(name, module, args, **extra_env):
-      counts_path = os.path.join(tmp, f"{name}_counts.json")
-      t = time.time()
-      proc = subprocess.run([sys.executable, "-c", _COUNTING_MAIN, counts_path, module, *args],
-                            cwd=tmp, env=dict(env, **extra_env), capture_output=True, text=True,
-                            timeout=600)
-      secs = time.time() - t
-      if proc.returncode:
-        print(proc.stdout[-4000:], proc.stderr[-8000:], file=sys.stderr, flush=True)
-        raise RuntimeError(f"{module} {' '.join(args)} exited with {proc.returncode}")
-      with open(counts_path) as f:
-        counts = json.load(f)
-      with lock:
-        for k, v in counts.items():
-          launches[k] += v
-      log(phase, f"{name}: python -m {module} in {secs:.1f} s, launches {counts}")
-      return counts, secs, proc.stdout
+      return run_counted(phase, tmp, dict(env, **extra_env), name, module, args, launches, lock)
 
     # 1. The data: python -m shallow_ntc_tpu_torch.deadleaves.
     dl = os.path.join(tmp, "data", "deadleaves")
@@ -1863,6 +1888,200 @@ def experiments_phase(smi):
   summary["launches"] = launches
   summary["seconds"] = time.time() - t_phase
   log(phase, f"launches in this phase {launches}; {summary['seconds']:.1f} s")
+  summary["paths"] = dict(tmp=tmp, workdir=workdir, itinf_workdir=iworkdir, eval_json=path)
+  return summary
+
+
+RD_PATH = ("rd-pipeline: the R-D result tools' CLIs on the card, each in its own process, on "
+           "phase 17's full-width two_layer_syn_rd.py --hid 3 workdir (4 steps) and its SGA "
+           "workdir, SNTC_FUSED_RB_CHAIN=1: codec overhead and int8 quality of 2 512x768 "
+           "images, the basis grid, the saved-latent eval of 2 images")
+RD_IMAGES = 2
+# Launches a GPU process of phase 22 makes: (final_deconv_phase, fused_rb_chain).
+# Codec overhead: 2 compresses (the analysis's 7 chains, the encoder's
+# reconstruction) and 2 decompresses, then 2 likelihood evals; int8 quality:
+# 3 arms of 2 evals; the basis grid: one synthesize; the saved-latent eval:
+# one synthesis for each of the 2 batches (no analysis).
+RD_LAUNCHES = {"codec-gpu": (3 * RD_IMAGES, 2 * RD_IMAGES * CHAINS_PER_FORWARD),
+               "int8-gpu": (3 * RD_IMAGES, 3 * RD_IMAGES * CHAINS_PER_FORWARD),
+               "basis-gpu": (1, 0), "recompute-gpu": (RD_IMAGES, 0)}
+
+
+def rd_pipeline_phase(experiments, small, smi):
+  """Phase 22: the R-D result tools (shallow_ntc_tpu_torch/results.py) through
+  their CLIs, each in a process of its own, on phase 17's workdirs: SGA
+  records (scripts/torch_itinf_to_results.py) and scripts/aggregate_results.py
+  over them and phase 17's eval JSON; then on the card with the chain
+  kernel and, as the reference, with --device cpu: codec overhead and int8
+  quality of the 2 eval images, the basis functions, the saved-latent eval
+  of a copy of the SGA workdir each. Held: every round trip lossless on
+  both; PSNR and y's rate within phase 5's rtol 1e-3 (the real bytes and
+  the whole rate, z's part included, reported as phase 5 reports them);
+  the saved-latent eval's bpp too (the same latents); int8_syn's rate the
+  float path's; the basis within 1e-3; the launches of each GPU process. Then 3 SGA steps of jpegl_rd (k18s16) at full width on the card
+  against the CPU on phase 5's 192x256 crop, as phase 12's."""
+  import torch
+  from shallow_ntc_tpu_torch import configs, eval_lib
+
+  phase = "rd-pipeline"
+  t_phase = time.time()
+  root = os.path.dirname(os.path.abspath(__file__))
+  scripts = os.path.join(root, "scripts")
+  paths = experiments["paths"]
+  tmp = paths["tmp"]
+  out = os.path.join(tmp, "rd")
+  os.makedirs(os.path.join(out, "json"))
+  env = dict(os.environ, PYTHONPATH=root, SHALLOW_NTC_PROJECT_DIR=tmp, SNTC_FUSED_RB_CHAIN="1")
+  for key in ("SNTC_FUSED_RESBLOCK", "SNTC_INT8_DECODE", "SNTC_INT8_ENCODE"):
+    env.pop(key, None)
+  cpu_env = dict(env, OMP_NUM_THREADS="4")  # two CPU processes at a time share the cores
+  launches = {"final_deconv_phase": 0, "fused_rb_chain": 0, "fused_resblock": 0,
+              "jpegl_synthesize": 0}
+  lock = threading.Lock()
+  summary = {"nvidia_smi": smi}
+  sga_copy = {}
+  for side in ("gpu", "cpu"):
+    sga_copy[side] = os.path.join(out, f"recompute_{side}", "smoke",
+                                  os.path.basename(paths["itinf_workdir"]))
+    shutil.copytree(paths["itinf_workdir"], sga_copy[side])
+
+  def tool_args(tool, side):
+    f = os.path.join(out, f"{tool}_{side}")
+    dev = ["--device", "cuda" if side == "gpu" else "cpu"]
+    return {"codec": ["--workdir", paths["workdir"], "--dataset", "deadleaves_eval",
+                      "--max_images", str(RD_IMAGES), "--out", f + ".json"],
+            "int8": ["--workdir", paths["workdir"], "--dataset", "deadleaves_eval",
+                     "--max_images", str(RD_IMAGES), "--out", f + ".json"],
+            "basis": ["--workdir", paths["workdir"], "--out", f + ".png", "--save_basis",
+                      f + ".npy"],
+            "recompute": ["--itinf_glob", os.path.join(os.path.dirname(sga_copy[side]), "*")],
+            }[tool] + dev
+
+  scripts_of = {"codec": "torch_measure_codec_overhead.py", "int8": "torch_int8_quality.py",
+                "basis": "torch_vis_syn_filters.py",
+                "recompute": "torch_recompute_itinf_metrics.py"}
+  counts = {}
+
+  def runs(side, tools):
+    for tool in tools:
+      name = f"{tool}-{side}"
+      counts[name] = run_counted(
+          phase, out, env if side == "gpu" else cpu_env, name,
+          os.path.join(scripts, scripts_of[tool]), tool_args(tool, side),
+          launches if side == "gpu" else None, lock)[0]
+
+  def results_runs():
+    run_counted(phase, out, cpu_env, "itinf-to-results",
+                os.path.join(scripts, "torch_itinf_to_results.py"),
+                ["--itinf_glob", os.path.join(os.path.dirname(paths["itinf_workdir"]), "*"),
+                 "--out", os.path.join(out, "json")])
+    shutil.copy(paths["eval_json"], os.path.join(out, "json"))
+    run_counted(phase, out, cpu_env, "aggregate", os.path.join(scripts, "aggregate_results.py"),
+                ["--results_glob", os.path.join(out, "json", "*.json"), "--out", out])
+    runs("cpu", ("basis", "recompute"))
+
+  with concurrent.futures.ThreadPoolExecutor(3) as pool:
+    jobs = [pool.submit(runs, "gpu", ("codec", "int8", "basis", "recompute")),
+            pool.submit(runs, "cpu", ("codec", "int8")), pool.submit(results_runs)]
+    for job in jobs:
+      job.result()
+
+  def load(name):
+    with open(os.path.join(out, name)) as f:
+      return json.load(f)
+
+  def rel(a, b):
+    return abs(a - b) / max(abs(b), 1e-12)
+
+  failures = []
+  # The aggregate: the eval's method and the SGA's, 2 images each.
+  agg = load("aggregate.json")
+  summary["aggregate"] = {m: {k: agg[m][k] for k in ("rd_lambda", "num_images", "bpp", "psnr",
+                                                       "rd_loss")} for m in agg}
+  log(phase, f"aggregate.json: {summary['aggregate']}")
+  if sorted(agg) != ["mshyper", "mshyper+sga"] or any(
+      agg[m]["num_images"] != [RD_IMAGES] or agg[m]["rd_lambda"] != [0.01] for m in agg):
+    failures.append("aggregate")
+
+  # Codec overhead: lossless on both; y's likelihood and PSNR within rtol
+  # 1e-3, as phase 5 holds them. The real bytes and the whole likelihood
+  # are reported: z's tables and the elements where its prior's
+  # probability floors (phase 5) may differ in a last bit across devices,
+  # so a bitstream is the device's own (phase 6).
+  codec = {side: load(f"codec_{side}.json") for side in ("gpu", "cpu")}
+  for g, c in zip(codec["gpu"]["per_image"], codec["cpu"]["per_image"]):
+    diffs = {k: rel(g[k], c[k]) for k in ("likelihood_latent_bpp", "psnr")}
+    log(phase, f"codec overhead image {g['instance_id']}: gpu {g['real_bytes']} bytes "
+        f"(real {g['real_bpp']:.5f} bpp, likelihood {g['likelihood_bpp']:.5f}, "
+        f"{g['overhead_pct']:+.3f}%: header {g['header_bpp']:.5f}, flush {g['flush_bpp']:.5f}, "
+        f"coding {g['coding_bpp']:.5f}), cpu {c['real_bytes']} bytes (reported: rel "
+        f"{rel(g['real_bytes'], c['real_bytes']):.2e}; likelihood rel "
+        f"{rel(g['likelihood_bpp'], c['likelihood_bpp']):.2e}); held rel "
+        + ", ".join(f"{k} {v:.2e}" for k, v in diffs.items()) + " (tol 1e-3)")
+    if not (g["roundtrip_lossless"] and c["roundtrip_lossless"]) or max(diffs.values()) > 1e-3:
+      failures.append(f"codec image {g['instance_id']}")
+  summary["codec_overhead"] = {side: {k: v for k, v in codec[side].items() if k != "per_image"}
+                               for side in codec}
+
+  # int8 quality: each arm's PSNR within rtol 1e-3 (its bpp, z's part
+  # included, reported); int8_syn's rate the float path's on both.
+  int8 = {side: load(f"int8_{side}.json") for side in ("gpu", "cpu")}
+  pairs = list(zip(int8["gpu"]["per_image"], int8["cpu"]["per_image"]))
+  worst = {end: max(rel(g[k], c[k]) for g, c in pairs for k in g if k.endswith(end))
+           for end in ("_psnr", "_bpp")}
+  syn_rate = all(r["syn_bpp"] == r["f32_bpp"] for side in int8 for r in int8[side]["per_image"])
+  summary["int8_quality"] = {side: int8[side]["summary"] for side in int8}
+  log(phase, f"int8 quality of {RD_IMAGES} images: gpu {int8['gpu']['summary']}; gpu vs cpu "
+      f"PSNR max rel {worst['_psnr']:.2e} (tol 1e-3), bpp max rel {worst['_bpp']:.2e} "
+      f"(reported); int8_syn's rate the float path's: {syn_rate}")
+  if worst["_psnr"] > 1e-3 or not syn_rate:
+    failures.append("int8 quality")
+
+  # The basis functions within 1e-3.
+  basis = {side: np.load(os.path.join(out, f"basis_{side}.npy")) for side in ("gpu", "cpu")}
+  basis_err = float(np.abs(basis["gpu"] - basis["cpu"]).max())
+  log(phase, f"basis functions {basis['gpu'].shape}: max|gpu-cpu| {basis_err:.3e} (tol 1e-3), "
+      f"max|basis| {float(np.abs(basis['cpu']).max()):.3f}")
+  if basis["gpu"].shape != basis["cpu"].shape or basis_err > 1e-3:
+    failures.append("basis")
+
+  # The saved-latent eval: bpp, latent bpp and PSNR within rtol 1e-3; the
+  # SGA's own last val pass (bf16 transforms) beside it, reported.
+  rec = {side: load(os.path.join(sga_copy[side], "metrics.json")) for side in sga_copy}
+  with open(os.path.join(paths["itinf_workdir"], "metrics.json")) as f:
+    sga_val = json.load(f)
+  for g, c, v in zip(rec["gpu"], rec["cpu"], sga_val):
+    diffs = {k: rel(g[k], c[k]) for k in ("bpp", "latent_bpp", "psnr")}
+    log(phase, f"saved latents of batch {g['batch_id']}: gpu rd_loss {g['rd_loss']:.6f} bpp "
+        f"{g['bpp']:.6f} psnr {g['psnr']:.4f}; rel to cpu "
+        + ", ".join(f"{k} {x:.2e}" for k, x in diffs.items())
+        + f" (tol 1e-3); the SGA's val pass (bf16 transforms) rd_loss {v['rd_loss']:.6f}")
+    if max(diffs.values()) > 1e-3:
+      failures.append(f"saved latents batch {g['batch_id']}")
+  if [m["batch_id"] for m in rec["gpu"]] != list(range(RD_IMAGES)):
+    failures.append("saved-latent batches")
+
+  for name, (fd, chain) in RD_LAUNCHES.items():
+    got = (counts[name]["final_deconv_phase"], counts[name]["fused_rb_chain"])
+    if got != (fd, chain):
+      failures.append(f"{name} launched (final_deconv_phase, fused_rb_chain) {got}, not "
+                      f"{(fd, chain)}")
+  summary["launches_by_process"] = {k: v for k, v in counts.items() if k.endswith("-gpu")}
+  check(not failures, f"the R-D tools on the card: {failures}")
+
+  # jpegl_rd's SGA: 3 steps on the card against the CPU.
+  cfg = copy.deepcopy(configs.ITINF["model_config"])
+  cfg["transform_config"] = copy.deepcopy(configs.JPEGL_RD["transform_config"])
+  models = {d: eval_lib.build_model(cfg, init_seed=0, device=d) for d in ("cuda", "cpu")}
+  xs = {d: small.to(d) for d in models}
+  sga_gpu_against_cpu(phase, models, xs, cfg["optimizer_config"],
+                      configs.ITINF["train_eval_config"]["num_steps"])
+  del models
+  torch.cuda.empty_cache()
+
+  summary["launches"] = launches
+  summary["seconds"] = time.time() - t_phase
+  log(phase, f"launches in this phase {launches}; {summary['seconds']:.1f} s  [{smi}]")
   return summary
 
 
@@ -2492,7 +2711,7 @@ def image_input_phase(zero_counts, read_counts, smi, train_step_ms):
     counts_path = os.path.join(tmp, "train_counts.json")
     t = time.time()
     proc = subprocess.run(
-        [sys.executable, "-c", _COUNTING_MAIN, counts_path, "shallow_ntc_tpu_torch.mshyper.train",
+        [*COUNTED, counts_path, "shallow_ntc_tpu_torch.mshyper.train",
          "--config", script, "--hid", "0", f"{te}num_steps={IMG_TRAIN_STEPS}",
          f"{te}eval_every_steps={IMG_TRAIN_STEPS}",
          f"{te}checkpoint_every_steps={IMG_TRAIN_STEPS}", f"{te}log_metrics_every_steps=1",
@@ -3565,7 +3784,9 @@ def main():
   extras = extras_phase(images, zero_counts, read_counts, smi)
 
   # --- 17. experiments: the config-script CLIs, warm start, PNGs, eval -----
-  experiments = experiments_phase(smi)
+  # Its directory stays until phase 22 has read its workdirs.
+  exp_tmp = tempfile.TemporaryDirectory()
+  experiments = experiments_phase(smi, exp_tmp.name)
 
   # --- 18. parallel: DDP (gloo, NCCL), the height-split eval and codec -----
   parallel = parallel_phase(images[0], zero_counts, read_counts, smi,
@@ -3579,6 +3800,10 @@ def main():
 
   # --- 21. tf-checkpoint: the reference's TF checkpoints, no TensorFlow ---
   tf_ckpt = tf_checkpoint_phase(images[0], zero_counts, read_counts, smi, reference)
+
+  # --- 22. rd-pipeline: the R-D result tools on phase 17's workdirs -------
+  rd = rd_pipeline_phase(experiments, small, smi)
+  exp_tmp.cleanup()
   codec_fd = sum(codec_counts[k][tl.STATS.name]
                  for k in ("flagship_compress", "flagship_decompress"))
   codec_k16 = sum(codec_counts[k][jd.STATS.name] for k in ("k16_compress", "k16_decompress"))
@@ -3587,7 +3812,7 @@ def main():
       name=tl.STATS.name, route="cuda",
       source="shallow_ntc_tpu_torch/csrc/final_deconv.cu",
       replaces="shallow_ntc_tpu/ops/pallas/twolayer_final.py:273",
-      launches=tf_ckpt["launches"][tl.STATS.name], path=TF_CKPT_PATH,
+      launches=rd["launches"][tl.STATS.name], path=RD_PATH,
       max_abs_err=errs[("final_deconv_phase", cases[1])],
       **decode_t,
       shape=f"B={DECODE_BATCH} mid {mh}x{mw}x768 bf16 (decode)",
@@ -3599,12 +3824,13 @@ def main():
                             max_abs_err=errs[("final_deconv_phase", fd_itinf_bf16)],
                             **itinf_bf16_t),
       decode_mpx_per_s=pixels / decode_ms / 1e3)]
-  # Launches: this slice's path is the converted full-width flagship's
-  # eval with the chain (phase 21, counted from 0): "launches" of
-  # final_deconv_phase and fused_rb_chain. fused_resblock and
-  # jpegl_synthesize, which it does not run, keep phase 20's counted
-  # forwards ("path" says which). The earlier slices' paths beside them:
-  # phase 20's counted forwards ("flops <path>"), the image input (phase
+  # Launches: this slice's path is the R-D result tools' GPU processes
+  # (phase 22, each counted from 0): "launches" of final_deconv_phase and
+  # fused_rb_chain. fused_resblock and jpegl_synthesize, which it does not
+  # run, keep phase 20's counted forwards ("path" says which). The earlier
+  # slices' paths beside them: the converted full-width flagship's eval with
+  # the chain (phase 21, "tf-checkpoint <path>"), phase 20's counted
+  # forwards ("flops <path>"), the image input (phase
   # 19: the train CLI of two_layer_syn.py on JPEGs, in its own process, and
   # the native branch's train steps, "image-input <path>"), the multi-device paths (phase
   # 18: the split evals, both DDP ranks, the NCCL rank and the 2-strip
@@ -3619,6 +3845,7 @@ def main():
   # SNTC_FUSED_RESBLOCK=1 (fused_resblock's own path, phase 4), the K16 eval
   # of phase 9. The chain's times are at train stage 1 in f32.
   kernels[0]["launches_by_path"] = {
+      **{f"rd-pipeline {k}": v[tl.STATS.name] for k, v in rd["launches_by_process"].items()},
       "tf-checkpoint flagship eval": tf_ckpt["launches"][tl.STATS.name],
       "tf-checkpoint fixture GPU eval": tf_ckpt["fixture"]["reference_launches"][tl.STATS.name],
       **{f"flops {k}": v[tl.STATS.name] for k, v in flops["launches"].items()},
@@ -3641,11 +3868,14 @@ def main():
   kernels[0]["image_input"] = image_input
   kernels[0]["flops"] = flops
   kernels[0]["tf_checkpoint"] = tf_ckpt
+  kernels[0]["rd_pipeline"] = rd
   kernels.append(dict(
       name=rb.STATS.name, route="cuda", source="shallow_ntc_tpu_torch/csrc/rb_chain.cu",
       replaces="shallow_ntc_tpu/ops/pallas/rb_chain.py:263",
-      launches=tf_ckpt["launches"][rb.STATS.name], path=TF_CKPT_PATH,
-      launches_by_path={"tf-checkpoint flagship eval": tf_ckpt["launches"][rb.STATS.name],
+      launches=rd["launches"][rb.STATS.name], path=RD_PATH,
+      launches_by_path={**{f"rd-pipeline {k}": v[rb.STATS.name]
+                           for k, v in rd["launches_by_process"].items()},
+                        "tf-checkpoint flagship eval": tf_ckpt["launches"][rb.STATS.name],
                         **{f"flops {k}": v[rb.STATS.name] for k, v in flops["launches"].items()},
                         **{f"image-input {k}": v[rb.STATS.name]
                            for k, v in image_input["launches"].items()},

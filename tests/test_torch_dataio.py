@@ -396,6 +396,11 @@ def test_port_scripts_and_smoke_import_no_jax_or_pil():
            + glob.glob(os.path.join(REPO, "scripts", "torch_*.py"))
            + [os.path.join(REPO, "chip_smoke.py")])
   assert any(f.endswith(os.path.join("dataio", "__init__.py")) for f in files)
+  # The R-D result tools: the package module and its CLIs.
+  assert {os.path.join("shallow_ntc_tpu_torch", "results.py")} | {
+      os.path.join("scripts", f"torch_{name}.py") for name in (
+          "itinf_to_results", "measure_codec_overhead", "int8_quality", "vis_syn_filters",
+          "recompute_itinf_metrics")} <= {os.path.relpath(f, REPO) for f in files}
   bad = {os.path.relpath(f, REPO): sorted(set(_imported_roots(f)) & _FORBIDDEN) for f in files}
   assert not {k: v for k, v in bad.items() if v}
   tensorboard = [os.path.relpath(f, REPO) for f in files if "tensorboardX" in _imported_roots(f)]

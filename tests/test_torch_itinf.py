@@ -29,6 +29,7 @@ from shallow_ntc_tpu_torch import schedule
 from shallow_ntc_tpu_torch.latents import LatentRVCollection, UQLatentRV
 from shallow_ntc_tpu_torch.ops import entropy
 from shallow_ntc_tpu_torch.ops import rounding
+from tests.test_torch_jpegl import SMALL_CONFIGS as SMALL_JPEGL
 from tests.torch_parity import SMALL_CONFIG, images, models, rand, to_numpy, to_torch
 
 # SGA annealed within a few steps (tau leaves its upper bound at step 2).
@@ -38,8 +39,13 @@ STEPS = 6
 TRAIN_EVAL = dict(num_steps=STEPS, log_metrics_every_steps=2, eval_every_steps=STEPS)
 
 
-def _config(offset_heuristic):
-  cfg = copy.deepcopy(SMALL_CONFIG)
+# The models of the trajectories: the flagship, and the JPEG-like model
+# (jpegl_rd: k18s16, the plain path) at the same narrow ELIC widths.
+BASES = {"flagship": SMALL_CONFIG, "jpegl_rd": SMALL_JPEGL["k18"]}
+
+
+def _config(offset_heuristic, base="flagship"):
+  cfg = copy.deepcopy(BASES[base])
   cfg.update(latent_config=dict(uq=dict(SGA)), offset_heuristic=offset_heuristic)
   return cfg
 
@@ -227,11 +233,14 @@ def _rows(path):
     return [json.loads(line) for line in f]
 
 
-@pytest.mark.parametrize("dtype,b,offset_heuristic", [
-    ("float32", 1, False), ("float32", 2, True), ("bfloat16", 1, False)])
-def test_itinf_trajectory_matches_jax(tmp_path, dtype, b, offset_heuristic):
+@pytest.mark.parametrize("dtype,b,offset_heuristic,base", [
+    ("float32", 1, False, "flagship"), ("float32", 2, True, "flagship"),
+    ("bfloat16", 1, False, "flagship"), ("float32", 1, False, "jpegl_rd")])
+def test_itinf_trajectory_matches_jax(tmp_path, dtype, b, offset_heuristic, base):
   """STEPS SGA steps with JAX's draws, against JAX's jitted itinf step
-  (itinf_lib.make_jitted_itinf) and itinf_on_data_batch.
+  (itinf_lib.make_jitted_itinf) and itinf_on_data_batch: the flagship, and
+  jpegl_rd (k18s16 through the plain transposed conv) at the flagship's
+  float32 tolerances.
 
   float32: the latents after every step within 0.05 * lr of JAX's (Adam
   moves an element by ~lr whatever the size of its gradient, so a
@@ -246,7 +255,7 @@ def test_itinf_trajectory_matches_jax(tmp_path, dtype, b, offset_heuristic):
   within rtol 2e-2 (measured up to 0.9%).
   """
   bf16 = dtype == "bfloat16"
-  cfg = _config(offset_heuristic)
+  cfg = _config(offset_heuristic, base)
   jax_model, params, port = models(cfg, seed=2)
   if bf16:
     jax_model = jax_mshyper.Model(**cfg, dtype=jnp.bfloat16)
@@ -298,6 +307,26 @@ def test_itinf_trajectory_matches_jax(tmp_path, dtype, b, offset_heuristic):
         np.testing.assert_allclose(row_t[k], row_j[k], rtol=2e-2 if bf16 else 1e-4, err_msg=k)
   for k in ("scheduled_lr", "tau", "sched_rd_lambda"):
     assert [r[k] for r in rows_t] == [r[k] for r in rows_j]
+
+
+def test_jpegl_k16_sga_raises_as_jax():
+  """JPEGL_K16's synthesis is jpegl_synthesize, which has no gradient in
+  either package: an SGA step raises in the port as JAX's jitted step
+  raises while it traces the gradient."""
+  cfg = copy.deepcopy(SMALL_JPEGL["k16"])
+  cfg.update(latent_config=dict(uq=dict(SGA)), offset_heuristic=False)
+  jax_model, params, port = models(cfg, seed=2)
+  x = _batch(1)
+  fns = jax_itinf_lib.make_jitted_itinf(jax_model, OPTIMIZER, STEPS)
+  lat_j, opt_j = fns.init(params, x)
+  with pytest.raises(AssertionError):
+    fns.step(params, x, lat_j, opt_j, jnp.int32(0), jax.random.PRNGKey(0), fns.offset(params))
+  t_fns = itinf_lib.make_itinf_functions(port, OPTIMIZER, STEPS)
+  lat_t, opt_t = t_fns.init(to_torch(x))
+  shapes = [r.loc.shape for r in lat_j.uq]
+  with pytest.raises(NotImplementedError, match="no gradient"):
+    t_fns.step(to_torch(x), lat_t, opt_t, 0, None,
+               noise=_jax_draws(jax.random.PRNGKey(0), 0, *shapes))
 
 
 def test_segmented_run_takes_the_one_segment_trajectory(monkeypatch):
