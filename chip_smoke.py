@@ -211,6 +211,23 @@ Phases, one flushed line each with its seconds (TF32 off throughout):
                within 1e-3, final_deconv_phase and fused_rb_chain launched
                as each process should; 3 SGA steps of jpegl_rd (k18s16) on
                the card against the CPU on phase 5's crop.
+ 23. measure   the measurement layer (shallow_ntc_tpu_torch/measure.py), each
+               CLI in its own process: scripts/torch_spatial_codec_e2e.py
+               --mode card on the 2048x1536 dead-leaves image with
+               SNTC_FUSED_RB_CHAIN=1, unsplit and on 2 and 4 strips of
+               cuda:0 (each self round trip bit for bit, the cross decodes
+               within 1 uint8 at bpp rtol 1e-4, the split evals at rtol
+               1e-4, final_deconv_phase once a decode strip and the chain 7
+               times an analysis strip in every call, peak memory); the
+               card's z and y of that image against the CPU pass (phase 5's
+               tolerance); torch_codec_latency.py and torch_codec_e2e_bench.py
+               on 8 generated 512x768 PNGs; torch_itinf_bench.py at B=1 and
+               B=8; torch_bench_suite.py --fast; torch_encode_roofline.py.
+               Then final_deconv_phase at the 2048x1536 codec's B=1 f32 mid
+               (128x96) and at SGA's B=8 f32 shape, the chain at B=1
+               1024x768 C=192 N=3 f32 and at the encode's B=8 bf16 chain
+               stages (256x384, 128x192, 64x96 C=192), each against its
+               plain version; all but the last two timed beside the bound.
 Phase 11 also times the B=8 bf16 decodes of bls2017_rd, two_layer_syn2 and
 mbt2018.
 Then one JSON line of kernels, the nvidia-smi line, and the last line
@@ -2085,6 +2102,217 @@ def rd_pipeline_phase(experiments, small, smi):
   return summary
 
 
+MEASURE_HW = (2048, 1536)  # scripts/spatial_codec_e2e.py's image
+MEASURE_STRIPS = (1, 2, 4)
+MEASURE_IMAGES = 8  # generated 512x768 dead-leaves PNGs for the codec's latency and batches
+MEASURE_PATH = ("measure: the measurement CLIs on the card, each in its own process: the "
+                "2048x1536 codec unsplit and in 2 and 4 strips with its evals "
+                "(SNTC_FUSED_RB_CHAIN=1), codec latency and batches of 8 512x768 images, SGA "
+                "steps at B=1 and B=8, bench_suite --fast, the encoder's roofline; the card's "
+                "y of the 2048x1536 image against the CPU")
+MEASURE_SECONDS = 270  # the phase's bound: 1.5x its slowest run, 177 s (its target: ~150 s)
+MEASURE_SGA_STEPS = (16, 64)  # itinf_bench's marginal between these (its default 64, 256)
+
+
+def spatial_launches(strips):
+  """(final_deconv_phase, fused_rb_chain) launches of one
+  scripts/torch_spatial_codec_e2e.py run with the chain on: per setting of
+  n strips 2 compresses (the analysis's 7 chains a strip, the
+  reconstruction's final deconv a strip), 2 decompresses and 2 evals
+  (warm-up and timed); per split setting the cross decodes (the unsplit
+  codec's 1, the split codec's n)."""
+  fd = sum(6 * n for n in strips) + sum(1 + n for n in strips[1:])
+  return fd, sum(4 * CHAINS_PER_FORWARD * n for n in strips)
+
+
+def measure_phase(smi):
+  """Phase 23: the measurement layer (shallow_ntc_tpu_torch/measure.py)
+  through its CLIs, each in a process of its own whose launch counts start
+  at 0: the 2048x1536 codec and eval on the card unsplit and in 2 and 4
+  strips with the chain (every self round trip bit for bit, the cross decodes
+  within 1 uint8 at an equal bpp, the split evals at rtol 1e-4, the launches
+  of every call, the peak memory); then in-process the card's z and y of
+  that image with the chain against the port's CPU pass at phase 5's
+  tolerance; codec latency and the per-image / batch codec on 8 generated
+  512x768 images; SGA steps at B=1 and B=8; bench_suite --fast; the
+  encoder's roofline; SGA and the codec's batches at fewer repeats than
+  the CLIs' defaults (the phase's time). Returns the phase's numbers and
+  its launches."""
+  import torch
+  from shallow_ntc_tpu_torch import configs, data as data_lib, deadleaves, eval_lib
+  from shallow_ntc_tpu_torch.ops import rb_chain as rb
+
+  phase = "measure"
+  t_phase = time.time()
+  root = os.path.dirname(os.path.abspath(__file__))
+  scripts = os.path.join(root, "scripts")
+  tmp = tempfile.mkdtemp(prefix="chip_smoke_measure_")
+  env = dict(os.environ, PYTHONPATH=root)
+  for key in ("SNTC_FUSED_RB_CHAIN", "SNTC_FUSED_RESBLOCK", "SNTC_INT8_DECODE",
+              "SNTC_INT8_ENCODE"):
+    env.pop(key, None)
+  launches = {"final_deconv_phase": 0, "fused_rb_chain": 0, "fused_resblock": 0,
+              "jpegl_synthesize": 0}
+  lock = threading.Lock()
+  summary = {"nvidia_smi": smi}
+  counts, outs, secs = {}, {}, {}
+  failures = []
+
+  def run(name, script, args, **extra_env):
+    out = os.path.join(tmp, f"{name}.json")
+    counts[name], secs[name], _ = run_counted(
+        phase, tmp, dict(env, **extra_env), name, os.path.join(scripts, script),
+        args + ["--out", out], launches, lock)
+    with open(out) as f:
+      outs[name] = json.load(f)
+    return outs[name]
+
+  try:
+    # 1. The 2048x1536 codec and eval, unsplit and in strips, the chain on.
+    sc = run("spatial-codec", "torch_spatial_codec_e2e.py",
+             ["--mode", "card", "--spatial_devices", str(MEASURE_STRIPS[-1])],
+             SNTC_FUSED_RB_CHAIN="1")
+    detail = sc["card_detail"]
+    for n in MEASURE_STRIPS:
+      st, ev = detail["settings"][str(n)], detail["eval"][str(n)]
+      log(phase, f"{MEASURE_HW[0]}x{MEASURE_HW[1]} codec on {n} strip(s): bpp {st['bpp']:.6f} "
+          f"({st['bytes']} bytes, streams {st['stream_counts']}), PSNR {st['psnr_vs_source']:.4f}"
+          f" dB; compress {1e3 * st['encode_wall_s_warm']:.2f} ms, decompress "
+          f"{1e3 * st['decode_wall_s_warm']:.2f} ms (warm, host clock; each of 2: "
+          f"{[round(1e3 * v, 2) for v in st['encode_wall_s']]} / "
+          f"{[round(1e3 * v, 2) for v in st['decode_wall_s']]}); self round trip bit-exact "
+          f"{st['roundtrip_bit_exact']}; peak {st['peak_mem_GB']:.3f} GB; launches a call "
+          f"{st['launches_per_call']}; eval bpp {ev['bpp']:.6f} PSNR {ev['psnr']:.4f} rd_loss "
+          f"{ev['rd_loss']:.5f} in {1e3 * ev['wall_s']:.2f} ms, peak {ev['peak_mem_GB']:.3f} GB, "
+          f"rel to unsplit {ev.get('rel_to_unsplit')}  [{smi}]")
+      fd_chain = {"compress": (n, CHAINS_PER_FORWARD * n), "decompress": (n, 0)}
+      for kind, want in fd_chain.items():
+        got = st["launches_per_call"][kind]
+        if (got["final_deconv_phase"], got["fused_rb_chain"]) != want:
+          failures.append(f"{n} strips {kind} launched {got}, not {want}")
+      if (ev["launches"]["final_deconv_phase"], ev["launches"]["fused_rb_chain"]) != (
+          n, CHAINS_PER_FORWARD * n):
+        failures.append(f"{n}-strip eval launched {ev['launches']}")
+    for n, c in detail["cross"].items():
+      log(phase, f"across settings, {n} strips vs unsplit: decodes max|d| {c['max_abs']} uint8 "
+          f"(tol 1), frac {c['frac_diff']:.2e}; bpp rel {c['bpp_rel']:.2e} (tol 1e-4); "
+          f"bitstreams byte-equal {c['bitstreams_equal']} (reported); symbols that differ: z "
+          f"{c['z_symbols_differ']}, y {c['y_symbols_differ']} of {c['y_symbols']}")
+    failures += detail["failures"]
+    want = spatial_launches(MEASURE_STRIPS)
+    got = (counts["spatial-codec"]["final_deconv_phase"], counts["spatial-codec"]["fused_rb_chain"])
+    if got != want:
+      failures.append(f"the spatial codec's process launched {got}, not {want}")
+    summary["spatial_codec"] = sc
+
+    # 2. The card's z and y of that image (the chain on) against the CPU pass,
+    # while a thread writes the PNGs of part 3 (host work, nothing timed).
+    imgs = os.path.join(tmp, "images")
+    os.makedirs(imgs)
+
+    def write_images():
+      for i in range(MEASURE_IMAGES):
+        data_lib.write_png(os.path.join(imgs, f"dle{i:03d}.png"),
+                           deadleaves.deadleaves_image(900000 + i, *EVAL_HW))
+
+    writer = concurrent.futures.ThreadPoolExecutor(1)
+    written = writer.submit(write_images)
+    x = (deadleaves.deadleaves_image(777000, *MEASURE_HW).astype(np.float32) / 255.0
+         - 0.5)[None]
+    model = eval_lib.build_model(configs.TWO_LAYER_SYN_RD, init_seed=0, device="cuda")
+    model_cpu = eval_lib.build_model(configs.TWO_LAYER_SYN_RD, init_seed=0, device="cpu")
+    chain0 = rb.STATS.launches
+    with switch_on("SNTC_FUSED_RB_CHAIN"), torch.no_grad():
+      rv_gpu = model.infer_latent_rvs(torch.from_numpy(x).cuda())
+      torch.cuda.synchronize()
+      t = time.time()
+      rv_cpu = model_cpu.infer_latent_rvs(torch.from_numpy(x))
+      cpu_s = time.time() - t
+    chain_cpu_pass = rb.STATS.launches - chain0
+    launches["fused_rb_chain"] += chain_cpu_pass
+    errs = {}
+    for name, a, b in zip(("z", "y"), rv_gpu.uq, rv_cpu.uq):
+      err = (a.loc.cpu() - b.loc).abs().max().item()
+      scale = b.loc.abs().max().item()
+      errs[name] = dict(max_abs_err=err, max_abs_cpu=scale)
+      log(phase, f"{MEASURE_HW[0]}x{MEASURE_HW[1]} {name} {tuple(b.loc.shape)}: card (chain) vs "
+          f"CPU max|err| {err:.3e}, max|cpu| {scale:.3f} (tol 1e-4 * max(1, max|cpu|)); the "
+          f"CPU pass took {cpu_s:.1f} s; chain launches on the card {chain_cpu_pass}")
+      if err > 1e-4 * max(1.0, scale):
+        failures.append(f"the card's {name} at {MEASURE_HW} disagrees with the CPU's")
+    if chain_cpu_pass != CHAINS_PER_FORWARD:
+      failures.append(f"the card's analysis launched {chain_cpu_pass} chains")
+    summary["latents_vs_cpu"] = dict(errs, cpu_seconds=cpu_s, chain_launches=chain_cpu_pass)
+    del model, model_cpu, rv_gpu, rv_cpu
+    torch.cuda.empty_cache()
+
+    # 3. Codec latency and batches on generated 512x768 images (the default route).
+    written.result()
+    writer.shutdown()
+    lat = run("codec-latency", "torch_codec_latency.py",
+              ["--image", os.path.join(imgs, "dle000.png")])
+    log(phase, f"codec latency 512x768: {lat['bytes']} bytes, {lat['bpp']:.5f} bpp, streams "
+        f"{lat['stream_counts']}; likelihood {lat['likelihood_bpp']:.5f} bpp, overhead "
+        f"{lat['overhead_pct']:+.3f}%; decompress {lat['decompress_ms_min']:.2f} ms (median "
+        f"{lat['decompress_ms_median']:.2f}); host y decode striped {lat['y_decode_striped_ms']:.2f}"
+        f" ms ({lat['y_decode_striped_Msym_per_s']:.1f} Msym/s, {lat['y_streams']} streams), "
+        f"single {lat['y_decode_single_ms']:.2f} ms ({lat['y_decode_single_Msym_per_s']:.1f} "
+        f"Msym/s); reconstruction equal {lat['reconstruction_equal']}  [{smi}]")
+    if not lat["reconstruction_equal"]:
+      failures.append("codec latency: the decompress differs")
+    e2e = run("codec-e2e", "torch_codec_e2e_bench.py",
+              ["--images", os.path.join(imgs, "*.png"), "--num_images", str(MEASURE_IMAGES),
+               "--repeats", "2"])
+    log(phase, f"codec e2e of {e2e['images']} images: " + ", ".join(
+        f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}" for k, v in e2e.items()
+        if k != "device") + f"  [{smi}]")
+
+    # 4. SGA steps at B=1 and B=8 (TF32 off, as JAX's bench at its precision).
+    for b in (1, 8):
+      it = run(f"itinf-b{b}", "torch_itinf_bench.py",
+               ["--batch", str(b), "--n_lo", str(MEASURE_SGA_STEPS[0]),
+                "--n_hi", str(MEASURE_SGA_STEPS[1])])
+      log(phase, f"SGA B={b} 512x768: {it['ms_per_step']:.3f} ms a step (marginal, "
+          f"{it['n_lo']} -> {it['n_hi']} steps), {it['steps_per_s']:.2f} steps/s, "
+          f"{it['image_steps_per_s']:.2f} image-steps/s  [{smi}]")
+      summary[f"itinf_b{b}"] = it
+
+    # 5. bench_suite --fast; 6. the encoder's roofline.
+    bs = run("bench-suite", "torch_bench_suite.py", ["--fast"])
+    log(phase, "bench_suite --fast: " + ", ".join(
+        f"{k} {v:.2f}" if isinstance(v, float) else f"{k} {v}" for k, v in bs.items()))
+    rf = run("encode-roofline", "torch_encode_roofline.py", ["--batch", "8"])
+    for st in rf["stages"]:
+      kern = (f"; kernel {st['kernel_ms']:.4f} ms, {st['kernel']['pct_peak_bw']:.2f}% bw, "
+              f"{st['kernel']['pct_peak_flops']:.2f}% flops" if "kernel_ms" in st else "")
+      log(phase, f"roofline {st['stage']} in {tuple(st['input_shape'])}: {st['ms']:.4f} ms, "
+          f"{st['min_GB']:.4f} GB ({st['pct_peak_bw']:.2f}% of 3.35 TB/s), {st['GFLOP']:.2f} "
+          f"GFLOP ({st['pct_peak_flops']:.2f}% of 989 TFLOP/s){kern}")
+    log(phase, f"roofline: stage sum {rf['sum_stage_ms']:.3f} ms ({rf['Mpx_per_s_stage_sum']:.1f}"
+        f" Mpx/s), with the chain kernel {rf['sum_stage_kernel_ms']:.3f} ms  [{smi}]")
+    summary.update(codec_latency=lat, codec_e2e=e2e, bench_suite=bs, encode_roofline=rf)
+    for name, key in (("codec-latency", "final_deconv_phase"), ("codec-e2e", "final_deconv_phase"),
+                      ("itinf-b1", "final_deconv_phase"), ("itinf-b8", "final_deconv_phase"),
+                      ("bench-suite", "final_deconv_phase"), ("bench-suite", "fused_rb_chain"),
+                      ("encode-roofline", "fused_rb_chain")):
+      if counts[name][key] <= 0:
+        failures.append(f"{name} launched no {key}")
+    if counts["encode-roofline"]["final_deconv_phase"] or any(
+        counts[k]["fused_rb_chain"] for k in ("codec-latency", "codec-e2e")):
+      failures.append(f"a process launched a kernel off its route: {counts}")
+  finally:
+    shutil.rmtree(tmp, ignore_errors=True)
+  summary["launches_by_process"] = counts
+  summary["process_seconds"] = secs
+  summary["launches"] = launches
+  summary["seconds"] = time.time() - t_phase
+  log(phase, f"launches in this phase {launches}; {summary['seconds']:.1f} s (target ~150 s, "
+      f"bound {MEASURE_SECONDS} s)  [{smi}]")
+  check(not failures, f"the measurement layer on the card: {failures}")
+  check(summary["seconds"] <= MEASURE_SECONDS, f"phase 23 took {summary['seconds']:.1f} s")
+  return summary
+
+
 PAR_STEPS, NCCL_STEPS = 3, 2  # the DDP comparison's steps; the NCCL run's
 PAR_STATS_MODULES = ("twolayer_final", "rb_chain", "resblock", "jpegl_decode")
 
@@ -3804,6 +4032,66 @@ def main():
   # --- 22. rd-pipeline: the R-D result tools on phase 17's workdirs -------
   rd = rd_pipeline_phase(experiments, small, smi)
   exp_tmp.cleanup()
+
+  # --- 23. measure: the measurement CLIs, the 2048x1536 codec -------------
+  meas = measure_phase(smi)
+  # The kernels at this slice's new shapes against their plain versions,
+  # then timed: final_deconv_phase at the 2048x1536 codec's B=1 f32 mid and
+  # at SGA's B=8 f32 step (phase 12's 512x768 at B=8), the chain at the
+  # 2048x1536 analysis's first stage (B=1 1024x768 C=192 N=3 f32).
+  fd_codec_hr = (1, MEASURE_HW[0] // 16, MEASURE_HW[1] // 16, torch.float32, 5, 12, 3)
+  fd_itinf_b8 = (DECODE_BATCH, mh, mw, torch.float32, 5, 12, 3)
+  rb_codec_hr = (1, MEASURE_HW[0] // 2, MEASURE_HW[1] // 2, 192, 3)
+  hr_rng = np.random.default_rng(23)
+  for case in (fd_codec_hr, fd_itinf_b8):
+    mid, kern, bias = final_inputs(*case, gen=hr_rng)
+    out = tl.final_deconv_cuda(mid, kern, bias, 12)
+    ref = tl.final_deconv_plain(mid, kern, bias, 12)
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    log("measure", f"final_deconv_phase B={case[0]} {case[1]}x{case[2]} f32: max|err| {err:.3e} "
+        f"(tol 1e-4), {mid.numel()} mid values (the wrapper refuses 2**31)")
+    check(out.shape == ref.shape and err <= 1e-4, f"final_deconv_phase disagrees: {err}")
+    errs[("final_deconv_phase", case)] = err
+  params_hr = rb_params(3, 192, seed=sum(rb_codec_hr))
+  x_hr = torch.from_numpy(hr_rng.standard_normal(rb_codec_hr[:4], np.float32)).to(dev)
+  out = rb.rb_chain_cuda(x_hr, params_hr)
+  ref = rb.dense_rb_chain(x_hr, params_hr)
+  torch.cuda.synchronize()
+  err = (out - ref).abs().max().item()
+  scale = ref.abs().max().item()
+  log("measure", f"fused_rb_chain B=1 {rb_codec_hr[1]}x{rb_codec_hr[2]} C=192 N=3 f32: max|err| "
+      f"{err:.3e} (tol {1e-4 * scale:.3e}, max|y| {scale:.3f}); "
+      f"{rb_codec_hr[0] * -(-rb_codec_hr[1] // 8) * -(-rb_codec_hr[2] // 8)} CTAs of 8x8 pixels")
+  check(out.shape == ref.shape and err <= 1e-4 * scale, f"fused_rb_chain disagrees: {err}")
+  errs[("fused_rb_chain", rb_codec_hr, torch.float32)] = err
+  del x_hr, out, ref
+  # The chain at the encode's three chain stages in bench_suite and the
+  # roofline (B=8 512x768 bf16: 256x384, 128x192 and 64x96 at C=192), at
+  # phase 3's bf16 tolerance.
+  rb_encode = [(DECODE_BATCH, EVAL_HW[0] // s, EVAL_HW[1] // s, 192, 3) for s in (2, 4, 8)]
+  for case in rb_encode:
+    params = rb_params(3, 192, seed=sum(case))
+    x = torch.from_numpy(hr_rng.standard_normal(case[:4], np.float32)).to(dev, torch.bfloat16)
+    out = rb.rb_chain_cuda(x, params)
+    ref = rb.dense_rb_chain(x, params)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    log("measure", f"fused_rb_chain B={case[0]} {case[1]}x{case[2]} C=192 N=3 bf16 (encode): "
+        f"max|err| {err:.3e} (tol {2e-2 * scale:.3e}, max|y| {scale:.3f})")
+    check(out.shape == ref.shape and err <= 2e-2 * scale, f"fused_rb_chain disagrees: {err}")
+    errs[("fused_rb_chain", case, torch.bfloat16)] = err
+  del x, out, ref
+  torch.cuda.empty_cache()
+  codec_hr_t = dict(time_final(*fd_codec_hr[:4]), max_abs_err=errs[("final_deconv_phase",
+                                                                     fd_codec_hr)])
+  itinf_b8_t = dict(time_final(*fd_itinf_b8[:4]), max_abs_err=errs[("final_deconv_phase",
+                                                                     fd_itinf_b8)])
+  chain_t[f"codec {rb_codec_hr[1]}x{rb_codec_hr[2]} C=192 f32"] = time_rb(rb_codec_hr,
+                                                                         torch.float32)
+  chain_t[f"encode {rb_encode[0][1]}x{rb_encode[0][2]} C=192 bf16"] = time_rb(rb_encode[0],
+                                                                             torch.bfloat16)
   codec_fd = sum(codec_counts[k][tl.STATS.name]
                  for k in ("flagship_compress", "flagship_decompress"))
   codec_k16 = sum(codec_counts[k][jd.STATS.name] for k in ("k16_compress", "k16_decompress"))
@@ -3812,7 +4100,7 @@ def main():
       name=tl.STATS.name, route="cuda",
       source="shallow_ntc_tpu_torch/csrc/final_deconv.cu",
       replaces="shallow_ntc_tpu/ops/pallas/twolayer_final.py:273",
-      launches=rd["launches"][tl.STATS.name], path=RD_PATH,
+      launches=meas["launches"][tl.STATS.name], path=MEASURE_PATH,
       max_abs_err=errs[("final_deconv_phase", cases[1])],
       **decode_t,
       shape=f"B={DECODE_BATCH} mid {mh}x{mw}x768 bf16 (decode)",
@@ -3823,12 +4111,19 @@ def main():
       itinf_bf16_shape=dict(shape=f"B=1 mid {mh}x{mw}x768 bf16 (SGA step, bf16 transforms)",
                             max_abs_err=errs[("final_deconv_phase", fd_itinf_bf16)],
                             **itinf_bf16_t),
+      codec_2048x1536_shape=dict(
+          shape=f"B=1 mid {fd_codec_hr[1]}x{fd_codec_hr[2]}x768 f32 (the 2048x1536 codec)",
+          **codec_hr_t),
+      itinf_b8_f32_shape=dict(shape=f"B={DECODE_BATCH} mid {mh}x{mw}x768 f32 (SGA step at B=8)",
+                              **itinf_b8_t),
       decode_mpx_per_s=pixels / decode_ms / 1e3)]
-  # Launches: this slice's path is the R-D result tools' GPU processes
-  # (phase 22, each counted from 0): "launches" of final_deconv_phase and
-  # fused_rb_chain. fused_resblock and jpegl_synthesize, which it does not
-  # run, keep phase 20's counted forwards ("path" says which). The earlier
-  # slices' paths beside them: the converted full-width flagship's eval with
+  # Launches: this slice's path is the measurement CLIs' GPU processes
+  # (phase 23, each counted from 0, and its in-process analysis of the
+  # 2048x1536 image): "launches" of final_deconv_phase and fused_rb_chain.
+  # fused_resblock and jpegl_synthesize, which it does not run, keep phase
+  # 20's counted forwards ("path" says which). The earlier slices' paths
+  # beside them: the R-D result tools' GPU processes (phase 22,
+  # "rd-pipeline <process>"), the converted full-width flagship's eval with
   # the chain (phase 21, "tf-checkpoint <path>"), phase 20's counted
   # forwards ("flops <path>"), the image input (phase
   # 19: the train CLI of two_layer_syn.py on JPEGs, in its own process, and
@@ -3845,6 +4140,7 @@ def main():
   # SNTC_FUSED_RESBLOCK=1 (fused_resblock's own path, phase 4), the K16 eval
   # of phase 9. The chain's times are at train stage 1 in f32.
   kernels[0]["launches_by_path"] = {
+      **{f"measure {k}": v[tl.STATS.name] for k, v in meas["launches_by_process"].items()},
       **{f"rd-pipeline {k}": v[tl.STATS.name] for k, v in rd["launches_by_process"].items()},
       "tf-checkpoint flagship eval": tf_ckpt["launches"][tl.STATS.name],
       "tf-checkpoint fixture GPU eval": tf_ckpt["fixture"]["reference_launches"][tl.STATS.name],
@@ -3869,11 +4165,15 @@ def main():
   kernels[0]["flops"] = flops
   kernels[0]["tf_checkpoint"] = tf_ckpt
   kernels[0]["rd_pipeline"] = rd
+  kernels[0]["measure"] = meas
   kernels.append(dict(
       name=rb.STATS.name, route="cuda", source="shallow_ntc_tpu_torch/csrc/rb_chain.cu",
       replaces="shallow_ntc_tpu/ops/pallas/rb_chain.py:263",
-      launches=rd["launches"][rb.STATS.name], path=RD_PATH,
-      launches_by_path={**{f"rd-pipeline {k}": v[rb.STATS.name]
+      launches=meas["launches"][rb.STATS.name], path=MEASURE_PATH,
+      launches_by_path={**{f"measure {k}": v[rb.STATS.name]
+                           for k, v in meas["launches_by_process"].items()},
+                        "measure latents vs cpu": meas["latents_vs_cpu"]["chain_launches"],
+                        **{f"rd-pipeline {k}": v[rb.STATS.name]
                            for k, v in rd["launches_by_process"].items()},
                         "tf-checkpoint flagship eval": tf_ckpt["launches"][rb.STATS.name],
                         **{f"flops {k}": v[rb.STATS.name] for k, v in flops["launches"].items()},

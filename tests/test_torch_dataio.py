@@ -401,6 +401,11 @@ def test_port_scripts_and_smoke_import_no_jax_or_pil():
       os.path.join("scripts", f"torch_{name}.py") for name in (
           "itinf_to_results", "measure_codec_overhead", "int8_quality", "vis_syn_filters",
           "recompute_itinf_metrics")} <= {os.path.relpath(f, REPO) for f in files}
+  # The measurement layer: the package module and its CLIs.
+  assert {os.path.join("shallow_ntc_tpu_torch", "measure.py")} | {
+      os.path.join("scripts", f"torch_{name}.py") for name in (
+          "spatial_codec_e2e", "codec_latency", "codec_e2e_bench", "itinf_bench", "bench_suite",
+          "encode_roofline")} <= {os.path.relpath(f, REPO) for f in files}
   bad = {os.path.relpath(f, REPO): sorted(set(_imported_roots(f)) & _FORBIDDEN) for f in files}
   assert not {k: v for k, v in bad.items() if v}
   tensorboard = [os.path.relpath(f, REPO) for f in files if "tensorboardX" in _imported_roots(f)]

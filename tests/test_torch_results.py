@@ -344,14 +344,23 @@ def test_recompute_itinf_metrics_matches_jax(rd, jax_reads_port_workdirs, tmp_pa
       k for k in port[1] if k != "batch_id"}
 
 
+# The measurement CLIs (shallow_ntc_tpu_torch/measure.py) and whether each takes --workdir.
+MEASURE_CLIS = {"torch_spatial_codec_e2e": True, "torch_codec_latency": True,
+                "torch_codec_e2e_bench": True, "torch_itinf_bench": True,
+                "torch_bench_suite": False, "torch_encode_roofline": False}
+
+
 @pytest.mark.parametrize("name", ["torch_measure_codec_overhead", "torch_int8_quality",
-                                  "torch_vis_syn_filters", "torch_recompute_itinf_metrics"])
+                                  "torch_vis_syn_filters", "torch_recompute_itinf_metrics",
+                                  *MEASURE_CLIS])
 def test_clis_default_to_the_card(rd, name, tmp_path, monkeypatch):
   """Without --device each CLI runs on CUDA, so here it raises."""
   monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
   arg = (["--itinf_glob", os.path.join(os.path.dirname(rd["itinf"]), "*")]
          if name == "torch_recompute_itinf_metrics" else ["--workdir", rd["workdir"]])
-  if name == "torch_vis_syn_filters":
+  if name in MEASURE_CLIS:
+    arg = (arg if MEASURE_CLIS[name] else []) + ["--out", str(tmp_path / "x.json")]
+  elif name == "torch_vis_syn_filters":
     arg += ["--out", str(tmp_path / "x.png")]
   elif name == "torch_int8_quality":
     arg += ["--out", str(tmp_path / "x.json"), "--dataset", rd["pngs"]]
