@@ -228,6 +228,14 @@ Phases, one flushed line each with its seconds (TF32 off throughout):
                1024x768 C=192 N=3 f32 and at the encode's B=8 bf16 chain
                stages (256x384, 128x192, 64x96 C=192), each against its
                plain version; all but the last two timed beside the bound.
+ 24. rd-sweep  the R-D sweep (scripts/torch_rd_run.py) in a process
+               of its own: --config bls2017_rd --hids 3 at 192 filters, 20
+               train steps on 16 dead-leaves PNGs, eval of 2 at 512x768 (the
+               other stages skipped); the point's record, its aggregate row,
+               its eval against the eval CLI's --device cpu pass on the same
+               workdir (PSNR and MSE within phase 13's rtol 1e-3, bpp
+               reported), no kernel launched (the factorized family has
+               none), a second invocation that skips the point; within 90 s.
 Phase 11 also times the B=8 bf16 decodes of bls2017_rd, two_layer_syn2 and
 mbt2018.
 Then one JSON line of kernels, the nvidia-smi line, and the last line
@@ -2112,6 +2120,99 @@ MEASURE_PATH = ("measure: the measurement CLIs on the card, each in its own proc
                 "y of the 2048x1536 image against the CPU")
 MEASURE_SECONDS = 270  # the phase's bound: 1.5x its slowest run, 177 s (its target: ~150 s)
 MEASURE_SGA_STEPS = (16, 64)  # itinf_bench's marginal between these (its default 64, 256)
+
+
+RD_SWEEP_SECONDS = 90  # phase 24's bound
+RD_SWEEP_ARGS = ["--config", "bls2017_rd", "--hids", "3", "--num_train", "16", "--num_eval",
+                 "2", "--skip", "codec_overhead,int8_quality,train_curves,basis",
+                 *(f"--train_override=train_eval_config.{k}=20" for k in (
+                     "num_steps", "checkpoint_every_steps", "eval_every_steps")),
+                 "--train_override=train_eval_config.max_validation_steps=1"]
+
+
+def rd_sweep_phase(smi, tmp):
+  """Phase 24: a rehearsal of the R-D sweep (scripts/torch_rd_run.py)
+  on the card, in a process of its own as a user starts it: bls2017_rd.py
+  --hid 3 (rd_lambda 0.01, 192 filters) trained 20 steps on 16 dead-leaves
+  PNGs and evaluated on 2 at 512x768, the stages but train and eval
+  skipped. Held: the point's run record and aggregate row; its eval JSON
+  against the eval CLI's --device cpu pass on the same workdir (PSNR and
+  MSE within phase 13's rtol 1e-3; bpp reported: the sign trick's floor,
+  ROADMAP queue 3 entry 2); no kernel launched (the factorized family has
+  none); a second invocation (beside the CPU's eval) skips the point,
+  makes no data and trains nothing; the phase within RD_SWEEP_SECONDS."""
+  phase = "rd-sweep"
+  t_phase = time.time()
+  root = os.path.dirname(os.path.abspath(__file__))
+  env = dict(os.environ, PYTHONPATH=root)
+  for key in ("SNTC_FUSED_RB_CHAIN", "SNTC_FUSED_RESBLOCK", "SNTC_INT8_DECODE",
+              "SNTC_INT8_ENCODE"):
+    env.pop(key, None)
+  argv = [sys.executable, os.path.join(root, "scripts", "torch_rd_run.py"), *RD_SWEEP_ARGS,
+          "--root", os.path.join(tmp, "root"), "--out", os.path.join(tmp, "out")]
+  out = os.path.join(tmp, "out")
+  record = os.path.join(out, "bls2017_rd_hid3", "run.json")
+
+  def drive():
+    t = time.time()
+    proc = subprocess.run(argv, cwd=tmp, env=env, capture_output=True, text=True, timeout=300)
+    if proc.returncode:
+      print(proc.stdout[-4000:], proc.stderr[-8000:], file=sys.stderr, flush=True)
+      raise RuntimeError(f"torch_rd_run.py exited with {proc.returncode}")
+    return time.time() - t, proc.stdout
+
+  runs = [drive()]
+  with open(record) as f:
+    run = json.load(f)
+  with open(os.path.join(out, "aggregate.json")) as f:
+    agg = json.load(f)
+  launches = {k: sum(step["launches"][k] for step in run["steps"].values())
+              for k in run["steps"]["train"]["launches"]}
+  train_ms = run["train_step_ms"][-1] if run["train_step_ms"] else float("nan")
+  log(phase, f"torch_rd_run.py in {runs[0][0]:.1f} s: {sorted(run['steps'])} to the checkpoint of "
+      f"step {run['checkpoint_step']} ({run['train_end']}), {train_ms:.2f} ms a step at the "
+      f"last log; stages left out {sorted(run['skipped'])}; the factorized family launches no "
+      f"kernel: {launches}")
+  check(run["checkpoint_step"] == 20 and set(run["steps"]) == {"train", "eval"}
+        and not any(launches.values()), f"the sweep's point: {run}")
+  check(sorted(agg) == ["factorized"] and agg["factorized"]["rd_lambda"] == [0.01]
+        and agg["factorized"]["num_images"] == [2], f"the aggregate: {agg}")
+  (gpu_json,) = glob_lib.glob(os.path.join(out, "json", "factorized-*.json"))
+  cpu_dir = os.path.join(tmp, "cpu_json")
+  # The CPU's eval of the workdir beside a second invocation of the sweep.
+  stamp = os.stat(record).st_mtime_ns
+  with concurrent.futures.ThreadPoolExecutor(2) as pool:
+    rerun = pool.submit(drive)
+    cpu_eval = pool.submit(
+        run_counted, phase, tmp, dict(env, SHALLOW_NTC_PROJECT_DIR=os.path.join(tmp, "root")),
+        "eval-cpu", "shallow_ntc_tpu_torch.eval",
+        ["--workdir", os.path.join(tmp, "root", run["workdir"]), "--dataset", "deadleaves_eval",
+         "--results_dir", cpu_dir, "--device", "cpu"])
+    runs.append(rerun.result())
+    cpu_eval.result()
+  with open(gpu_json) as f:
+    gpu = json.load(f)
+  with open(os.path.join(cpu_dir, os.path.basename(gpu_json))) as f:
+    cpu = json.load(f)
+  worst = {}
+  for g, c in zip(gpu, cpu):
+    rel = {k: abs(g[k] - c[k]) / abs(c[k]) for k in ("psnr", "mse", "bpp")}
+    worst = {k: max(worst.get(k, 0.0), v) for k, v in rel.items()}
+    log(phase, f"eval image {g['instance_id']}: gpu psnr {g['psnr']:.5f} bpp {g['bpp']:.5f}, cpu "
+        f"psnr {c['psnr']:.5f} bpp {c['bpp']:.5f}; rel psnr {rel['psnr']:.2e}, mse "
+        f"{rel['mse']:.2e} (tol 1e-3), bpp {rel['bpp']:.2e} (reported)")
+  check(len(gpu) == len(cpu) == 2 and max(worst["psnr"], worst["mse"]) <= 1e-3,
+        f"the sweep's factorized eval, card against CPU: {worst}")
+  skipped = ("bls2017_rd_hid3: skipped" in runs[1][1] and "data: not needed" in runs[1][1]
+             and os.stat(record).st_mtime_ns == stamp)
+  log(phase, f"a second invocation in {runs[1][0]:.1f} s skips the finished point (no data, no "
+      f"training, its record untouched): {skipped}")
+  check(skipped, f"the second invocation did not skip the point: {runs[1][1][-2000:]}")
+  summary = dict(seconds=time.time() - t_phase, sweep_s=runs[0][0], rerun_s=runs[1][0],
+                 train_step_ms=train_ms, launches=launches, gpu_vs_cpu=worst)
+  log(phase, f"{summary['seconds']:.1f} s (bound {RD_SWEEP_SECONDS} s)  [{smi}]")
+  check(summary["seconds"] <= RD_SWEEP_SECONDS, f"phase 24 took {summary['seconds']:.1f} s")
+  return summary
 
 
 def spatial_launches(strips):
@@ -4092,6 +4193,11 @@ def main():
                                                                          torch.float32)
   chain_t[f"encode {rb_encode[0][1]}x{rb_encode[0][2]} C=192 bf16"] = time_rb(rb_encode[0],
                                                                              torch.bfloat16)
+
+  # --- 24. rd-sweep: the R-D sweep script, a factorized point -------------
+  with tempfile.TemporaryDirectory() as sweep_tmp:
+    rd_sweep_phase(smi, sweep_tmp)
+
   codec_fd = sum(codec_counts[k][tl.STATS.name]
                  for k in ("flagship_compress", "flagship_decompress"))
   codec_k16 = sum(codec_counts[k][jd.STATS.name] for k in ("k16_compress", "k16_decompress"))

@@ -24,3 +24,9 @@ def build_model(model_config: Mapping[str, Any], family: str,
   optimizer_config = cfg.pop("optimizer_config", None) or {}
   cfg["offset_heuristic"] = base.effective_offset_heuristic(cfg)
   return (model_cls or FAMILIES[family])(**cfg), optimizer_config
+
+
+# Each family's train and itinf CLIs (python -m <module>), as the JAX
+# package's shallow_ntc_tpu/<family>/train.py and itinf.py.
+TRAIN_MODULES = {family: f"shallow_ntc_tpu_torch.{family}.train" for family in FAMILIES}
+ITINF_MODULES = {family: f"shallow_ntc_tpu_torch.{family}.itinf" for family in FAMILIES}

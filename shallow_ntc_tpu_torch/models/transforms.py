@@ -57,8 +57,7 @@ class Conv(nn.Module):
     h_lo, h_hi = profiling.same_pads(x.shape[1], k, s)
     w_lo, w_hi = profiling.same_pads(x.shape[2], k, s)
     if s == 1 and x.shape[-1] >= 32 and int8ops.encode_enabled():
-      out = int8ops.conv_s1_int8(x, self.kernel.to(x.dtype), h_lo, h_hi, x.dtype)
-      return out + self.bias.to(out.dtype)
+      return int8ops.conv_s1_int8(x, self.kernel.to(x.dtype), h_lo, h_hi, x.dtype, self.bias)
     xn = x.permute(0, 3, 1, 2)
     weight = self.kernel.to(x.dtype).permute(3, 2, 0, 1)
     if h_lo == h_hi and w_lo == w_hi:

@@ -27,15 +27,18 @@ import torch.nn.functional as F
 from shallow_ntc_tpu_torch.ops import int8ops
 
 
-def conv_s1(x: torch.Tensor, w_hwio: torch.Tensor, pad_lo: int, pad_hi: int) -> torch.Tensor:
+def conv_s1(x: torch.Tensor, w_hwio: torch.Tensor, pad_lo: int, pad_hi: int,
+            bias: Optional[torch.Tensor] = None) -> torch.Tensor:
   """Stride-1 conv of NHWC `x` with an HWIO kernel, padded (lo, hi) per axis,
-  int8 under the decode gate.
+  plus `bias` (one value per output channel) where given; int8 under the
+  decode gate (int8ops.conv_s1_int8 adds the bias as JAX's fused path).
 
   Negative pads crop, as lax.conv_general_dilated's do.
   """
   if int8ops.enabled():
-    return int8ops.conv_s1_int8(x, w_hwio, pad_lo, pad_hi, x.dtype)
-  return _conv_s1_float(x, w_hwio, pad_lo, pad_hi)
+    return int8ops.conv_s1_int8(x, w_hwio, pad_lo, pad_hi, x.dtype, bias)
+  out = _conv_s1_float(x, w_hwio, pad_lo, pad_hi)
+  return out if bias is None else out + bias.to(out.dtype)
 
 
 def _conv_s1_float(x: torch.Tensor, w_hwio: torch.Tensor, pad_lo: int,
@@ -93,10 +96,8 @@ def phase_conv(z: torch.Tensor, kernel: torch.Tensor, bias: Optional[torch.Tenso
   """
   s = stride
   w_phase, dmin, T = phase_kernel(kernel, s)
-  out = conv_s1(z, w_phase.to(z.dtype), -dmin, T - 1 + dmin)
-  if bias is not None:
-    out = out + bias.repeat(s * s).to(out.dtype)
-  return out
+  return conv_s1(z, w_phase.to(z.dtype), -dmin, T - 1 + dmin,
+                 None if bias is None else bias.repeat(s * s))
 
 
 def gdn(x: torch.Tensor, beta: torch.Tensor, gamma: torch.Tensor, inverse: bool,
@@ -213,9 +214,7 @@ def fast_conv_transpose(z: torch.Tensor, kernel: torch.Tensor,
   if k < s:
     raise ValueError(f"kernel {k} smaller than stride {s} is not supported")
   if int8ops.enabled():
-    w_phase, dmin, T = phase_kernel(kernel.to(z.dtype), s)
-    out = depth_to_space(conv_s1(z, w_phase, -dmin, T - 1 + dmin), s)
-    return out if bias is None else out + bias.to(out.dtype)
+    return depth_to_space(phase_conv(z, kernel.to(z.dtype), bias, s), s)
   q = max(k - s, 0) // 2
   h, w = z.shape[1], z.shape[2]
   weight = kernel.flip(0, 1).permute(2, 3, 0, 1).to(z.dtype)  # [C_in, C_out, k, k]

@@ -202,10 +202,24 @@ def int8_operands(x: torch.Tensor, w_hwio: torch.Tensor, pad_lo: int, pad_hi: in
 
 
 def conv_s1_int8(x: torch.Tensor, w_hwio: torch.Tensor, pad_lo: int, pad_hi: int,
-                 out_dtype: torch.dtype) -> torch.Tensor:
+                 out_dtype: torch.dtype, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
   """Stride-1 conv of NHWC x with an HWIO kernel, padded (lo, hi) per axis,
-  on int8 operands; float32 rescale, then out_dtype. Drop-in for
-  fast_deconv.conv_s1 (JAX: int8ops.conv_s1_int8 at the same pads)."""
+  on int8 operands; float32 rescale, then out_dtype, plus `bias` (one value
+  per output channel) where given. Drop-in for fast_deconv.conv_s1 (JAX:
+  int8ops.conv_s1_int8 at the same pads, and the bias add after it).
+
+  In float32 the JAX package's jitted paths fuse the rescale and the bias
+  add into one multiply-add, rounded once. So does this: the float32
+  product of the int32 sum and the scale is exact in float64, and its sum
+  with the bias rounds once there and once more to float32, which differs
+  from one rounding only where float64 lands on a float32 tie. In bfloat16
+  the rescale rounds to bfloat16 before the add, in both packages."""
   cols, b_t, sw, ho, wo = int8_operands(x, w_hwio, pad_lo, pad_hi)
-  out = (int8_matmul(cols, b_t).float() * sw).to(out_dtype)
+  acc = int8_matmul(cols, b_t).float()
+  if bias is None:
+    out = (acc * sw).to(out_dtype)
+  elif out_dtype == torch.float32:
+    out = (acc.double() * sw.double() + bias.double()).float()
+  else:
+    out = (acc * sw).to(out_dtype) + bias.to(out_dtype)
   return out.reshape(x.shape[0], ho, wo, -1)

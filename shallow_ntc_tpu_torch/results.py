@@ -13,6 +13,9 @@ scripts/torch_<name>.py):
                              the rest (CDF quantization)
   int8_quality               scripts/int8_quality.py: the eval in float,
                              int8_syn and int8_all (ops/int8ops.py)
+  int8_hyper_ranges          what int8_all does to the hyper-decoder: its
+                             convs' input ranges and folded weights, the
+                             scale indexes and mu it moves
   synthesis_basis            scripts/vis_syn_filters.py: the decoder's basis
                              functions g(e_i) - g(0), tiled into a PNG
   recompute_itinf_metrics    scripts/recompute_itinf_metrics.py: the val
@@ -105,7 +108,8 @@ def codec_overhead(model: nn.Module, images: Iterable, max_images: int = 8) -> D
   header_bpp is the framing read from the bitstream (header, stripe counts
   and lengths); the JAX script writes a fixed 18 bytes there. Also
   real_bytes and likelihood_latent_bpp (y's part of the likelihood: z's
-  part can differ across devices where its prior's probability floors).
+  part can differ across devices where its prior's probability floors; the
+  whole bpp of the factorized family, whose one latent is y).
   Returns the means with the JAX script's keys, per_image included."""
   from shallow_ntc_tpu_torch.codec import api as codec_api
 
@@ -132,7 +136,8 @@ def codec_overhead(model: nn.Module, images: Iterable, max_images: int = 8) -> D
         instance_id=i, h=h, w=w, likelihood_bpp=like_bpp, real_bpp=real_bpp,
         overhead_pct=100.0 * (real_bpp - like_bpp) / like_bpp, header_bpp=header_bpp,
         flush_bpp=flush_bpp, coding_bpp=real_bpp - like_bpp - header_bpp - flush_bpp,
-        real_bytes=len(result.bitstring), likelihood_latent_bpp=float(metrics["latent_bpp"]),
+        real_bytes=len(result.bitstring),
+        likelihood_latent_bpp=float(metrics.get("latent_bpp", like_bpp)),
         psnr=float(metrics["psnr"]),
         roundtrip_lossless=bool(lossless)))
   if not rows:
@@ -176,6 +181,85 @@ def int8_quality(model: nn.Module, images: Sequence) -> Dict:
         v = float(np.mean([r[f"{arm}_{k}"] for r in per_image]))
         summary[k].update({arm: v, f"{arm}_delta": v - f32})
   return {"num_images": len(per_image), "summary": summary, "per_image": per_image}
+
+
+def hyper_latents(model: nn.Module, images: Sequence) -> List[torch.Tensor]:
+  """The z_hat that the float eval (eval_lib.evaluate_images) gives the
+  hyper-decoder, one [1, h, w, C] float32 tensor per image."""
+  z_hats = []
+  hook = model._hyper_synthesis.register_forward_pre_hook(
+      lambda module, inputs: z_hats.append(inputs[0].detach().float()))
+  try:
+    with int8ops.decode_mode(""):
+      for _ in eval_lib.evaluate_images(model, images):
+        pass
+  finally:
+    hook.remove()
+  return z_hats
+
+
+@torch.no_grad()
+def int8_hyper_ranges(hyper_synthesize, z_hats: Sequence[torch.Tensor]) -> Dict:
+  """What int8_all does to the hyper-decoder, image by image:
+  `hyper_synthesize` (z_hat -> (mu, scale indexes), an mshyper model's) once
+  in float and once under decode_mode("all"), where each int8 conv
+  (int8ops.conv_s1_int8, in call order: the HyperSynthesis convs) records
+  its input's per-channel absmax (the activation scales times 127), the
+  largest weight after those scales are folded in, and the share of folded
+  weights that quantize to 0. Per conv: "input_absmax" (per input channel,
+  the largest over the images), its max and median, "folded_weight_absmax"
+  (the largest over the images) and "zero_weight_share" (the mean). Per
+  image and in all: the scale indexes (rounded and clipped as the codec's
+  tables snap them) that int8 changes, their count, and the largest
+  |mu_int8 - mu_float|."""
+  from shallow_ntc_tpu_torch.ops import entropy
+
+  convs: List[Dict] = []
+  calls: List[Dict] = []
+
+  def recording(x, w_hwio, pad_lo, pad_hi, out_dtype, bias=None):
+    absmax = x.float().abs().amax(dim=tuple(range(x.ndim - 1)))
+    _, sx = int8ops.quantize_act_per_channel(x)
+    folded = w_hwio.float() * sx[:, None]
+    wq, _ = int8ops.quantize_weight_per_cout(folded)
+    calls.append(dict(absmax=absmax.cpu().numpy(), folded=float(folded.abs().max()),
+                      zero=float((wq == 0).float().mean())))
+    return conv_s1_int8(x, w_hwio, pad_lo, pad_hi, out_dtype, bias)
+
+  def snap(idx):
+    return torch.clamp(torch.round(entropy.normalize_indexes(idx.float())), 0,
+                       entropy.NUM_SCALES - 1)
+
+  conv_s1_int8 = int8ops.conv_s1_int8
+  per_image = []
+  for z in z_hats:
+    with int8ops.decode_mode(""):
+      mu_f, idx_f = hyper_synthesize(z)
+    calls.clear()
+    int8ops.conv_s1_int8 = recording
+    try:
+      with int8ops.decode_mode("all"):
+        mu_q, idx_q = hyper_synthesize(z)
+    finally:
+      int8ops.conv_s1_int8 = conv_s1_int8
+    if not convs:
+      convs = [dict(absmax=np.zeros_like(c["absmax"]), folded=0.0, zero=[]) for c in calls]
+    for agg, c in zip(convs, calls):
+      agg["absmax"] = np.maximum(agg["absmax"], c["absmax"])
+      agg["folded"] = max(agg["folded"], c["folded"])
+      agg["zero"].append(c["zero"])
+    changed = snap(idx_q) != snap(idx_f)
+    per_image.append(dict(index_changed=int(changed.sum()), index_count=changed.numel(),
+                          max_abs_dmu=float((mu_q.float() - mu_f.float()).abs().max())))
+  return dict(
+      convs=[dict(input_absmax=c["absmax"].tolist(), input_absmax_max=float(c["absmax"].max()),
+                  input_absmax_median=float(np.median(c["absmax"])),
+                  folded_weight_absmax=c["folded"],
+                  zero_weight_share=float(np.mean(c["zero"])))
+             for c in convs],
+      index_changed=sum(r["index_changed"] for r in per_image),
+      index_count=sum(r["index_count"] for r in per_image),
+      max_abs_dmu=max(r["max_abs_dmu"] for r in per_image), per_image=per_image)
 
 
 # ---------------------------------------------------------------------------

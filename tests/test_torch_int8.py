@@ -4,11 +4,10 @@ JAX package's on the CPU.
 The JAX side runs under jit, as every JAX path that quantizes does (eval,
 codec, bench), so its scales are absmax times float32(1/127), XLA's rewrite
 of the division by 127 (ops/int8ops.py). The quantizers, conv_s1_int8 and
-the phase convs without a bias are held bit for bit (atol 0, in float32 and
-bfloat16). With a bias, XLA fuses the float32 rescale and the bias add into
-one rounding, where the port rounds twice: those outputs are held within
-2**-22 * max|out| (one float32 ulp of the largest output). Model evals are
-held as the float ones are, at rtol 1e-4 on bpp and PSNR.
+the phase convs are held bit for bit (atol 0, in float32 and bfloat16),
+with and without a bias: XLA fuses the float32 rescale and the bias add
+into one rounding, and so does the port (int8ops.conv_s1_int8). Model evals
+are held as the float ones are, at rtol 1e-4 on bpp and PSNR.
 """
 
 import copy
@@ -89,17 +88,25 @@ def test_quantizers_equal_jax_bit_for_bit(name, dtype):
 def test_conv_s1_int8_equals_jax(k, pads, c_in, c_out, dtype):
   """Kernels and pads of the phase convs and the encode gate, channel counts
   that are no multiple of 8 (the GEMM's zero padding) and a product of 9
-  rows (M < 17)."""
+  rows (M < 17); without a bias, and with one added as the JAX package's
+  Conv adds it under the encode gate (transforms.py:233-234)."""
   rng = np.random.default_rng(k * 100 + c_in)
   x = rand(rng, (1, 3, 3, c_in)) * np.linspace(0.1, 3.0, c_in, dtype=np.float32)
   w = rand(rng, (k, k, c_in, c_out), 0.1)
+  bias = rand(rng, (c_out,), 0.1)
   jx, tx = _both(x, dtype)
   jw, tw = _both(w, dtype)
-  ref = jax.jit(lambda a, b: jax_int8.conv_s1_int8(
-      a, b, [pads, pads], ("NHWC", "HWIO", "NHWC"), a.dtype))(jx, jw)
-  out = int8ops.conv_s1_int8(tx, tw, pads[0], pads[1], tx.dtype)
-  assert out.dtype == tx.dtype and out.shape == ref.shape
-  np.testing.assert_array_equal(_np(out), _np(ref))
+
+  @jax.jit
+  def ref_fn(a, b, bias):
+    out = jax_int8.conv_s1_int8(a, b, [pads, pads], ("NHWC", "HWIO", "NHWC"), a.dtype)
+    return out if bias is None else out + bias.astype(out.dtype)
+
+  for b_j, b_t in ((None, None), (jnp.asarray(bias), torch.from_numpy(bias))):
+    ref = ref_fn(jx, jw, b_j)
+    out = int8ops.conv_s1_int8(tx, tw, pads[0], pads[1], tx.dtype, b_t)
+    assert out.dtype == tx.dtype and out.shape == ref.shape
+    np.testing.assert_array_equal(_np(out), _np(ref))
 
 
 def test_int8_matmul_is_exact_at_padded_shapes():
@@ -127,7 +134,7 @@ def test_fast_conv_transpose_int8_equals_jax(k, s, b, c_in, c_out, dtype):
   """fast_conv_transpose with the gate on: JAX's phase kernel quantized per
   (phase, c_out), whether JAX takes the dense phase conv or the grouped
   pieces; and the phase conv itself against JAX's dense and grouped ones.
-  Bit for bit without a bias; with one, within a float32 ulp (see above)."""
+  Bit for bit, with and without a bias."""
   rng = np.random.default_rng(k * 10 + b)
   jz, tz = _both(rand(rng, (b, 3, 5, c_in)), dtype)
   jw, tw = _both(rand(rng, (k, k, c_in, c_out), 0.1), dtype)
@@ -144,9 +151,8 @@ def test_fast_conv_transpose_int8_equals_jax(k, s, b, c_in, c_out, dtype):
     with int8ops.force(True):
       out = _np(fd.fast_conv_transpose(tz, tw, b_t, s))
       out_p = _np(fd.phase_conv(tz, tw, b_t, s))
-    atol = 0 if b_j is None or dtype == "bfloat16" else 2**-22 * np.abs(refs[0]).max()
     for got, ref in ((out, refs[0]), (out_p, refs[1]), (out_p, refs[2])):
-      np.testing.assert_allclose(got, ref, rtol=0, atol=atol)
+      np.testing.assert_array_equal(got, ref)
   # The gate did quantize: within ~1% of the float result, not equal to it.
   flt = fd.fast_conv_transpose(tz.float(), tw.float(), torch.from_numpy(bias), s)
   err = np.abs(out - _np(flt)).max() / np.abs(_np(flt)).max()
@@ -382,3 +388,47 @@ def test_flagship_init_params_cover_the_d2s_and_elic_synthesis():
     with torch.no_grad():
       out = module(to_torch(rand(np.random.default_rng(0), (1, 2, 3, 16))))
     assert torch.isfinite(out).all()
+
+
+def test_saved_hyper_decoder_under_int8_all_matches_jax(tmp_path):
+  """scripts/torch_int8_quality.py --ranges --save_hyper on a port workdir
+  (the narrow flagship trained one step), then
+  scripts/parity_int8_hyper.py's comparison on that .npz: JAX's jitted
+  int8_all hyper-decoder and the port's give the same scale indexes and mu
+  (its tolerance), and the first conv's input ranges (z_hat's per-channel
+  absmax, no weight involved) equal the card-side record's."""
+  import importlib.util
+
+  from shallow_ntc_tpu_torch import configs, data as data_lib, deadleaves, train_lib
+
+  repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+  def script(name):
+    spec = importlib.util.spec_from_file_location(f"_{name}", os.path.join(repo, "scripts",
+                                                                        f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+  workdir = str(tmp_path / "wd")
+  train_lib.train_and_eval(configs.TRAIN_CONFIGS["smoke"], workdir, device="cpu", num_steps=1)
+  data_lib.write_png(str(tmp_path / "eval" / "dle000.png"),
+                     deadleaves.deadleaves_image(900000, 64, 96))
+  npz = str(tmp_path / "hyper.npz")
+  out = script("torch_int8_quality").main(
+      ["--workdir", workdir, "--dataset", str(tmp_path / "eval" / "*.png"), "--ranges",
+       "--save_hyper", npz, "--out", str(tmp_path / "q.json"), "--device", "cpu"])
+  parity = script("parity_int8_hyper")
+  hyper, z_hats, step = parity.npz_source(npz)
+  assert step == 1 and len(z_hats) == 1
+  assert {k: v.shape for k, v in hyper.items()} == {
+      k.replace(".", "/"): tuple(v.shape)
+      for k, v in eval_lib.load_latest_ckpt(workdir, device="cpu")[0]
+      ._hyper_synthesis.state_dict().items()}
+  record, failures = parity.compare(hyper, z_hats)
+  assert failures == []
+  summary = record["summary"]
+  assert summary["index_mismatch_all"] == summary["mu_all_beyond_tol"] == 0
+  assert summary["index_count"] == out["hyper_ranges"]["index_count"]
+  assert record["convs"][0]["input_absmax"] == out["hyper_ranges"]["convs"][0]["input_absmax"]
+  assert [c["input_absmax_jax_vs_port"] for c in record["convs"]][0] == 0.0

@@ -352,13 +352,15 @@ MEASURE_CLIS = {"torch_spatial_codec_e2e": True, "torch_codec_latency": True,
 
 @pytest.mark.parametrize("name", ["torch_measure_codec_overhead", "torch_int8_quality",
                                   "torch_vis_syn_filters", "torch_recompute_itinf_metrics",
-                                  *MEASURE_CLIS])
+                                  "torch_rd_run", *MEASURE_CLIS])
 def test_clis_default_to_the_card(rd, name, tmp_path, monkeypatch):
   """Without --device each CLI runs on CUDA, so here it raises."""
   monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
   arg = (["--itinf_glob", os.path.join(os.path.dirname(rd["itinf"]), "*")]
          if name == "torch_recompute_itinf_metrics" else ["--workdir", rd["workdir"]])
-  if name in MEASURE_CLIS:
+  if name == "torch_rd_run":
+    arg = ["--root", str(tmp_path / "root"), "--out", str(tmp_path / "out")]
+  elif name in MEASURE_CLIS:
     arg = (arg if MEASURE_CLIS[name] else []) + ["--out", str(tmp_path / "x.json")]
   elif name == "torch_vis_syn_filters":
     arg += ["--out", str(tmp_path / "x.png")]
