@@ -3,7 +3,8 @@
 
   python3 chip_smoke.py
 
-Phases, one flushed line each with its seconds (TF32 off throughout):
+Phases, one flushed line each with its seconds (TF32 off but where a phase
+says otherwise):
   1. build     nvcc builds every CUDA kernel of the main paths (csrc/*.cu),
                one process per source, and g++ the codec's rANS coder
                (codec/rans.cc) and the image loader (dataio/loader.cc), all
@@ -50,7 +51,9 @@ Phases, one flushed line each with its seconds (TF32 off throughout):
  10. train-jpegl  2 steps of jpegl_rd through train_lib.train_and_eval at
                B=8 256x256 f32 with SNTC_FUSED_RB_CHAIN=1: losses finite,
                params moved, no jpegl_synthesize launch (k18).
- 11. timing    the train step with the chain kernel on and off; the chain at
+ 11. timing    the train step with the chain kernel on and off, 4 turns of
+               each, at TF32 off and at TF32 on (the train CLI's default),
+               the spread of the turns logged; the chain at
                each train stage; the B=8 bf16
                decode in Mpx/s of the flagship, jpegl_rd and JPEGL_K16; each
                kernel, its plain version and (where one exists) one PyTorch
@@ -228,14 +231,28 @@ Phases, one flushed line each with its seconds (TF32 off throughout):
                1024x768 C=192 N=3 f32 and at the encode's B=8 bf16 chain
                stages (256x384, 128x192, 64x96 C=192), each against its
                plain version; all but the last two timed beside the bound.
- 24. rd-sweep  the R-D sweep (scripts/torch_rd_run.py) in a process
-               of its own: --config bls2017_rd --hids 3 at 192 filters, 20
-               train steps on 16 dead-leaves PNGs, eval of 2 at 512x768 (the
-               other stages skipped); the point's record, its aggregate row,
-               its eval against the eval CLI's --device cpu pass on the same
-               workdir (PSNR and MSE within phase 13's rtol 1e-3, bpp
-               reported), no kernel launched (the factorized family has
-               none), a second invocation that skips the point; within 90 s.
+ 24. rd-sweep  the R-D sweep (scripts/torch_rd_run.py), two points at once,
+               each in a process of its own: --config bls2017_rd --hids 3 at
+               192 filters, 20 train steps on 16 dead-leaves PNGs, eval of 2
+               at 512x768 (the other stages skipped); the point's record, its
+               aggregate row, its eval against the eval CLI's --device cpu
+               pass on the same workdir (PSNR and MSE within phase 13's rtol
+               1e-3, bpp reported), no kernel launched (the factorized family
+               has none), a second invocation that skips the point. Beside
+               it the flagship's point as a full R-D run starts it:
+               --config two_layer_syn_rd --hids 2 --keep_checkpoints --skip
+               basis at full width, 20 train steps with a checkpoint and a
+               val pass every 10 (the train loop keeps both checkpoints),
+               eval and codec overhead of 2 images, int8 quality with the
+               hyper-decoder's ranges and its --save_hyper .npz of the
+               step-10 and final checkpoints, 10 SGA steps; every stage in
+               order, the departed step as the int8 records and the
+               driver's DEPART_BPP give it, the .npz of the final and the
+               departed checkpoint under --root and no other, the train
+               stage without the chain kernel (final_deconv_phase once a
+               forward), the chain 7 times a forward in the eval and int8
+               passes, the records' hyper_ranges, its aggregate rows;
+               within 305 s.
 Phase 11 also times the B=8 bf16 decodes of bls2017_rd, two_layer_syn2 and
 mbt2018.
 Then one JSON line of kernels, the nvidia-smi line, and the last line
@@ -250,6 +267,7 @@ import glob as glob_lib
 import json
 import os
 import shutil
+import signal
 import socket
 import subprocess
 import sys
@@ -2113,34 +2131,56 @@ def rd_pipeline_phase(experiments, small, smi):
 MEASURE_HW = (2048, 1536)  # scripts/spatial_codec_e2e.py's image
 MEASURE_STRIPS = (1, 2, 4)
 MEASURE_IMAGES = 8  # generated 512x768 dead-leaves PNGs for the codec's latency and batches
-MEASURE_PATH = ("measure: the measurement CLIs on the card, each in its own process: the "
-                "2048x1536 codec unsplit and in 2 and 4 strips with its evals "
-                "(SNTC_FUSED_RB_CHAIN=1), codec latency and batches of 8 512x768 images, SGA "
-                "steps at B=1 and B=8, bench_suite --fast, the encoder's roofline; the card's "
-                "y of the 2048x1536 image against the CPU")
 MEASURE_SECONDS = 270  # the phase's bound: 1.5x its slowest run, 177 s (its target: ~150 s)
 MEASURE_SGA_STEPS = (16, 64)  # itinf_bench's marginal between these (its default 64, 256)
 
 
-RD_SWEEP_SECONDS = 90  # phase 24's bound
+RD_SWEEP_SECONDS = 305  # phase 24's bound: 1.5x its first run with the flagship's point, 203.2 s
 RD_SWEEP_ARGS = ["--config", "bls2017_rd", "--hids", "3", "--num_train", "16", "--num_eval",
                  "2", "--skip", "codec_overhead,int8_quality,train_curves,basis",
                  *(f"--train_override=train_eval_config.{k}=20" for k in (
                      "num_steps", "checkpoint_every_steps", "eval_every_steps")),
                  "--train_override=train_eval_config.max_validation_steps=1"]
+# The flagship's R-D point as a full R-D run starts it (two_layer_syn_rd.py
+# --hid 2, --keep_checkpoints, no basis stage), cut to 20 train steps with a
+# checkpoint and a val pass every 10, 2 eval images and 10 SGA steps.
+RD_FLAGSHIP_STEPS, RD_FLAGSHIP_EVERY, RD_FLAGSHIP_SGA_STEPS = 20, 10, 10
+RD_FLAGSHIP_ARGS = [
+    "--config", "two_layer_syn_rd", "--hids", "2", "--keep_checkpoints", "--skip", "basis",
+    "--num_train", "16", "--num_eval", "2", "--codec_images", "2",
+    f"--train_override=train_eval_config.num_steps={RD_FLAGSHIP_STEPS}",
+    *(f"--train_override=train_eval_config.{k}={RD_FLAGSHIP_EVERY}" for k in (
+        "checkpoint_every_steps", "eval_every_steps")),
+    "--train_override=train_eval_config.max_validation_steps=1",
+    f"--sga_override=train_eval_config.num_steps={RD_FLAGSHIP_SGA_STEPS}",
+    f"--sga_override=train_eval_config.eval_every_steps={RD_FLAGSHIP_SGA_STEPS}"]
+RD_FLAGSHIP_STAGES = ["train", "eval", "codec_overhead", f"int8_quality_step={RD_FLAGSHIP_EVERY}",
+                      "int8_quality", "train_curves", "sga", "itinf_to_results", "recompute"]
+RD_SWEEP_PATH = ("rd-sweep: scripts/torch_rd_run.py --config two_layer_syn_rd --hids 2 "
+                 "--keep_checkpoints at full width, each stage's process counted from 0 (train "
+                 "without the chain kernel; eval, codec overhead, the int8 passes with the "
+                 "hyper-decoder's saves, SGA and its recompute with it)")
 
 
 def rd_sweep_phase(smi, tmp):
-  """Phase 24: a rehearsal of the R-D sweep (scripts/torch_rd_run.py)
-  on the card, in a process of its own as a user starts it: bls2017_rd.py
-  --hid 3 (rd_lambda 0.01, 192 filters) trained 20 steps on 16 dead-leaves
-  PNGs and evaluated on 2 at 512x768, the stages but train and eval
-  skipped. Held: the point's run record and aggregate row; its eval JSON
-  against the eval CLI's --device cpu pass on the same workdir (PSNR and
-  MSE within phase 13's rtol 1e-3; bpp reported: the sign trick's floor,
-  ROADMAP queue 3 entry 2); no kernel launched (the factorized family has
-  none); a second invocation (beside the CPU's eval) skips the point,
-  makes no data and trains nothing; the phase within RD_SWEEP_SECONDS."""
+  """Phase 24: rehearsals of the R-D sweep (scripts/torch_rd_run.py) on the
+  card, each in a process of its own as a user starts it, the two at once.
+  bls2017_rd.py --hid 3 (rd_lambda 0.01, 192 filters) trained 20 steps on
+  16 dead-leaves PNGs and evaluated on 2 at 512x768, the stages but train
+  and eval skipped. Held: the point's run record and aggregate row; its
+  eval JSON against the eval CLI's --device cpu pass on the same workdir
+  (PSNR and MSE within phase 13's rtol 1e-3; bpp reported: the sign trick's
+  floor, ROADMAP queue 3 entry 2); no kernel launched (the factorized family
+  has none); a second invocation (beside the CPU's eval) skips the point,
+  makes no data and trains nothing. Beside it the flagship's point as the
+  full R-D runs start it (RD_FLAGSHIP_ARGS): every stage in order, the
+  kept checkpoint's and the final int8 records with their hyper_ranges, the
+  departed step that those records and DEPART_BPP give, the hyper-decoder
+  .npz of the final and the departed checkpoint under --root, no other and
+  none under --out, the train stage without the chain kernel and
+  final_deconv_phase once a forward, the
+  chain 7 times a forward in the eval and the int8 passes, the eval finite
+  and its aggregate row. The phase within RD_SWEEP_SECONDS."""
   phase = "rd-sweep"
   t_phase = time.time()
   root = os.path.dirname(os.path.abspath(__file__))
@@ -2148,71 +2188,188 @@ def rd_sweep_phase(smi, tmp):
   for key in ("SNTC_FUSED_RB_CHAIN", "SNTC_FUSED_RESBLOCK", "SNTC_INT8_DECODE",
               "SNTC_INT8_ENCODE"):
     env.pop(key, None)
-  argv = [sys.executable, os.path.join(root, "scripts", "torch_rd_run.py"), *RD_SWEEP_ARGS,
-          "--root", os.path.join(tmp, "root"), "--out", os.path.join(tmp, "out")]
+  script = os.path.join(root, "scripts", "torch_rd_run.py")
+  argv = [sys.executable, script, *RD_SWEEP_ARGS, "--root", os.path.join(tmp, "root"), "--out",
+          os.path.join(tmp, "out")]
   out = os.path.join(tmp, "out")
   record = os.path.join(out, "bls2017_rd_hid3", "run.json")
+  flagship_root, flagship_out = os.path.join(tmp, "flagship_root"), os.path.join(tmp, "flagship")
+  flagship_log = open(os.path.join(tmp, "flagship.log"), "w")
+  t_flagship = time.time()
+  flagship = subprocess.Popen(
+      [sys.executable, script, *RD_FLAGSHIP_ARGS, "--root", flagship_root, "--out", flagship_out],
+      cwd=tmp, env=env, stdout=flagship_log, stderr=subprocess.STDOUT, start_new_session=True)
+  try:
 
-  def drive():
-    t = time.time()
-    proc = subprocess.run(argv, cwd=tmp, env=env, capture_output=True, text=True, timeout=300)
-    if proc.returncode:
-      print(proc.stdout[-4000:], proc.stderr[-8000:], file=sys.stderr, flush=True)
-      raise RuntimeError(f"torch_rd_run.py exited with {proc.returncode}")
-    return time.time() - t, proc.stdout
+    def drive():
+      t = time.time()
+      proc = subprocess.run(argv, cwd=tmp, env=env, capture_output=True, text=True, timeout=300)
+      if proc.returncode:
+        print(proc.stdout[-4000:], proc.stderr[-8000:], file=sys.stderr, flush=True)
+        raise RuntimeError(f"torch_rd_run.py exited with {proc.returncode}")
+      return time.time() - t, proc.stdout
 
-  runs = [drive()]
-  with open(record) as f:
-    run = json.load(f)
-  with open(os.path.join(out, "aggregate.json")) as f:
-    agg = json.load(f)
-  launches = {k: sum(step["launches"][k] for step in run["steps"].values())
-              for k in run["steps"]["train"]["launches"]}
-  train_ms = run["train_step_ms"][-1] if run["train_step_ms"] else float("nan")
-  log(phase, f"torch_rd_run.py in {runs[0][0]:.1f} s: {sorted(run['steps'])} to the checkpoint of "
-      f"step {run['checkpoint_step']} ({run['train_end']}), {train_ms:.2f} ms a step at the "
-      f"last log; stages left out {sorted(run['skipped'])}; the factorized family launches no "
-      f"kernel: {launches}")
-  check(run["checkpoint_step"] == 20 and set(run["steps"]) == {"train", "eval"}
-        and not any(launches.values()), f"the sweep's point: {run}")
-  check(sorted(agg) == ["factorized"] and agg["factorized"]["rd_lambda"] == [0.01]
-        and agg["factorized"]["num_images"] == [2], f"the aggregate: {agg}")
-  (gpu_json,) = glob_lib.glob(os.path.join(out, "json", "factorized-*.json"))
-  cpu_dir = os.path.join(tmp, "cpu_json")
-  # The CPU's eval of the workdir beside a second invocation of the sweep.
-  stamp = os.stat(record).st_mtime_ns
-  with concurrent.futures.ThreadPoolExecutor(2) as pool:
-    rerun = pool.submit(drive)
-    cpu_eval = pool.submit(
-        run_counted, phase, tmp, dict(env, SHALLOW_NTC_PROJECT_DIR=os.path.join(tmp, "root")),
-        "eval-cpu", "shallow_ntc_tpu_torch.eval",
-        ["--workdir", os.path.join(tmp, "root", run["workdir"]), "--dataset", "deadleaves_eval",
-         "--results_dir", cpu_dir, "--device", "cpu"])
-    runs.append(rerun.result())
-    cpu_eval.result()
-  with open(gpu_json) as f:
-    gpu = json.load(f)
-  with open(os.path.join(cpu_dir, os.path.basename(gpu_json))) as f:
-    cpu = json.load(f)
-  worst = {}
-  for g, c in zip(gpu, cpu):
-    rel = {k: abs(g[k] - c[k]) / abs(c[k]) for k in ("psnr", "mse", "bpp")}
-    worst = {k: max(worst.get(k, 0.0), v) for k, v in rel.items()}
-    log(phase, f"eval image {g['instance_id']}: gpu psnr {g['psnr']:.5f} bpp {g['bpp']:.5f}, cpu "
-        f"psnr {c['psnr']:.5f} bpp {c['bpp']:.5f}; rel psnr {rel['psnr']:.2e}, mse "
-        f"{rel['mse']:.2e} (tol 1e-3), bpp {rel['bpp']:.2e} (reported)")
-  check(len(gpu) == len(cpu) == 2 and max(worst["psnr"], worst["mse"]) <= 1e-3,
-        f"the sweep's factorized eval, card against CPU: {worst}")
-  skipped = ("bls2017_rd_hid3: skipped" in runs[1][1] and "data: not needed" in runs[1][1]
-             and os.stat(record).st_mtime_ns == stamp)
-  log(phase, f"a second invocation in {runs[1][0]:.1f} s skips the finished point (no data, no "
-      f"training, its record untouched): {skipped}")
-  check(skipped, f"the second invocation did not skip the point: {runs[1][1][-2000:]}")
+    runs = [drive()]
+    with open(record) as f:
+      run = json.load(f)
+    with open(os.path.join(out, "aggregate.json")) as f:
+      agg = json.load(f)
+    launches = {k: sum(step["launches"][k] for step in run["steps"].values())
+                for k in run["steps"]["train"]["launches"]}
+    train_ms = run["train_step_ms"][-1] if run["train_step_ms"] else float("nan")
+    log(phase, f"torch_rd_run.py in {runs[0][0]:.1f} s: {sorted(run['steps'])} to the checkpoint "
+        f"of step {run['checkpoint_step']} ({run['train_end']}), {train_ms:.2f} ms a step at the "
+        f"last log; stages left out {sorted(run['skipped'])}; the factorized family launches no "
+        f"kernel: {launches}")
+    check(run["checkpoint_step"] == 20 and set(run["steps"]) == {"train", "eval"}
+          and not any(launches.values()), f"the sweep's point: {run}")
+    check(sorted(agg) == ["factorized"] and agg["factorized"]["rd_lambda"] == [0.01]
+          and agg["factorized"]["num_images"] == [2], f"the aggregate: {agg}")
+    (gpu_json,) = glob_lib.glob(os.path.join(out, "json", "factorized-*.json"))
+    cpu_dir = os.path.join(tmp, "cpu_json")
+    # The CPU's eval of the workdir beside a second invocation of the sweep.
+    stamp = os.stat(record).st_mtime_ns
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+      rerun = pool.submit(drive)
+      cpu_eval = pool.submit(
+          run_counted, phase, tmp, dict(env, SHALLOW_NTC_PROJECT_DIR=os.path.join(tmp, "root")),
+          "eval-cpu", "shallow_ntc_tpu_torch.eval",
+          ["--workdir", os.path.join(tmp, "root", run["workdir"]), "--dataset",
+           "deadleaves_eval", "--results_dir", cpu_dir, "--device", "cpu"])
+      runs.append(rerun.result())
+      cpu_eval.result()
+    with open(gpu_json) as f:
+      gpu = json.load(f)
+    with open(os.path.join(cpu_dir, os.path.basename(gpu_json))) as f:
+      cpu = json.load(f)
+    worst = {}
+    for g, c in zip(gpu, cpu):
+      rel = {k: abs(g[k] - c[k]) / abs(c[k]) for k in ("psnr", "mse", "bpp")}
+      worst = {k: max(worst.get(k, 0.0), v) for k, v in rel.items()}
+      log(phase, f"eval image {g['instance_id']}: gpu psnr {g['psnr']:.5f} bpp {g['bpp']:.5f}, "
+          f"cpu psnr {c['psnr']:.5f} bpp {c['bpp']:.5f}; rel psnr {rel['psnr']:.2e}, mse "
+          f"{rel['mse']:.2e} (tol 1e-3), bpp {rel['bpp']:.2e} (reported)")
+    check(len(gpu) == len(cpu) == 2 and max(worst["psnr"], worst["mse"]) <= 1e-3,
+          f"the sweep's factorized eval, card against CPU: {worst}")
+    skipped = ("bls2017_rd_hid3: skipped" in runs[1][1] and "data: not needed" in runs[1][1]
+               and os.stat(record).st_mtime_ns == stamp)
+    log(phase, f"a second invocation in {runs[1][0]:.1f} s skips the finished point (no data, no "
+        f"training, its record untouched): {skipped}")
+    check(skipped, f"the second invocation did not skip the point: {runs[1][1][-2000:]}")
+  except BaseException:
+    stop_group(flagship)
+    flagship_log.close()
+    raise
+  flagship_summary = rd_flagship_check(phase, flagship, flagship_log, t_flagship, flagship_root,
+                                       flagship_out)
   summary = dict(seconds=time.time() - t_phase, sweep_s=runs[0][0], rerun_s=runs[1][0],
-                 train_step_ms=train_ms, launches=launches, gpu_vs_cpu=worst)
+                 train_step_ms=train_ms, launches=launches, gpu_vs_cpu=worst,
+                 flagship=flagship_summary)
   log(phase, f"{summary['seconds']:.1f} s (bound {RD_SWEEP_SECONDS} s)  [{smi}]")
   check(summary["seconds"] <= RD_SWEEP_SECONDS, f"phase 24 took {summary['seconds']:.1f} s")
   return summary
+
+
+def stop_group(proc):
+  """Kill the process group that `proc` leads (a session of its own) and
+  reap `proc`: the CLIs it started go with it."""
+  try:
+    os.killpg(proc.pid, signal.SIGKILL)
+  except ProcessLookupError:
+    pass
+  proc.wait()
+
+
+def sweep_script():
+  """scripts/torch_rd_run.py as a module (it imports the port only inside
+  its functions)."""
+  import importlib.util
+
+  spec = importlib.util.spec_from_file_location(
+      "torch_rd_run", os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                                   "torch_rd_run.py"))
+  mod = importlib.util.module_from_spec(spec)
+  spec.loader.exec_module(mod)
+  return mod
+
+
+def rd_flagship_check(phase, proc, log_file, t0, root, out):
+  """Wait for phase 24's flagship point (RD_FLAGSHIP_ARGS) and hold its
+  records; returns its seconds, stages' seconds and launches."""
+  from shallow_ntc_tpu_torch.ops import rb_chain as rb
+  from shallow_ntc_tpu_torch.ops import twolayer_final as tl
+
+  try:
+    proc.wait(timeout=600)
+  finally:
+    stop_group(proc)
+    log_file.close()
+  secs = time.time() - t0
+  if proc.returncode:
+    with open(log_file.name) as f:
+      print(f.read()[-8000:], file=sys.stderr, flush=True)
+    raise RuntimeError(f"torch_rd_run.py (the flagship) exited with {proc.returncode}")
+  dest = os.path.join(out, "two_layer_syn_rd_hid2")
+  with open(os.path.join(dest, "run.json")) as f:
+    run = json.load(f)
+  steps = run["steps"]
+  stage_s = {k: round(v["seconds"], 1) for k, v in steps.items()}
+  log(phase, f"flagship --hids 2 --keep_checkpoints in {secs:.1f} s: the checkpoint of step "
+      f"{run['checkpoint_step']} ({run['train_end']}); stages {stage_s}; departed "
+      f"{run.get('departed_step')}, saves {run.get('hyper_saves')}")
+  for name, step in steps.items():
+    log(phase, f"flagship {name}: launches {step['launches']}")
+  check(run["checkpoint_step"] == RD_FLAGSHIP_STEPS and list(steps) == RD_FLAGSHIP_STAGES
+        and run["skipped"] == {"basis": "--skip"}, f"the flagship point: {run}")
+  deltas = {}
+  for n, name in ((RD_FLAGSHIP_EVERY, f"int8_quality_step={RD_FLAGSHIP_EVERY}.json"),
+                  (RD_FLAGSHIP_STEPS, "int8_quality.json")):
+    with open(os.path.join(dest, name)) as f:
+      record = json.load(f)
+    deltas[n] = record["summary"]["bpp"]["all_delta"]
+    ranges = record.get("hyper_ranges")
+    check(ranges is not None and len(ranges["convs"]) == 3, f"{name} has no hyper_ranges")
+  departed = next((n for n in sorted(deltas) if deltas[n] > sweep_script().DEPART_BPP), None)
+  saved = {str(n) for n in (departed, RD_FLAGSHIP_STEPS) if n is not None}
+  hyper = os.path.join(root, "hyper", "two_layer_syn_rd_hid2")
+  log(phase, f"flagship int8_all - float bpp by step {deltas}: departed {departed}; .npz under "
+      f"--root {sorted(os.listdir(hyper))}")
+  check(run["departed_step"] == departed and set(run["hyper_saves"]) == saved
+        and sorted(os.listdir(hyper)) == sorted(f"step={n}.npz" for n in saved)
+        and all(os.path.getsize(os.path.join(root, p)) > 0 for p in run["hyper_saves"].values())
+        and not glob_lib.glob(os.path.join(out, "**", "*.npz"), recursive=True),
+        f"the hyper-decoder saves: {run['hyper_saves']}, departed {run['departed_step']}")
+  with open(os.path.join(dest, "val_record.jsonl")) as f:
+    val_rows = [json.loads(line) for line in f if line.strip()]
+  # Forwards: each train step, each val pass's one image; 2 eval images; the
+  # int8 pass's float eval for the z_hat and its 3 arms, of the 2 images.
+  forwards = dict(train=RD_FLAGSHIP_STEPS + len(val_rows), eval=2,
+                  **{k: 8 for k in RD_FLAGSHIP_STAGES if "int8" in k})
+  chains = dict(forwards, train=0)
+  got = {k: (steps[k]["launches"][tl.STATS.name], steps[k]["launches"][rb.STATS.name])
+         for k in forwards}
+  want = {k: (forwards[k], CHAINS_PER_FORWARD * chains[k]) for k in forwards}
+  log(phase, f"flagship (final_deconv_phase, fused_rb_chain) launches {got}, expected {want}")
+  check(got == want and steps["sga"]["launches"][tl.STATS.name] > 0
+        and steps["sga"]["launches"][rb.STATS.name] > 0
+        and steps["codec_overhead"]["launches"][rb.STATS.name] > 0,
+        f"the flagship point's launches: {got} against {want}")
+  with open(os.path.join(out, "aggregate.json")) as f:
+    agg = json.load(f)
+  (eval_json,) = glob_lib.glob(os.path.join(out, "json", "mshyper-*.json"))
+  with open(eval_json) as f:
+    rows = json.load(f)
+  log(phase, "flagship eval: " + "; ".join(
+      f"image {r['instance_id']}: rd_loss {r['rd_loss']:.5f} bpp {r['bpp']:.5f} psnr "
+      f"{r['psnr']:.4f}" for r in rows))
+  check(len(rows) == 2 and all(np.isfinite(r[k]) for r in rows for k in ("rd_loss", "bpp", "psnr"))
+        and agg["mshyper"]["rd_lambda"] == agg["mshyper+sga"]["rd_lambda"] == [0.005],
+        f"the flagship's eval {rows} or aggregate {agg}")
+  launches = {k: sum(step["launches"][k] for step in steps.values())
+              for k in steps["train"]["launches"]}
+  return dict(seconds=secs, stage_seconds=stage_s, launches=launches,
+              launches_by_stage={k: v["launches"] for k, v in steps.items()},
+              train_step_ms=run["train_step_ms"])
 
 
 def spatial_launches(strips):
@@ -3914,20 +4071,26 @@ def main():
   del state, jl_init
 
   # --- 11. timing -----------------------------------------------------------
-  # The full-width train step, chain kernel off and on, in turns (off, on,
-  # on, off), each the mean of 8 steps by CUDA events after 2 warm-up steps.
+  # The full-width train step, chain kernel off and on, in 8 turns (off, on,
+  # on, off, twice), each the mean of 8 steps by CUDA events after 2 warm-up
+  # steps; at TF32 off, then at TF32 on (cuDNN's and the matmuls', as the train
+  # CLI's default --matmul_precision sets them), the flags restored after.
   t_model, _ = train_lib.build_model(train_cfg["model_config"], init_seed=0, device="cuda")
   t_state, lr_fn = train_lib.create_train_state(t_model, opt_cfg)
   t_step = train_lib.make_train_step(t_model, t_state.optimizer, lr_fn)
   t_batch = torch.from_numpy((rng.integers(0, 256, (TRAIN_BATCH, TRAIN_HW, TRAIN_HW, 3))
                               / 255.0 - 0.5).astype(np.float32)).to(dev)
   step_ms = {"off": [], "on": []}
-  for way in ("off", "on", "on", "off"):
-    if way == "on":
-      with switch_on("SNTC_FUSED_RB_CHAIN"):
-        step_ms[way].append(cuda_ms(torch, lambda: t_step(t_state, t_batch), iters=8, warmup=2))
-    else:
-      step_ms[way].append(cuda_ms(torch, lambda: t_step(t_state, t_batch), iters=8, warmup=2))
+  step_ms_tf32 = {"off": [], "on": []}
+  tf32_flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+  for tf32, times in ((False, step_ms), (True, step_ms_tf32)):
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = tf32
+    try:
+      for way in ("off", "on", "on", "off") * 2:
+        with switch_on("SNTC_FUSED_RB_CHAIN") if way == "on" else contextlib.nullcontext():
+          times[way].append(cuda_ms(torch, lambda: t_step(t_state, t_batch), iters=8, warmup=2))
+    finally:
+      torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32_flags
   zero_counts()
   with switch_on("SNTC_FUSED_RB_CHAIN"):
     t_step(t_state, t_batch)
@@ -3935,10 +4098,15 @@ def main():
   check(step_counts[rb.STATS.name] == CHAINS_PER_FORWARD and step_counts[tl.STATS.name] >= 1,
         f"one train step launched {step_counts}")
   train_step_ms = {k: float(np.mean(v)) for k, v in step_ms.items()}
-  log("timing", f"train step B={TRAIN_BATCH} {TRAIN_HW}x{TRAIN_HW} f32: chain kernel off "
-      + " / ".join(f"{x:.3f}" for x in step_ms["off"]) + " ms, on "
-      + " / ".join(f"{x:.3f}" for x in step_ms["on"]) + f" ms; one step launches "
-      f"{step_counts}  [{smi}]")
+  train_step_ms_tf32 = {k: float(np.mean(v)) for k, v in step_ms_tf32.items()}
+  for what, times in (("f32, TF32 off", step_ms), ("f32, TF32 on", step_ms_tf32)):
+    log("timing", f"train step B={TRAIN_BATCH} {TRAIN_HW}x{TRAIN_HW} {what}: chain kernel off "
+        + " / ".join(f"{x:.3f}" for x in times["off"]) + " ms, on "
+        + " / ".join(f"{x:.3f}" for x in times["on"]) + f" ms (off {np.mean(times['off']):.3f}, "
+        f"on {np.mean(times['on']):.3f}: on/off {np.mean(times['on']) / np.mean(times['off']):.4f}; "
+        f"spread max/min off {max(times['off']) / min(times['off']):.4f}, on "
+        f"{max(times['on']) / min(times['on']):.4f})  [{smi}]")
+  log("timing", f"one step launches {step_counts}")
   del t_model, t_state, t_step, t_batch
 
   def time_rb(case, dtype):
@@ -4194,9 +4362,10 @@ def main():
   chain_t[f"encode {rb_encode[0][1]}x{rb_encode[0][2]} C=192 bf16"] = time_rb(rb_encode[0],
                                                                              torch.bfloat16)
 
-  # --- 24. rd-sweep: the R-D sweep script, a factorized point -------------
+  # --- 24. rd-sweep: the R-D sweep script, a factorized and a flagship point
   with tempfile.TemporaryDirectory() as sweep_tmp:
-    rd_sweep_phase(smi, sweep_tmp)
+    sweep = rd_sweep_phase(smi, sweep_tmp)
+  by_stage = sweep["flagship"]["launches_by_stage"]
 
   codec_fd = sum(codec_counts[k][tl.STATS.name]
                  for k in ("flagship_compress", "flagship_decompress"))
@@ -4206,7 +4375,7 @@ def main():
       name=tl.STATS.name, route="cuda",
       source="shallow_ntc_tpu_torch/csrc/final_deconv.cu",
       replaces="shallow_ntc_tpu/ops/pallas/twolayer_final.py:273",
-      launches=meas["launches"][tl.STATS.name], path=MEASURE_PATH,
+      launches=sweep["flagship"]["launches"][tl.STATS.name], path=RD_SWEEP_PATH,
       max_abs_err=errs[("final_deconv_phase", cases[1])],
       **decode_t,
       shape=f"B={DECODE_BATCH} mid {mh}x{mw}x768 bf16 (decode)",
@@ -4223,12 +4392,12 @@ def main():
       itinf_b8_f32_shape=dict(shape=f"B={DECODE_BATCH} mid {mh}x{mw}x768 f32 (SGA step at B=8)",
                               **itinf_b8_t),
       decode_mpx_per_s=pixels / decode_ms / 1e3)]
-  # Launches: this slice's path is the measurement CLIs' GPU processes
-  # (phase 23, each counted from 0, and its in-process analysis of the
-  # 2048x1536 image): "launches" of final_deconv_phase and fused_rb_chain.
-  # fused_resblock and jpegl_synthesize, which it does not run, keep phase
-  # 20's counted forwards ("path" says which). The earlier slices' paths
-  # beside them: the R-D result tools' GPU processes (phase 22,
+  # Launches: this slice's path is the flagship R-D point's stages (phase
+  # 24, each process counted from 0): "launches" of final_deconv_phase and
+  # fused_rb_chain. fused_resblock and jpegl_synthesize, which it does not
+  # run, keep phase 20's counted forwards ("path" says which). The earlier
+  # slices' paths beside them: the measurement CLIs' GPU processes (phase
+  # 23, "measure <process>"), the R-D result tools' GPU processes (phase 22,
   # "rd-pipeline <process>"), the converted full-width flagship's eval with
   # the chain (phase 21, "tf-checkpoint <path>"), phase 20's counted
   # forwards ("flops <path>"), the image input (phase
@@ -4246,6 +4415,7 @@ def main():
   # SNTC_FUSED_RESBLOCK=1 (fused_resblock's own path, phase 4), the K16 eval
   # of phase 9. The chain's times are at train stage 1 in f32.
   kernels[0]["launches_by_path"] = {
+      **{f"rd-sweep flagship {k}": v[tl.STATS.name] for k, v in by_stage.items()},
       **{f"measure {k}": v[tl.STATS.name] for k, v in meas["launches_by_process"].items()},
       **{f"rd-pipeline {k}": v[tl.STATS.name] for k, v in rd["launches_by_process"].items()},
       "tf-checkpoint flagship eval": tf_ckpt["launches"][tl.STATS.name],
@@ -4272,11 +4442,14 @@ def main():
   kernels[0]["tf_checkpoint"] = tf_ckpt
   kernels[0]["rd_pipeline"] = rd
   kernels[0]["measure"] = meas
+  kernels[0]["rd_sweep"] = sweep
   kernels.append(dict(
       name=rb.STATS.name, route="cuda", source="shallow_ntc_tpu_torch/csrc/rb_chain.cu",
       replaces="shallow_ntc_tpu/ops/pallas/rb_chain.py:263",
-      launches=meas["launches"][rb.STATS.name], path=MEASURE_PATH,
-      launches_by_path={**{f"measure {k}": v[rb.STATS.name]
+      launches=sweep["flagship"]["launches"][rb.STATS.name], path=RD_SWEEP_PATH,
+      launches_by_path={**{f"rd-sweep flagship {k}": v[rb.STATS.name]
+                           for k, v in by_stage.items()},
+                        **{f"measure {k}": v[rb.STATS.name]
                            for k, v in meas["launches_by_process"].items()},
                         "measure latents vs cpu": meas["latents_vs_cpu"]["chain_launches"],
                         **{f"rd-pipeline {k}": v[rb.STATS.name]
@@ -4305,6 +4478,7 @@ def main():
                         "eval image 0": ways["resblock"][1][resblock.STATS.name]},
       **block_t["train f32"], other_shapes={"train bf16": block_t["train bf16"]}))
   kernels[1]["train_step_ms"] = train_step_ms
+  kernels[1]["train_step_ms_tf32"] = train_step_ms_tf32
   kernels[0]["itinf_step_ms"] = itinf["step_ms"]
   # jpegl_synthesize's times at the decode shape (B=8 bf16), the eval shape
   # beside them. ms is the device time of the kernel alone: weights and bias

@@ -15,17 +15,24 @@ after the other. Each step is the port's own CLI in a process of its own:
                the JAX run's set, 1200 train PNGs at 320x320, 4 valid and 24
                eval at 512x768;
 then for each point (work unit wid=<hid> of the experiment CONFIGS names):
-  2. train     the family's train CLI with the config and --hid (SNTC_FUSED_
-               RB_CHAIN=1 for the flagship's ELIC blocks). Where --deadline_s
+  2. train     the family's train CLI with the config and --hid, the
+               residual-block kernel off (run_point says why). Where --deadline_s
                would not leave --reserve_s after the next val pass (at the
                rate of the last interval), the run is stopped just after a val
                pass and its checkpoint, and the rest uses that checkpoint;
   3. eval      python -m shallow_ntc_tpu_torch.eval --workdir on the 24 eval
-               images, into --out/json/;
+               images, into --out/json/ (a run stopped before its num_steps:
+               into --out/<config>_hid<N>/, out of the aggregate, and its
+               SGA JSON too);
   4. codec     scripts/torch_measure_codec_overhead.py on 8 of them;
   5. int8      scripts/torch_int8_quality.py on all 24, with the
                hyper-decoder's int8 ranges (--ranges) for the mshyper family;
-               with --keep_checkpoints also on every checkpoint the run wrote;
+               with --keep_checkpoints also on every checkpoint the run wrote
+               (the train CLI's --max_to_keep 0), and for the mshyper family
+               each pass writes its --save_hyper .npz under --root
+               (hyper/<config>_hid<N>/step=<n>.npz), of which the final
+               checkpoint's stays and that of the first checkpoint whose
+               int8_all bpp exceeds float's by more than DEPART_BPP;
   6. curves    scripts/collect_train_curves.py and the basis functions
                (scripts/torch_vis_syn_filters.py);
   7. SGA       for the configs whose SGA run_rd_sweep.sh runs
@@ -36,6 +43,8 @@ then for each point (work unit wid=<hid> of the experiment CONFIGS names):
                scripts/torch_itinf_to_results.py into --out/json/ and
                scripts/torch_recompute_itinf_metrics.py on a copy of the SGA
                workdir.
+Every step but training runs the flagship's ELIC blocks through the
+residual-block kernel (SNTC_FUSED_RB_CHAIN=1).
 Then scripts/aggregate_results.py over every JSON in --out/json/ rebuilds
 --out/aggregate.json and its -detailed.json files.
 
@@ -44,9 +53,10 @@ idempotency), so a sweep can span calls that share --out. No point starts
 that the last point's seconds say cannot end before --deadline_s less
 --reserve_s. Each point's files go to --out/<config>_hid<N>/: run.json (the
 step reached, each step's seconds and kernel launches, the card, the stages
-skipped and why), train_record.jsonl, val_record.jsonl, codec_overhead.json,
-int8_quality.json, train_curves.json, basis.png and for SGA sga_metrics.json,
-each SGA batch's records and sga_recomputed.json. --out/runs.json names every
+skipped and why, the .npz saved), train_record.jsonl, val_record.jsonl,
+codec_overhead.json, int8_quality.json (and int8_quality_step=<n>.json of
+each kept checkpoint), train_curves.json, basis.png and for SGA
+sga_metrics.json, each SGA batch's records and sga_recomputed.json. --out/runs.json names every
 point's run.json. The workdirs (checkpoints included) stay under --root.
 Dot overrides for the train and SGA CLIs (--train_override, --sga_override;
 repeatable) and --num_train/--num_eval cut a rehearsal short; --skip leaves
@@ -81,6 +91,7 @@ CONFIGS = {
 SGA_STAGES = ("sga", "itinf_to_results", "recompute")
 STAGES = ("eval", "codec_overhead", "int8_quality", "train_curves", "basis", *SGA_STAGES)
 GATES = ("SNTC_FUSED_RB_CHAIN", "SNTC_FUSED_RESBLOCK", "SNTC_INT8_DECODE", "SNTC_INT8_ENCODE")
+DEPART_BPP = 0.2  # int8_all's mean bpp over float's at which the hyper-decoder departs
 
 
 def log(msg):
@@ -165,9 +176,9 @@ class Point:
 
 
 def keep_checkpoints(workdir, kept):
-  """Hard-link each checkpoint of a running train into kept/step=<n>/ beside
-  a copy of config.json, a workdir of that one checkpoint (the train loop
-  keeps only its newest)."""
+  """Hard-link each checkpoint under `workdir` into kept/step=<n>/ beside a
+  copy of config.json, a workdir of that one checkpoint (the CLIs load a
+  workdir's newest)."""
   from shallow_ntc_tpu_torch import train_lib
 
   ckpts = train_lib.checkpoint_dir(workdir)
@@ -197,6 +208,7 @@ def train(runner, args, point, exp, env):
   cmd = runner.argv("train", families.TRAIN_MODULES[point.family],
                     ["--config", point.script, "--hid", str(point.hid), "--experiments_dir",
                      os.path.dirname(exp), "--device", args.device,
+                     *(["--max_to_keep", "0"] if args.keep_checkpoints else []),
                      *(f"--config.{o}" for o in args.train_override)])
   kept = os.path.join(args.root, "kept", point.key) if args.keep_checkpoints else None
   t = time.time()
@@ -211,8 +223,6 @@ def train(runner, args, point, exp, env):
         workdir = workdir or next(iter(glob.glob(os.path.join(exp, f"wid={point.hid}-*"))), None)
         if workdir is None:
           continue
-        if kept:
-          keep_checkpoints(workdir, kept)
         vals = read_jsonl(os.path.join(workdir, "val", "record.jsonl"))
         if now >= next_report:
           rows = read_jsonl(os.path.join(workdir, "train", "record.jsonl"))
@@ -259,6 +269,17 @@ def train(runner, args, point, exp, env):
   return workdir, reason
 
 
+def departed_step(records):
+  """The first step of `records` ({step: its int8 quality JSON}) whose
+  record gives int8_all a mean bpp more than DEPART_BPP above float's, or
+  None."""
+  for n in sorted(records):
+    with open(records[n]) as f:
+      if json.load(f)["summary"]["bpp"]["all_delta"] > DEPART_BPP:
+        return n
+  return None
+
+
 def read_train_eval(workdir):
   """The workdir's train_eval_config (its config.json)."""
   with open(os.path.join(workdir, "config.json")) as f:
@@ -293,7 +314,11 @@ def run_point(args, point, base_env, smi):
   os.makedirs(dest, exist_ok=True)
   env = dict(base_env, SLURM_ARRAY_JOB_ID=point.xid, SLURM_ARRAY_TASK_ID=str(point.hid))
   runner = Runner(args.root, os.path.join(args.root, "logs", point.key), env)
-  # The flagship's ELIC blocks run through the residual-block kernel.
+  # The flagship's ELIC blocks run through the residual-block kernel in every
+  # step but training: the kernel's backward recomputes the blocks through
+  # cuDNN, so at the train CLI's TF32 the step is faster without it
+  # (scripts/torch_train_profile.py --tf32, chip_smoke.py "timing"), and the
+  # JAX package's sweep trains without its Pallas chain too.
   chain = dict(SNTC_FUSED_RB_CHAIN="1") if point.family == "mshyper" else {}
   skipped = skipped_stages(args, point)
   run = dict(config=point.name, hid=point.hid, family=point.family, runname=point.runname,
@@ -304,7 +329,7 @@ def run_point(args, point, base_env, smi):
     dump(run, os.path.join(dest, "run.json"))
 
   exp = os.path.join(args.root, "train_xms", point.xid)
-  workdir, reason = train(runner, args, point, exp, dict(env, **chain))
+  workdir, reason = train(runner, args, point, exp, env)
   step = train_lib.latest_checkpoint_step(workdir)
   vals = read_jsonl(os.path.join(workdir, "val", "record.jsonl"))
   rows = read_jsonl(os.path.join(workdir, "train", "record.jsonl"))
@@ -315,6 +340,13 @@ def run_point(args, point, base_env, smi):
       f"{[v['step'] for v in vals]}")
   if step is None:
     raise RuntimeError("the run reached no checkpoint")
+  # A run stopped before its num_steps is not the point's: its eval and SGA
+  # JSONs go beside its records, out of the aggregate, and a later call
+  # trains the point again.
+  results_dir = os.path.join(args.out, "json")
+  if step < point.cfg["train_eval_config"]["num_steps"]:
+    results_dir = dest
+    log(f"{point.key}: step {step} is short of num_steps; its eval and SGA JSONs go to {dest}")
   for name in ("train", "val"):
     shutil.copy(os.path.join(workdir, name, "record.jsonl"),
                 os.path.join(dest, f"{name}_record.jsonl"))
@@ -325,24 +357,46 @@ def run_point(args, point, base_env, smi):
   if "eval" not in skipped:
     runner.run("eval", "shallow_ntc_tpu_torch.eval",
                ["--workdir", workdir, "--dataset", "deadleaves_eval", "--results_dir",
-                os.path.join(args.out, "json"), *dev], **chain)
+                results_dir, *dev], **chain)
   if "codec_overhead" not in skipped:
     runner.run("codec_overhead", os.path.join(scripts, "torch_measure_codec_overhead.py"),
                ["--workdir", workdir, "--dataset", "deadleaves_eval", "--max_images",
                 str(args.codec_images), "--out", os.path.join(dest, "codec_overhead.json"), *dev],
                **chain)
   if "int8_quality" not in skipped:
-    ranges = ["--ranges"] if point.family == "mshyper" else []
-    kept = sorted(glob.glob(os.path.join(args.root, "kept", point.key, "step=*")),
-                  key=lambda d: int(d.rsplit("=", 1)[1])) if args.keep_checkpoints else []
-    for d in kept[:-1]:
-      n = d.rsplit("=", 1)[1]
-      runner.run(f"int8_quality_step={n}", os.path.join(scripts, "torch_int8_quality.py"),
-                 ["--workdir", d, "--dataset", "deadleaves_eval", "--out",
-                  os.path.join(dest, f"int8_quality_step={n}.json"), *ranges, *dev], **chain)
-    runner.run("int8_quality", os.path.join(scripts, "torch_int8_quality.py"),
-               ["--workdir", workdir, "--dataset", "deadleaves_eval", "--out",
-                os.path.join(dest, "int8_quality.json"), *ranges, *dev], **chain)
+    mshyper = point.family == "mshyper"
+    ranges = ["--ranges"] if mshyper else []
+    kept_root = os.path.join(args.root, "kept", point.key)
+    kept = sorted(int(d.rsplit("=", 1)[1]) for d in glob.glob(
+        os.path.join(kept_root, "step=*"))) if args.keep_checkpoints else []
+    if kept and kept[-1] != step:
+      raise RuntimeError(f"the newest kept checkpoint is of step {kept[-1]}, not {step}")
+    # Each pass on a kept checkpoint of the mshyper family saves its
+    # hyper-decoder (under --root); the final one's stays, and the first
+    # departed one's.
+    saving = mshyper and bool(kept)
+    hyper = os.path.join(args.root, "hyper", point.key)
+    records, saves = {}, {}
+    for n in kept[:-1] + [step]:
+      final = n == step
+      records[n] = os.path.join(dest, "int8_quality.json" if final
+                                else f"int8_quality_step={n}.json")
+      extra = []
+      if saving:
+        os.makedirs(hyper, exist_ok=True)
+        saves[n] = os.path.join(hyper, f"step={n}.npz")
+        extra = ["--save_hyper", saves[n]]
+      runner.run("int8_quality" if final else f"int8_quality_step={n}",
+                 os.path.join(scripts, "torch_int8_quality.py"),
+                 ["--workdir", workdir if final else os.path.join(kept_root, f"step={n}"),
+                  "--dataset", "deadleaves_eval", "--out", records[n], *ranges, *extra, *dev],
+                 **chain)
+    if saving:
+      departed = departed_step(records)
+      for n in [n for n in saves if n not in (departed, step)]:
+        os.remove(saves.pop(n))
+      run.update(departed_step=departed, hyper_saves={
+          str(n): os.path.relpath(p, args.root) for n, p in sorted(saves.items())})
   if "train_curves" not in skipped:
     runner.run("train_curves", os.path.join(scripts, "collect_train_curves.py"),
                ["--workdirs_glob", glob.escape(workdir), "--out",
@@ -377,7 +431,7 @@ def run_point(args, point, base_env, smi):
     save()
     if "itinf_to_results" not in skipped:
       runner.run("itinf_to_results", os.path.join(scripts, "torch_itinf_to_results.py"),
-                 ["--itinf_glob", glob.escape(sga_wd), "--out", os.path.join(args.out, "json")])
+                 ["--itinf_glob", glob.escape(sga_wd), "--out", results_dir])
     if "recompute" not in skipped:
       copy = os.path.join(args.root, "itinf_recompute", point.sga_xid,
                           os.path.basename(sga_wd))

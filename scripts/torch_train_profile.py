@@ -1,20 +1,23 @@
 #!/usr/bin/env python3
 """Where the port's flagship train step spends its time on the GPU.
 
-  python3 scripts/torch_train_profile.py [--iters 2] [--top 15]
+  python3 scripts/torch_train_profile.py [--iters 2] [--top 15] [--tf32]
 
 Runs train steps of shallow_ntc_tpu_torch's flagship config (two_layer_syn_rd:
-B=8, 256x256, float32, TF32 off, seeded weights and synthetic images), once
-with the residual blocks as cuDNN convolutions and once with
-SNTC_FUSED_RB_CHAIN=1. After two warm-up steps it profiles --iters steps
-with torch.profiler and prints, per step, the wall time, the device time
-summed over kernels, their ratio (the device's busy share; kernels that
-overlap would count twice), and the kernels that take the most device time.
-Needs CUDA.
+B=8, 256x256, float32, TF32 off unless --tf32, which sets it as the train
+CLI's default --matmul_precision does; seeded weights and synthetic
+images), in turns with the residual blocks as cuDNN convolutions and with
+SNTC_FUSED_RB_CHAIN=1 (off, on, on, off). After two warm-up steps it
+times --iters steps by CUDA events, then profiles --iters more with
+torch.profiler and prints, per step, the wall time (the profiler's host
+work in it), the device time summed over kernels, their ratio (the
+device's busy share; kernels that overlap would count twice), and the
+kernels that take the most device time. Needs CUDA.
 """
 
 import argparse
 import os
+import subprocess
 import sys
 import time
 
@@ -40,6 +43,14 @@ def profile_steps(chain: bool, iters: int, top: int):
   for _ in range(2):
     step(state, batch)
   torch.cuda.synchronize()
+  start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+  start.record()
+  for _ in range(iters):
+    step(state, batch)
+  end.record()
+  end.synchronize()
+  print(f"residual blocks as {'the chain kernel' if chain else 'cuDNN convs'}: per step "
+        f"{start.elapsed_time(end) / iters:.3f} ms by CUDA events, no profiler")
   with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
     t = time.time()
     for _ in range(iters):
@@ -63,11 +74,13 @@ def main():
   parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
   parser.add_argument("--iters", type=int, default=2)
   parser.add_argument("--top", type=int, default=15)
+  parser.add_argument("--tf32", action="store_true", help="TF32 on, the train CLI's default")
   args = parser.parse_args()
-  torch.backends.cudnn.allow_tf32 = False
-  torch.backends.cuda.matmul.allow_tf32 = False
-  print(f"device: {torch.cuda.get_device_name(0)}")
-  for chain in (False, True):
+  torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = args.tf32
+  smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                       capture_output=True, text=True).stdout.strip()
+  print(f"device: {torch.cuda.get_device_name(0)} [{smi}]; TF32 {'on' if args.tf32 else 'off'}")
+  for chain in (False, True, True, False):
     profile_steps(chain, args.iters, args.top)
   return 0
 

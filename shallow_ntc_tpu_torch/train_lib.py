@@ -252,7 +252,8 @@ def _checkpoint_steps(ckpt_dir: str) -> List[int]:
 
 
 def save_checkpoint(workdir: str, state: TrainState, max_to_keep: int = 1) -> str:
-  """Write train/checkpoints/ckpt_<step>.pt; keep the newest `max_to_keep`."""
+  """Write train/checkpoints/ckpt_<step>.pt; keep the newest `max_to_keep`
+  (0: every one)."""
   d = checkpoint_dir(workdir)
   os.makedirs(d, exist_ok=True)
   path = os.path.join(d, f"ckpt_{state.step}.pt")
@@ -261,7 +262,7 @@ def save_checkpoint(workdir: str, state: TrainState, max_to_keep: int = 1) -> st
              "generator": state.generator.get_state()}
   torch.save(payload, path + ".tmp")
   os.replace(path + ".tmp", path)
-  for step in _checkpoint_steps(d)[:-max_to_keep]:
+  for step in _checkpoint_steps(d)[:-max_to_keep] if max_to_keep else []:
     os.remove(os.path.join(d, f"ckpt_{step}.pt"))
   return path
 

@@ -66,13 +66,19 @@ def parse_args(argv: Optional[Sequence[str]], default_experiments_dir: str,
     parser.add_argument("--process_id", type=int, help="this process's rank")
     parser.add_argument("--dist_backend", choices=("nccl", "gloo"),
                         help="default: nccl on CUDA, gloo on the CPU")
+    parser.add_argument("--max_to_keep", type=int,
+                        help="checkpoints kept, the newest; 0 keeps every one (default: "
+                             "train_eval_config.max_to_keep, else 1)")
   args = parser.parse_args(rest)
   if parallel and args.coordinator:
     if args.dp_devices is not None:
       parser.error("--dp_devices starts local ranks; --coordinator joins a group: not both")
     if args.num_processes is None or args.process_id is None:
       parser.error("--coordinator needs --num_processes and --process_id")
-  return args, config_lib.resolve_config(args.config, overrides, args.hid)
+  cfg = config_lib.resolve_config(args.config, overrides, args.hid)
+  if parallel and args.max_to_keep is not None:
+    cfg["train_eval_config"]["max_to_keep"] = args.max_to_keep
+  return args, cfg
 
 
 def get_runname(cfg: Dict, config_filename: str, family: str) -> str:

@@ -8,7 +8,11 @@ the whole sweep runs in seconds (the data step's PNGs made small: 8 train
 at 64x64, 4 valid and 2 eval at 64x96): two points of bls2017_rd.py (--hids
 0,3; 8 filters) into a copy of the committed results/torch_rd_deadleaves,
 and the flagship's default point (ELIC (8, 8, 8, 16)) into an empty --out,
-each trained 2 steps of B=2 64x64, and the flagship's SGA 2 steps.
+each trained 2 steps of B=2 64x64, and the flagship's SGA 2 steps; the
+environment each command ran in; the save rule of the hyper-decoder's .npz
+with torch_int8_quality.py stood in for by a script that writes set int8
+records; a flagship run stopped at the deadline before its num_steps;
+scripts/aggregate_results.py on the committed JSONs.
 """
 
 import contextlib
@@ -21,6 +25,7 @@ import shutil
 import signal
 import subprocess
 import sys
+import time
 import types
 
 import pytest
@@ -79,12 +84,18 @@ def _process_state(env, cwd):
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved[4:]
 
 
+COMMANDS = []  # (argv, environment) of every command _in_process ran
+STAND_INS = {}  # a script's file name -> the script that runs in its place
+
+
 def _in_process(cmd, env, cwd):
   """Run `python -m shallow_ntc_tpu_torch.utils.counted COUNTS TARGET ARGS` or
   `python SCRIPT.py ARGS` here; (its return code, its output)."""
+  COMMANDS.append((list(cmd), dict(env or {})))
   if cmd[:3] == [sys.executable, "-m", "shallow_ntc_tpu_torch.utils.counted"]:
     if cmd[4] == "shallow_ntc_tpu_torch.deadleaves":
       cmd = [*cmd, "--train_size", "64", "--eval_hw", "64x96"]  # small PNGs
+    cmd = [*cmd[:4], STAND_INS.get(os.path.basename(cmd[4]), cmd[4]), *cmd[5:]]
     run = lambda: counted.main(cmd[3:])  # noqa: E731
   elif cmd[0] == sys.executable and cmd[1].endswith(".py"):
     def run():
@@ -148,9 +159,10 @@ def sweep(tmp_path_factory):
   shutil.copytree(COMMITTED, out)
   root = str(tmp / "root")
   factorized = _drive([*FACTORIZED, *SMALL, "--root", root, "--out", str(out)])
+  del COMMANDS[:]
   flagship = _drive([*FLAGSHIP, *SMALL, "--root", root, "--out", str(tmp / "flagship")])
   return dict(tmp=tmp, root=root, out=out, flagship_out=tmp / "flagship",
-              factorized=factorized, flagship=flagship)
+              factorized=factorized, flagship=flagship, flagship_commands=list(COMMANDS))
 
 
 def test_factorized_points_run_and_are_recorded(sweep):
@@ -324,3 +336,178 @@ def test_keep_checkpoints_makes_a_workdir_of_each(tmp_path):
     assert (kept / f"step={n}" / "train" / "checkpoints" / f"ckpt_{n}.pt").read_bytes() == (
         str(n).encode())
     assert (kept / f"step={n}" / "config.json").read_text() == "{}"
+
+
+def test_training_runs_without_the_chain_and_every_other_step_with_it(sweep):
+  """The flagship's train CLI runs with no kernel gate set (the chain's
+  backward recomputes through cuDNN, so the step is faster without it); its
+  eval, codec overhead, int8 quality and SGA run the ELIC blocks through
+  the residual-block kernel."""
+  names, gates = _sweep_module().GATES, {}
+  for cmd, env in sweep["flagship_commands"]:
+    if "shallow_ntc_tpu_torch.utils.counted" in cmd:
+      gates[os.path.basename(cmd[3])[:-len(".counts")]] = {g: env[g] for g in names if g in env}
+  assert gates["train"] == {}
+  for name in ("eval", "codec_overhead", "int8_quality", "sga"):
+    assert gates[name] == {"SNTC_FUSED_RB_CHAIN": "1"}, name
+
+
+@pytest.mark.parametrize("deltas,expected", [
+    ({1000: 0.01, 2000: 0.21, 3000: 0.9}, 2000),
+    ({1000: 0.35, 2000: 0.01}, 1000),
+    ({1000: 0.2, 2000: -0.4}, None),
+    ({1000: 0.01, 2000: 0.3}, 2000),  # the final checkpoint counts too
+    ({}, None)])
+def test_departed_step_is_the_first_kept_checkpoint_past_the_bound(tmp_path, deltas, expected):
+  records = {}
+  for n, d in deltas.items():
+    records[n] = str(tmp_path / f"int8_quality_step={n}.json")
+    with open(records[n], "w") as f:
+      json.dump({"summary": {"bpp": {"f32": 0.5, "all": 0.5 + d, "all_delta": d}}}, f)
+  mod = _sweep_module()
+  assert mod.DEPART_BPP == 0.2
+  assert mod.departed_step(dict(reversed(records.items()))) == expected
+
+
+_INT8_STAND_IN = """
+import argparse, json, os
+p = argparse.ArgumentParser()
+for a in ("--workdir", "--out", "--save_hyper", "--dataset", "--device"):
+  p.add_argument(a)
+p.add_argument("--ranges", action="store_true")
+args = p.parse_args()
+name = os.path.basename(os.path.normpath(args.workdir))
+step = int(name.split("=")[1]) if name.startswith("step=") else 3
+delta = DELTAS[step]
+os.makedirs(os.path.dirname(args.out), exist_ok=True)
+with open(args.out, "w") as f:
+  json.dump({"summary": {"bpp": {"all_delta": delta}}, "hyper_ranges": {"step": step}}, f)
+if args.save_hyper:
+  with open(args.save_hyper, "wb") as f:
+    f.write(b"%d" % step)
+"""
+
+
+@pytest.mark.parametrize("deltas,departed", [
+    ({1: 0.1, 2: 0.25, 3: 0.5}, 2),
+    ({1: 0.1, 2: 0.1, 3: 0.5}, 3),
+    ({1: 0.1, 2: 0.1, 3: 0.1}, None)])
+def test_hyper_decoder_saves_of_the_departed_and_final_checkpoints_stay_under_root(
+    tmp_path, deltas, departed):
+  """--keep_checkpoints on the flagship (--hids 2), 3 steps with a
+  checkpoint after each: the train loop keeps all three (--max_to_keep 0),
+  each becomes a workdir under kept/, and int8 quality runs on each with
+  --save_hyper (the stand-in sets int8_all - float bpp by step); the .npz of
+  the first step past DEPART_BPP (the final one included) and of the final
+  step stay under --root, the others are removed, none is under --out, and
+  run.json names them."""
+  root, out = tmp_path / "root", tmp_path / "out"
+  stand_in = tmp_path / "torch_int8_quality.py"
+  stand_in.write_text(f"DELTAS = {deltas!r}\n" + _INT8_STAND_IN)
+  STAND_INS["torch_int8_quality.py"] = str(stand_in)
+  del COMMANDS[:]
+  try:
+    result, _ = _drive([*FLAGSHIP, *SMALL, "--train_override=train_eval_config.num_steps=3",
+                        "--train_override=train_eval_config.checkpoint_every_steps=1",
+                        "--hids", "2", "--keep_checkpoints", "--skip",
+                        "eval,codec_overhead,train_curves,basis,sga", "--root", str(root),
+                        "--out", str(out)])
+  finally:
+    del STAND_INS["torch_int8_quality.py"]
+  assert result["ran"] == ["two_layer_syn_rd_hid2"]
+  counts = str(root / "logs" / "two_layer_syn_rd_hid2" / "train.counts")
+  (train_cmd,) = [cmd for cmd, _ in COMMANDS if cmd[3:4] == [counts]]
+  assert train_cmd[train_cmd.index("--max_to_keep") + 1] == "0"
+  kept = root / "kept" / "two_layer_syn_rd_hid2"
+  assert sorted(os.listdir(kept)) == ["step=1", "step=2", "step=3"]
+  run = _load(out / "two_layer_syn_rd_hid2" / "run.json")
+  assert run["checkpoint_step"] == 3 and run["departed_step"] == departed
+  assert list(run["steps"]) == ["train", "int8_quality_step=1", "int8_quality_step=2",
+                                "int8_quality"]
+  hyper = "hyper/two_layer_syn_rd_hid2"
+  saved = sorted({3} | ({departed} if departed else set()))
+  assert run["hyper_saves"] == {str(n): f"{hyper}/step={n}.npz" for n in saved}
+  assert sorted(os.listdir(root / hyper)) == [f"step={n}.npz" for n in saved]
+  for n in saved:
+    assert (root / hyper / f"step={n}.npz").read_bytes() == str(n).encode()
+  assert not list(out.rglob("*.npz"))
+  for n in (1, 2):
+    assert _load(out / "two_layer_syn_rd_hid2" / f"int8_quality_step={n}.json")[
+        "hyper_ranges"] == {"step": n}
+
+
+class _StoppedPopen(_FinishedPopen):
+  """A train command that the sweep stops at its deadline after the
+  checkpoint and val pass of step 2 of 4: the run is made to its end here,
+  then what it wrote after step 2 is taken away; poll() says it is still
+  running until it is sent SIGTERM."""
+
+  def __init__(self, cmd, cwd, env, stdout, stderr):
+    super().__init__(cmd, cwd, env, stdout, stderr)
+    self.returncode = None
+    if os.path.basename(cmd[3]) != "train.counts":
+      raise AssertionError(f"only the train CLI is started with Popen: {cmd}")
+    exp = os.path.join(cmd[cmd.index("--experiments_dir") + 1], "torchrd")
+    (workdir,) = [os.path.join(exp, d) for d in os.listdir(exp)]
+    os.remove(os.path.join(workdir, "train", "checkpoints", "ckpt_4.pt"))
+    for name in ("train", "val"):
+      path = os.path.join(workdir, name, "record.jsonl")
+      with open(path) as f:
+        rows = [line for line in f if json.loads(line)["step"] <= 2]
+      with open(path, "w") as f:
+        f.writelines(rows)
+
+  def send_signal(self, sig):
+    assert sig == signal.SIGTERM
+    self.returncode = 128 + sig
+
+
+def test_a_run_stopped_before_num_steps_is_kept_out_of_the_aggregate(tmp_path):
+  """The flagship's point (--keep_checkpoints, as its runs on the card)
+  stopped at the deadline after step 2 of 4 (a checkpoint every 2): its eval and SGA JSONs are written beside its
+  records under their real steps, json/ and the aggregate stay empty, and
+  a later call does not skip the point."""
+  mod = _sweep_module()
+  mod.subprocess = types.SimpleNamespace(
+      run=_run, Popen=_StoppedPopen, PIPE=subprocess.PIPE, STDOUT=subprocess.STDOUT,
+      TimeoutExpired=subprocess.TimeoutExpired, SubprocessError=subprocess.SubprocessError)
+  mod.time = types.SimpleNamespace(time=time.time, sleep=lambda s: None, strftime=time.strftime)
+  root, out = tmp_path / "root", tmp_path / "out"
+  with contextlib.redirect_stdout(io.StringIO()) as log:
+    result = mod.main([*FLAGSHIP, *SMALL, "--train_override=train_eval_config.num_steps=4",
+                       "--keep_checkpoints", "--skip",
+                       "codec_overhead,int8_quality,train_curves,basis,recompute",
+                       "--deadline_s", "0", "--reserve_s", "0", "--root", str(root), "--out",
+                       str(out)])
+  assert result["ran"] == ["two_layer_syn_rd_hid3"]
+  dest = out / "two_layer_syn_rd_hid3"
+  run = _load(dest / "run.json")
+  assert run["checkpoint_step"] == 2 and run["train_end"].startswith(
+      "stopped after the val pass of step 2")
+  assert run["steps"]["train"]["returncode"] == 143
+  assert os.listdir(out / "json") == [] and not (out / "aggregate.json").exists()
+  evals = _load(dest / "mshyper-lmbda=0.01-num_steps=4-step=2-xid=torchrd.json")
+  assert [r["instance_id"] for r in evals] == [0, 1]
+  assert (dest / "mshyper+sga-lmbda=0.01-step=2-xid=torchrd_sga.json").is_file()
+  assert "is short of num_steps" in log.getvalue()
+  assert mod.Point("two_layer_syn_rd", 3, ["train_eval_config.num_steps=4"]).eval_jsons(
+      str(out)) == []
+
+
+def test_aggregate_of_the_committed_jsons_is_the_committed_aggregate(tmp_path):
+  """scripts/aggregate_results.py on results/torch_rd_deadleaves/json/
+  rebuilds the committed aggregate.json and -detailed.json files bit for
+  bit, the flagship's rows holding every λ trained on the card to step
+  30000 (a point cut short keeps its eval JSON beside its records)."""
+  proc = subprocess.run([sys.executable, os.path.join(REPO, "scripts", "aggregate_results.py"),
+                         "--results_glob", os.path.join(COMMITTED, "json", "*.json"), "--out",
+                         str(tmp_path)], capture_output=True, text=True, timeout=120)
+  assert proc.returncode == 0, proc.stderr
+  names = {p.name for p in tmp_path.iterdir()}
+  assert names == {"aggregate.json", "factorized-detailed.json", "mshyper-detailed.json",
+                   "mshyper+sga-detailed.json"}
+  for name in names:
+    with open(tmp_path / name, "rb") as a, open(os.path.join(COMMITTED, name), "rb") as b:
+      assert a.read() == b.read(), name
+  agg = _load(tmp_path / "aggregate.json")
+  assert agg["mshyper"]["rd_lambda"] == agg["mshyper+sga"]["rd_lambda"] == [0.005, 0.01]
