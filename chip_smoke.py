@@ -42,7 +42,11 @@ says otherwise):
                forward, a checkpoint restored equal to the live state.
   8. train-reference  one full-width train step on the card (kernels)
                against the port's CPU step (plain versions), B=2 64x64, same
-               params, batch and noise: loss, metrics and every gradient.
+               params, batch and noise: loss, metrics and every gradient;
+               then two Adam updates of the full-width flagship's 169
+               parameter tensors on the card, train_lib.Adam's multi-tensor
+               update against the per-parameter loop (loop_adam_update) from
+               the same state: unclipped bit for bit, clipped within 1e-7.
   9. eval-jpegl  the JPEG-like model at full width (ELIC 192/192/192/320),
                seeded weights, three 512x768 f32 images each: jpegl_rd (k18,
                the paper's decoder, a cuDNN transposed conv) and JPEGL_K16
@@ -53,7 +57,9 @@ says otherwise):
                params moved, no jpegl_synthesize launch (k18).
  11. timing    the train step with the chain kernel on and off, 4 turns of
                each, at TF32 off and at TF32 on (the train CLI's default),
-               the spread of the turns logged; the chain at
+               the spread of the turns logged; at TF32 on with the chain
+               off, 4 turns each of the step with train_lib.Adam's
+               multi-tensor update and with the per-parameter loop; the chain at
                each train stage; the B=8 bf16
                decode in Mpx/s of the flagship, jpegl_rd and JPEGL_K16; each
                kernel, its plain version and (where one exists) one PyTorch
@@ -2625,6 +2631,84 @@ def _unsynced_train_rank(rank, *args):
   return _counted_train_rank(rank, *args)
 
 
+def loop_adam_update(opt, grads):
+  """train_lib.Adam.update written per parameter, the form it had before the
+  multi-tensor update (some 22 host ops a tensor): the reference of the
+  "adam" check of phase 8 and the other arm of phase 11's optimizer A/B. It
+  lies on no path of the package."""
+  import torch
+
+  with torch.no_grad():
+    grads = list(grads)
+    if opt.global_clipnorm is not None:
+      norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+      keep = norm < opt.global_clipnorm
+      grads = [torch.where(keep, g, (g / norm) * opt.global_clipnorm) for g in grads]
+    lr = float(opt.lr_fn(opt.count))
+    opt.count += 1
+    bc1 = float(np.float32(1) - np.power(np.float32(opt.b1), np.float32(opt.count)))
+    bc2 = float(np.float32(1) - np.power(np.float32(opt.b2), np.float32(opt.count)))
+    for p, g, mu, nu in zip(opt.params, grads, opt.mu, opt.nu):
+      mu.copy_((1 - opt.b1) * g + opt.b1 * mu)
+      nu.copy_((1 - opt.b2) * (g * g) + opt.b2 * nu)
+      direction = (mu / bc1) / (torch.sqrt(nu / bc2) + opt.eps)
+      p.add_(-lr * direction)
+
+
+def adam_check(phase, model_config, opt_cfg):
+  """Two Adam updates of the full-width flagship's parameters on the card,
+  train_lib.Adam's multi-tensor update against loop_adam_update from the
+  same state, on seeded gradients of global norm ~0.5 (kept: params, mu and
+  nu bit for bit) and then ~5 (clipped to global_clipnorm 1: within 1e-7
+  abs, the norm being summed in another order). Returns the max abs
+  difference of each."""
+  import torch
+  from shallow_ntc_tpu_torch import train_lib
+
+  model, _ = train_lib.build_model(model_config, init_seed=0, device="cuda")
+  params = [p.detach() for p in model.parameters()]
+  cfg = dict(opt_cfg, warmup_until=0.0)  # a learning rate above 0 from the first update
+  multi, _ = train_lib.make_optimizer([p.clone() for p in params], cfg, 30_000)
+  loop, _ = train_lib.make_optimizer([p.clone() for p in params], cfg, 30_000)
+  scale = 1 / np.sqrt(sum(p.numel() for p in params))
+  gen = torch.Generator(device="cuda").manual_seed(0)
+  errs = {}
+  for what, norm in (("kept", 0.5), ("clipped", 5.0)):
+    grads = [torch.randn(p.shape, generator=gen, device="cuda") * (norm * scale)
+             for p in params]
+    multi.update(grads)
+    loop_adam_update(loop, grads)
+    torch.cuda.synchronize()
+    pairs = list(zip(multi.params + multi.mu + multi.nu, loop.params + loop.mu + loop.nu))
+    unequal = sum(int((a != b).sum()) for a, b in pairs)
+    errs[what] = max((a - b).abs().max().item() for a, b in pairs)
+    log(phase, f"Adam, {len(params)} tensors of the full-width flagship, global norm ~{norm} "
+        f"({what}): multi-tensor against per-parameter, {unequal} of "
+        f"{3 * sum(p.numel() for p in params)} params, mu and nu elements differ, max|diff| "
+        f"{errs[what]:.3e} (tol {'0' if what == 'kept' else '1e-7'})")
+    check(unequal == 0 if what == "kept" else errs[what] <= 1e-7,
+          f"the multi-tensor Adam update departs from the per-parameter one ({what}): "
+          f"{unequal} elements, max|diff| {errs[what]}")
+  return errs
+
+
+def optimizer_ab(torch, state, step_fn, batch):
+  """Phase 11's optimizer A/B: the train step with train_lib.Adam's update
+  ("multi") and with loop_adam_update ("loop") in 8 turns (multi, loop,
+  loop, multi, twice), each the mean of 8 steps by CUDA events after 2
+  warm-up steps. Returns {arm: [ms of each turn]}."""
+  opt = state.optimizer
+  times = {"multi": [], "loop": []}
+  for way in ("multi", "loop", "loop", "multi") * 2:
+    if way == "loop":
+      opt.update = lambda grads: loop_adam_update(opt, grads)
+    try:
+      times[way].append(cuda_ms(torch, lambda: step_fn(state, batch), iters=8, warmup=2))
+    finally:
+      opt.__dict__.pop("update", None)
+  return times
+
+
 def _half_batch_train_step(model, optimizer, lr_fn):
   """train_lib.make_train_step's step in one process with the gradient of
   each half of the batch (with its rows of the noise, drawn for the whole
@@ -4011,6 +4095,7 @@ def main():
         "the GPU reference step did not run the chain kernel")
   check(not failures, f"the GPU train step disagrees with the CPU one: {failures[:8]}")
   del ref_models
+  adam_errs = adam_check("train-reference", train_cfg["model_config"], opt_cfg)
 
   # --- 9. eval-jpegl: the JPEG-like model, k18 (cuDNN) and K16 (the kernel) --
   jpegl = {}
@@ -4107,6 +4192,23 @@ def main():
         f"spread max/min off {max(times['off']) / min(times['off']):.4f}, on "
         f"{max(times['on']) / min(times['on']):.4f})  [{smi}]")
   log("timing", f"one step launches {step_counts}")
+  # The optimizer A/B at the train CLI's TF32 on, chain off (how
+  # scripts/torch_rd_run.py trains): train_lib.Adam's multi-tensor update
+  # against the per-parameter loop it replaced.
+  torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+  try:
+    adam_ms = optimizer_ab(torch, t_state, t_step, t_batch)
+  finally:
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32_flags
+  train_step_ms_adam = {k: float(np.mean(v)) for k, v in adam_ms.items()}
+  log("timing", f"train step B={TRAIN_BATCH} {TRAIN_HW}x{TRAIN_HW} f32, TF32 on, chain kernel "
+      "off: Adam multi-tensor " + " / ".join(f"{x:.3f}" for x in adam_ms["multi"])
+      + " ms, per-parameter " + " / ".join(f"{x:.3f}" for x in adam_ms["loop"])
+      + f" ms (multi {train_step_ms_adam['multi']:.3f}, per-parameter "
+      f"{train_step_ms_adam['loop']:.3f}: multi/per-parameter "
+      f"{train_step_ms_adam['multi'] / train_step_ms_adam['loop']:.4f}; spread max/min multi "
+      f"{max(adam_ms['multi']) / min(adam_ms['multi']):.4f}, per-parameter "
+      f"{max(adam_ms['loop']) / min(adam_ms['loop']):.4f})  [{smi}]")
   del t_model, t_state, t_step, t_batch
 
   def time_rb(case, dtype):
@@ -4479,6 +4581,8 @@ def main():
       **block_t["train f32"], other_shapes={"train bf16": block_t["train bf16"]}))
   kernels[1]["train_step_ms"] = train_step_ms
   kernels[1]["train_step_ms_tf32"] = train_step_ms_tf32
+  kernels[0]["train_step_ms_adam"] = train_step_ms_adam
+  kernels[0]["adam_max_abs_diff"] = adam_errs
   kernels[0]["itinf_step_ms"] = itinf["step_ms"]
   # jpegl_synthesize's times at the decode shape (B=8 bf16), the eval shape
   # beside them. ms is the device time of the kernel alone: weights and bias

@@ -12,7 +12,9 @@ times --iters steps by CUDA events, then profiles --iters more with
 torch.profiler and prints, per step, the wall time (the profiler's host
 work in it), the device time summed over kernels, their ratio (the
 device's busy share; kernels that overlap would count twice), and the
-kernels that take the most device time. Needs CUDA.
+kernels that take the most device time. Each step first copies its batch
+from a host array, as train_lib's loop does (a synchronous copy), so the
+copy shows in the times and the table. Needs CUDA.
 """
 
 import argparse
@@ -38,15 +40,18 @@ def profile_steps(chain: bool, iters: int, top: int):
   step = train_lib.make_train_step(model, state.optimizer, lr_fn)
   b, p = cfg["train_data_config"]["batchsize"], cfg["train_data_config"]["patchsize"]
   rng = np.random.default_rng(0)
-  batch = torch.from_numpy((rng.integers(0, 256, (b, p, p, 3)) / 255.0 - 0.5)
-                           .astype(np.float32)).cuda()
+  host = (rng.integers(0, 256, (b, p, p, 3)) / 255.0 - 0.5).astype(np.float32)
+
+  def run():
+    step(state, torch.as_tensor(host, device="cuda"))
+
   for _ in range(2):
-    step(state, batch)
+    run()
   torch.cuda.synchronize()
   start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
   start.record()
   for _ in range(iters):
-    step(state, batch)
+    run()
   end.record()
   end.synchronize()
   print(f"residual blocks as {'the chain kernel' if chain else 'cuDNN convs'}: per step "
@@ -54,7 +59,7 @@ def profile_steps(chain: bool, iters: int, top: int):
   with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
     t = time.time()
     for _ in range(iters):
-      step(state, batch)
+      run()
     torch.cuda.synchronize()
     wall_ms = (time.time() - t) * 1e3 / iters
   events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]

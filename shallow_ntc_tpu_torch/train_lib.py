@@ -114,21 +114,41 @@ class Adam:
 
   @torch.no_grad()
   def update(self, grads: Sequence[torch.Tensor]) -> None:
-    """Apply one update to the params from `grads` (one per param)."""
+    """Apply one update to the params from `grads` (one per param).
+
+    Multi-tensor: torch._foreach_* ops over all the tensors at once, so the
+    host dispatches the same 25 ops whatever their number. Per element the
+    arithmetic is the per-tensor form's, op for op:
+    mu = (1-b1)*g + b1*mu, nu = (1-b2)*g*g + b2*nu,
+    p += -lr * (mu/bc1) / (sqrt(nu/bc2) + eps).
+    """
     grads = list(grads)
     if self.global_clipnorm is not None:
-      norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-      keep = norm < self.global_clipnorm  # a select, as optax's, with no host sync
-      grads = [torch.where(keep, g, (g / norm) * self.global_clipnorm) for g in grads]
+      # optax's select with no host sync: g / 1 * 1 == g exactly when kept,
+      # else (g / norm) * global_clipnorm.
+      norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+      keep = norm < self.global_clipnorm
+      grads = torch._foreach_div(grads, torch.where(keep, 1.0, norm))
+      clipnorm = torch.full_like(norm, self.global_clipnorm)
+      torch._foreach_mul_(grads, torch.where(keep, 1.0, clipnorm))
     lr = float(self.lr_fn(self.count))
     self.count += 1
     bc1 = float(np.float32(1) - np.power(np.float32(self.b1), np.float32(self.count)))
     bc2 = float(np.float32(1) - np.power(np.float32(self.b2), np.float32(self.count)))
-    for p, g, mu, nu in zip(self.params, grads, self.mu, self.nu):
-      mu.copy_((1 - self.b1) * g + self.b1 * mu)
-      nu.copy_((1 - self.b2) * (g * g) + self.b2 * nu)
-      direction = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
-      p.add_(-lr * direction)
+    step = torch._foreach_mul(grads, 1 - self.b1)
+    torch._foreach_mul_(self.mu, self.b1)
+    torch._foreach_add_(self.mu, step)
+    step = torch._foreach_mul(grads, grads)
+    torch._foreach_mul_(step, 1 - self.b2)
+    torch._foreach_mul_(self.nu, self.b2)
+    torch._foreach_add_(self.nu, step)
+    denom = torch._foreach_div(self.nu, bc2)
+    torch._foreach_sqrt_(denom)
+    torch._foreach_add_(denom, self.eps)
+    step = torch._foreach_div(self.mu, bc1)
+    torch._foreach_div_(step, denom)
+    torch._foreach_mul_(step, -lr)
+    torch._foreach_add_(self.params, step)
 
   def state_dict(self) -> Dict[str, Any]:
     return {"count": self.count, "mu": [t.clone() for t in self.mu],

@@ -510,4 +510,14 @@ def test_aggregate_of_the_committed_jsons_is_the_committed_aggregate(tmp_path):
     with open(tmp_path / name, "rb") as a, open(os.path.join(COMMITTED, name), "rb") as b:
       assert a.read() == b.read(), name
   agg = _load(tmp_path / "aggregate.json")
-  assert agg["mshyper"]["rd_lambda"] == agg["mshyper+sga"]["rd_lambda"] == [0.005, 0.01]
+  # The λ of every flagship point in runs.json whose run reached its 30000
+  # steps, by the point's hid in the sweep script's RD_LAMBDAS.
+  from shallow_ntc_tpu_torch.mshyper.configs import two_layer_syn_rd
+
+  prefix = "two_layer_syn_rd_hid"
+  full = sorted(two_layer_syn_rd.RD_LAMBDAS[int(key[len(prefix):])]
+                for key, path in _load(os.path.join(COMMITTED, "runs.json")).items()
+                if key.startswith(prefix)
+                and _load(os.path.join(COMMITTED, path))["checkpoint_step"] == 30000)
+  assert 0.005 in full and 0.02 in full
+  assert agg["mshyper"]["rd_lambda"] == agg["mshyper+sga"]["rd_lambda"] == full

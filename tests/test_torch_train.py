@@ -97,6 +97,124 @@ def test_optimizer_matches_optax():
   np.testing.assert_allclose(to_numpy(p_t[1]), np.asarray(p_j["b"]), rtol=0, atol=1e-7)
 
 
+def _loop_update(opt, grads):
+  """Adam.update written per parameter (its form before the multi-tensor
+  update): the reference the multi-tensor update equals bit for bit where
+  nothing is clipped."""
+  with torch.no_grad():
+    grads = list(grads)
+    if opt.global_clipnorm is not None:
+      norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+      keep = norm < opt.global_clipnorm
+      grads = [torch.where(keep, g, (g / norm) * opt.global_clipnorm) for g in grads]
+    lr = float(opt.lr_fn(opt.count))
+    opt.count += 1
+    bc1 = float(np.float32(1) - np.power(np.float32(opt.b1), np.float32(opt.count)))
+    bc2 = float(np.float32(1) - np.power(np.float32(opt.b2), np.float32(opt.count)))
+    for p, g, mu, nu in zip(opt.params, grads, opt.mu, opt.nu):
+      mu.copy_((1 - opt.b1) * g + opt.b1 * mu)
+      nu.copy_((1 - opt.b2) * (g * g) + opt.b2 * nu)
+      direction = (mu / bc1) / (torch.sqrt(nu / bc2) + opt.eps)
+      p.add_(-lr * direction)
+
+
+def _flagship_params():
+  """The parameter tensors of the flagship at the smoke config's widths (169)."""
+  model, _ = train_lib.build_model(SMOKE["model_config"], init_seed=0, device="cpu")
+  return [p.detach().clone() for p in model.parameters()]
+
+
+def _grads(rng, params, norm):
+  """Seeded gradients of global norm ~`norm`."""
+  scale = norm / np.sqrt(sum(p.numel() for p in params))
+  return [rand(rng, tuple(p.shape), scale) for p in params]
+
+
+def test_multi_tensor_adam_matches_optax_and_the_per_parameter_loop():
+  """Three updates of the flagship's 169 parameter tensors (smoke widths),
+  the second clipped (global norm ~5 against global_clipnorm 1): every one
+  within atol 1e-7 of optax, and the unclipped ones bit for bit the
+  per-parameter loop's from the same state (params, mu and nu)."""
+  rng = np.random.default_rng(7)
+  params = _flagship_params()
+  assert len(params) == 169
+  cfg = dict(FLAGSHIP_OPTIMIZER, warmup_until=0.0)
+  tx, _ = jax_train_lib.make_optimizer(cfg, 30_000)
+  p_j = [to_numpy(p) for p in params]
+  state = tx.init(p_j)
+  opt, _ = train_lib.make_optimizer([p.clone() for p in params], cfg, 30_000)
+  jax_update = jax.jit(lambda g, s, p: (lambda u, s2: (optax.apply_updates(p, u), s2))(
+      *tx.update(g, s, p)))
+  for norm in (0.5, 5.0, 0.5):
+    grads = _grads(rng, params, norm)
+    ref, _ = train_lib.make_optimizer([p.clone() for p in opt.params], cfg, 30_000)
+    ref.load_state_dict(opt.state_dict())
+    opt.update([to_torch(g) for g in grads])
+    _loop_update(ref, [to_torch(g) for g in grads])
+    p_j, state = jax_update(grads, state, p_j)
+    for a, b in zip(opt.params, p_j):
+      np.testing.assert_allclose(to_numpy(a), np.asarray(b), rtol=0, atol=1e-7,
+                                 err_msg=f"norm {norm}")
+    pairs = list(zip(opt.params + opt.mu + opt.nu, ref.params + ref.mu + ref.nu))
+    if norm < 1:
+      assert all(torch.equal(a, b) for a, b in pairs), f"norm {norm}"
+    else:
+      assert max((a - b).abs().max().item() for a, b in pairs) <= 1e-7
+  assert opt.count == 3
+
+
+def _dispatched_ops(n_tensors, update=train_lib.Adam.update):
+  """ATen ops one `update` (with the flagship's clip) dispatches over the
+  first n_tensors of the flagship's parameters."""
+  from torch.utils._python_dispatch import TorchDispatchMode
+
+  class Count(TorchDispatchMode):
+    ops = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+      Count.ops += 1
+      return func(*args, **(kwargs or {}))
+
+  params = _flagship_params()[:n_tensors]
+  opt, _ = train_lib.make_optimizer(params, dict(FLAGSHIP_OPTIMIZER, warmup_until=0.0), 30_000)
+  grads = _grads(np.random.default_rng(0), params, 0.5)
+  grads = [to_torch(g) for g in grads]
+  with Count():
+    update(opt, grads)
+  return Count.ops
+
+
+def test_adam_update_dispatches_the_same_few_ops_for_any_number_of_tensors():
+  """The update is multi-tensor: at most 40 dispatched ops for the
+  flagship's 169 tensors, as many for 10 as for 169, and under a
+  fiftieth of the per-parameter loop's (3720 for 169 tensors)."""
+  n_all, n_ten = _dispatched_ops(169), _dispatched_ops(10)
+  n_loop = _dispatched_ops(169, _loop_update)
+  assert n_all <= 40 and n_all == n_ten and n_all * 50 < n_loop, (n_all, n_ten, n_loop)
+
+
+def test_adam_state_dict_resumes_the_update_bit_for_bit():
+  """The optimizer's state dict keeps its format ({count, mu, nu}: lists of
+  tensors), so earlier checkpoints load; loaded into a fresh optimizer it
+  takes the same next update, clipped or not, bit for bit."""
+  rng = np.random.default_rng(3)
+  params = _flagship_params()
+  cfg = dict(FLAGSHIP_OPTIMIZER, warmup_until=0.0)
+  opt, _ = train_lib.make_optimizer([p.clone() for p in params], cfg, 30_000)
+  opt.update([to_torch(g) for g in _grads(rng, params, 5.0)])
+  saved = opt.state_dict()
+  assert set(saved) == {"count", "mu", "nu"} and saved["count"] == 1
+  assert all(isinstance(v, list) and len(v) == 169 for v in (saved["mu"], saved["nu"]))
+  other, _ = train_lib.make_optimizer([p.clone() for p in opt.params], cfg, 30_000)
+  other.load_state_dict(saved)
+  for norm in (5.0, 0.5):
+    grads = [to_torch(g) for g in _grads(rng, params, norm)]
+    opt.update(grads)
+    other.update(grads)
+    for a, b in zip(opt.params + opt.mu + opt.nu, other.params + other.mu + other.nu):
+      assert torch.equal(a, b)
+
+
 def test_training_entropy_calls_match_jax():
   """Noise on z itself; on the centered y - mu for the indexed model; exact
   given the same draws."""
