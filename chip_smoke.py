@@ -13,7 +13,9 @@ says otherwise):
   3. kernels   each kernel against its plain PyTorch version on the card, at
                the main paths' shapes plus odd ones, f32 and bf16, and its
                gradients through its autograd.Function (jpegl_synthesize has
-               none: its backward must raise); fails on a miss.
+               none: its backward must raise); fused_rb_chain_padded's
+               keep_pad output (interior bit for bit the dense kernel's, pad
+               columns 0, one launch a chain); fails on a miss.
   4. eval      per-image eval of the flagship mshyper model at full width
                (ELIC 192/192/192/320, synthesis (12, 3)), seeded random
                weights, three 512x768 images, f32; one batch decode at B=8 in
@@ -398,21 +400,22 @@ def jpegl_bound_ms(z, out, kernel, dtype_name):
   return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def rb_chain_bound_ms(x, n_blocks, dtype_name):
+def rb_chain_bound_ms(x, n_blocks, dtype_name, pad=0):
   """Least time for n_blocks residual blocks on x: bytes or operations.
 
-  Bytes: x read once, the output written once, the float32 weights and
-  biases once. Operations: the wrapper's declared FLOPs (rb_chain.flops:
-  per block and pixel 2 C Ch for each 1x1 conv, and 2 Ch^2 per 3x3 tap that
-  lands inside the image: SAME padding multiplies zeros at the edge, which
-  is no work).
+  Bytes: x read once, the output (with `pad` zero columns on each side of
+  W for keep_pad) written once, the float32 weights and biases once.
+  Operations: the wrapper's declared FLOPs (rb_chain.flops: per block and
+  pixel 2 C Ch for each 1x1 conv, and 2 Ch^2 per 3x3 tap that lands inside
+  the image: SAME padding multiplies zeros at the edge, which is no work).
   """
   from shallow_ntc_tpu_torch.ops import rb_chain
 
   c = x.shape[-1]
   ch = c // 2
   n_weights = n_blocks * (c * ch + ch + 9 * ch * ch + ch + ch * c + c)
-  n_bytes = 2 * x.numel() * x.element_size() + 4 * n_weights
+  out_numel = x.numel() // x.shape[2] * (x.shape[2] + 2 * pad)
+  n_bytes = (x.numel() + out_numel) * x.element_size() + 4 * n_weights
   flops = rb_chain.flops(x.shape, ch, n_blocks)
   t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
   t_ops = flops / H100_PEAK_FLOPS[dtype_name] * 1e3
@@ -3812,6 +3815,45 @@ def main():
         f"max|err| / max(1, max|g|) {g_err:.3e} (tol 1e-5)")
     check(g_err <= 1e-5, f"{name} gradients disagree")
 
+  # fused_rb_chain_padded(keep_pad=True), through the public entry, at the
+  # encoder's first-stage shape and at H != W with N=2 (a residual read at
+  # the padded index would show): the interior bit for bit the dense
+  # kernel's output and within the chain's tolerance of the plain version
+  # (the dense chain, zero-padded), the pad columns 0, one launch a chain;
+  # keep_pad=False the dense kernel's output bit for bit. A generator of its
+  # own, so that the later phases draw their data as before.
+  pad_launches = 0
+  for case in (rb_train, (2, 17, 9, 192, 2)):
+    b, h, w, c, n = case
+    params = rb_params(n, c, seed=sum(case))
+    x32 = torch.from_numpy(np.random.default_rng(sum(case) + 1).standard_normal(
+        (b, h, w, c), np.float32)).to(dev)
+    for dtype in (torch.float32, torch.bfloat16):
+      x = x32.to(dtype)
+      torch.cuda.synchronize()
+      before = rb.STATS.launches
+      out = rb.fused_rb_chain_padded(x, params, True)
+      torch.cuda.synchronize()
+      launched = rb.STATS.launches - before
+      pad_launches += launched
+      dense = rb.rb_chain_cuda(x, params)
+      plain = rb.pad_width(rb.dense_rb_chain(x, params), n)
+      torch.cuda.synchronize()
+      inner = out[:, :, n : n + w]
+      err = (out.float() - plain.float()).abs().max().item()
+      scale = plain.float().abs().max().item()
+      tol = (1e-4 if dtype == torch.float32 else 2e-2) * scale
+      zeros = not out[:, :, :n].any().item() and not out[:, :, n + w :].any().item()
+      same, unpadded = torch.equal(inner, dense), torch.equal(
+          rb.fused_rb_chain_padded(x, params, False), dense)
+      log("kernels", f"fused_rb_chain_padded keep_pad B={b} {h}x{w} C={c} N={n} {dtype}: "
+          f"{tuple(out.shape)}, max|err| {err:.3e} (tol {tol:.3e}, max|y| {scale:.3f}); pad "
+          f"columns zero {zeros}; interior bit for bit the dense kernel's {same}; "
+          f"keep_pad=False bit for bit {unpadded}; launches {launched}")
+      check(out.shape == plain.shape and err <= tol and zeros and same and unpadded
+            and launched == 1, f"fused_rb_chain_padded disagrees at {case} {dtype}")
+      errs[("fused_rb_chain_padded", case, dtype)] = err
+
   # jpegl_synthesize (B, H_l, W_l, C, k, dtype): JPEGL_K16's decode and eval
   # shapes, a ragged M at C=320 (B=1 3x5: fewer latent tiles than the bf16
   # kernel's walkers) and 64-latent tiles that cross latent rows with a
@@ -4211,17 +4253,19 @@ def main():
       f"{max(adam_ms['loop']) / min(adam_ms['loop']):.4f})  [{smi}]")
   del t_model, t_state, t_step, t_batch
 
-  def time_rb(case, dtype):
+  def time_rb(case, dtype, keep_pad=False, gen=None):
     b, h, w, c, n = case
     params = rb_params(n, c, seed=sum(case))
-    x = torch.from_numpy(rng.standard_normal((b, h, w, c), np.float32)).to(dev, dtype)
+    x = torch.from_numpy((gen or rng).standard_normal((b, h, w, c), np.float32)).to(dev, dtype)
+    pad = n if keep_pad else 0
     fn = ((lambda: resblock.fused_resblock_cuda(x, *params[0])) if n == 1
-          else (lambda: rb.rb_chain_cuda(x, params)))
+          else (lambda: rb.rb_chain_cuda(x, params, keep_pad)))
     ms = cuda_ms(torch, fn, iters=10, warmup=2, host_ahead=True)
-    plain = cuda_ms(torch, lambda: rb.dense_rb_chain(x, params), iters=10, warmup=2,
-                    host_ahead=True)
-    bound, by = rb_chain_bound_ms(x, n, str(dtype).split(".")[-1])
-    name = "fused_resblock" if n == 1 else "fused_rb_chain"
+    plain = cuda_ms(torch, lambda: rb.pad_width(rb.dense_rb_chain(x, params), pad), iters=10,
+                    warmup=2, host_ahead=True)
+    bound, by = rb_chain_bound_ms(x, n, str(dtype).split(".")[-1], pad)
+    name = ("fused_resblock" if n == 1 else "fused_rb_chain_padded" if keep_pad
+            else "fused_rb_chain")
     log("timing", f"{name} B={b} {h}x{w} C={c} N={n} {dtype}: kernel {ms:.5f} ms, plain "
         f"(cuDNN) {plain:.5f} ms, bound {bound:.5f} ms ({by})  [{smi}]")
     return dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=None,
@@ -4238,6 +4282,9 @@ def main():
       chain_t[f"stage {case[1]}x{case[2]} C={case[3]} {str(dtype).split('.')[-1]}"] = time_rb(
           case, dtype)
   block_t = {k: time_rb(rb_block, dtype) for k, dtype in (
+      ("train f32", torch.float32), ("train bf16", torch.bfloat16))}
+  pad_gen = np.random.default_rng(25)
+  pad_t = {k: time_rb(rb_train, dtype, keep_pad=True, gen=pad_gen) for k, dtype in (
       ("train f32", torch.float32), ("train bf16", torch.bfloat16))}
 
   pixels = DECODE_BATCH * EVAL_HW[0] * EVAL_HW[1]
@@ -4599,6 +4646,17 @@ def main():
                         "codec K16": codec_k16, "eval K16": jpegl_eval_launches,
                         "decode K16": jl_decode_launches["JPEGL_K16"]},
       decode_mpx_per_s={k: pixels / v / 1e3 for k, v in jl_decode_ms.items()}))
+  # fused_rb_chain_padded(keep_pad=True): the same kernel, its last block
+  # storing into the padded output. No path of the port calls it (nor of the
+  # JAX package: its only caller is tests/test_pallas.py), so its launches
+  # are those of phase 3's check through the public entry, one a chain.
+  kernels.append(dict(
+      name="fused_rb_chain_padded", route="cuda", source="shallow_ntc_tpu_torch/csrc/rb_chain.cu",
+      replaces="shallow_ntc_tpu/ops/pallas/rb_chain.py:263",
+      function="shallow_ntc_tpu/ops/pallas/rb_chain.py:175 (keep_pad=True)",
+      launches=pad_launches, path="kernels: fused_rb_chain_padded(x, params, True) at B=8 "
+      "128x128 C=192 N=3 and B=2 17x9 C=192 N=2, f32 and bf16 (no model path calls keep_pad)",
+      **pad_t["train f32"], other_shapes={"train bf16": pad_t["train bf16"]}))
   print(json.dumps({"kernels": kernels}), flush=True)
   print(smi, flush=True)
   print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -9,7 +9,11 @@
 // 2N halo, pltpu.roll width taps, the 128-lane layout). Any B, H and W.
 //
 // Layouts (NHWC, C innermost):
-//   x, out [B, H, W, C]     float32 or bfloat16
+//   x [B, H, W, C]          float32 or bfloat16
+//   out [B, H, P, C]        x's type; pixel (y, x) at column x + off of a
+//                           row of P >= W + off pixels (P = W, off = 0: the
+//                           dense [B, H, W, C]; the chain's keep_pad output
+//                           is P = W + 2N, off = N). Other columns untouched.
 //   wp                      float32: w1 [C, Ch], w2 [3, 3, Ch, Ch] and
 //                           w3 [Ch, C], rounded to x's type, packed by the
 //                           wrapper into slabs (below)
@@ -310,7 +314,7 @@ __global__ void __launch_bounds__(kThreads, RN <= 3 ? 2 : 1)
 resblock_kernel(const T* __restrict__ x, const float* __restrict__ wp,
                 const float* __restrict__ b1, const float* __restrict__ b2,
                 const float* __restrict__ b3, T* __restrict__ out, int H, int W, int C,
-                int Ch, int tiles_w, int tiles_h, bool x_async) {
+                int Ch, int out_pitch, int out_off, int tiles_w, int tiles_h, bool x_async) {
   constexpr int NT = 2 * RN;            // n-tiles of 8 per warp: 16 RN >= Ch / 2
   constexpr int kLdn = 32 * RN + 8;     // weight slab row: 32 RN columns + 8 (banks)
   constexpr int kWSlab = kSlabK * kLdn;  // floats
@@ -477,14 +481,16 @@ resblock_kernel(const T* __restrict__ x, const float* __restrict__ wp,
         const int p = m0 + gid + 8 * half;
         const int gy = y0 + p / 8, gx = x0 + p % 8;
         if (gy >= H || gx >= W) continue;
+        // The residual is read from dense x; only the store takes the pitch.
         const long long base = ((long long)gy * W + gx) * C;
+        const long long obase = (((long long)b * H + gy) * out_pitch + out_off + gx) * C;
 #pragma unroll
         for (int tt = 0; tt < NT; ++tt) {
 #pragma unroll
           for (int j = 0; j < 2; ++j) {
             const int n = n0 + 8 * tt + 2 * tig + j;
             if (n < C)
-              out[(long long)b * H * W * C + base + n] =
+              out[obase + n] =
                   from_f32<T>(to_f32(xb[base + n]) + round_to<T>(acc[tt][2 * half + j]));
           }
         }
@@ -495,7 +501,8 @@ resblock_kernel(const T* __restrict__ x, const float* __restrict__ wp,
 
 template <typename T, int RN>
 int launch_rn(const void* x, const void* wp, const void* b1, const void* b2, const void* b3,
-              void* out, int B, int H, int W, int C, int Ch, cudaStream_t stream) {
+              void* out, int B, int H, int W, int C, int Ch, int out_pitch, int out_off,
+              cudaStream_t stream) {
   const int tiles_h = (H + kTile - 1) / kTile, tiles_w = (W + kTile - 1) / kTile;
   const long long blocks = (long long)B * tiles_h * tiles_w;
   const size_t bytes = sizeof(float) * (size_t)smem_floats<T, RN>(Ch);
@@ -505,23 +512,31 @@ int launch_rn(const void* x, const void* wp, const void* b1, const void* b2, con
   const bool x_async = (C * sizeof(T)) % 16 == 0 && (uintptr_t)x % 16 == 0;
   resblock_kernel<T, RN><<<(unsigned)blocks, kThreads, bytes, stream>>>(
       (const T*)x, (const float*)wp, (const float*)b1, (const float*)b2, (const float*)b3,
-      (T*)out, H, W, C, Ch, tiles_w, tiles_h, x_async);
+      (T*)out, H, W, C, Ch, out_pitch, out_off, tiles_w, tiles_h, x_async);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const void* x, const void* wp, const void* b1, const void* b2, const void* b3,
-           void* out, int B, int H, int W, int C, int Ch, void* stream_ptr) {
+           void* out, int B, int H, int W, int C, int Ch, int out_pitch, int out_off,
+           void* stream_ptr) {
+  if (out_off < 0 || (long long)out_pitch < (long long)W + out_off)
+    return (int)cudaErrorInvalidValue;  // refused, never clamped
   if ((long long)B * H * W == 0) return 0;
   if (Ch < 1 || Ch > 160 || C < 1 || (uintptr_t)wp % 16 != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   // RN = ceil(Ch / 32): a warp's columns in phases 2 and 3 are 16 RN >= Ch / 2.
   switch ((Ch + 31) / 32) {
-    case 1: return launch_rn<T, 1>(x, wp, b1, b2, b3, out, B, H, W, C, Ch, stream);
-    case 2: return launch_rn<T, 2>(x, wp, b1, b2, b3, out, B, H, W, C, Ch, stream);
-    case 3: return launch_rn<T, 3>(x, wp, b1, b2, b3, out, B, H, W, C, Ch, stream);
-    case 4: return launch_rn<T, 4>(x, wp, b1, b2, b3, out, B, H, W, C, Ch, stream);
-    default: return launch_rn<T, 5>(x, wp, b1, b2, b3, out, B, H, W, C, Ch, stream);
+    case 1: return launch_rn<T, 1>(x, wp, b1, b2, b3, out, B, H, W, C, Ch, out_pitch,
+                                   out_off, stream);
+    case 2: return launch_rn<T, 2>(x, wp, b1, b2, b3, out, B, H, W, C, Ch, out_pitch,
+                                   out_off, stream);
+    case 3: return launch_rn<T, 3>(x, wp, b1, b2, b3, out, B, H, W, C, Ch, out_pitch,
+                                   out_off, stream);
+    case 4: return launch_rn<T, 4>(x, wp, b1, b2, b3, out, B, H, W, C, Ch, out_pitch,
+                                   out_off, stream);
+    default: return launch_rn<T, 5>(x, wp, b1, b2, b3, out, B, H, W, C, Ch, out_pitch,
+                                    out_off, stream);
   }
 }
 
@@ -529,12 +544,13 @@ int launch(const void* x, const void* wp, const void* b1, const void* b2, const 
 
 extern "C" int rb_block_f32(const void* x, const void* wp, const void* b1, const void* b2,
                             const void* b3, void* out, int B, int H, int W, int C, int Ch,
-                            void* stream) {
-  return launch<float>(x, wp, b1, b2, b3, out, B, H, W, C, Ch, stream);
+                            int out_pitch, int out_off, void* stream) {
+  return launch<float>(x, wp, b1, b2, b3, out, B, H, W, C, Ch, out_pitch, out_off, stream);
 }
 
 extern "C" int rb_block_bf16(const void* x, const void* wp, const void* b1, const void* b2,
                              const void* b3, void* out, int B, int H, int W, int C, int Ch,
-                             void* stream) {
-  return launch<__nv_bfloat16>(x, wp, b1, b2, b3, out, B, H, W, C, Ch, stream);
+                             int out_pitch, int out_off, void* stream) {
+  return launch<__nv_bfloat16>(x, wp, b1, b2, b3, out, B, H, W, C, Ch, out_pitch, out_off,
+                               stream);
 }

@@ -1,19 +1,25 @@
 """ELIC residual-block chain: CUDA kernel and plain version.
 
-fused_rb_chain(x, params) runs N residual blocks, each
+fused_rb_chain_padded(x, params, keep_pad) runs N residual blocks, each
 x + 1x1(relu(3x3_SAME(relu(1x1 x)))) with C -> C/2 -> C/2 -> C, on NHWC x.
 params holds per block (w1 [C, C/2], b1, w2 [3, 3, C/2, C/2], b2,
-w3 [C/2, C], b3) in the flax layout. It replaces
-shallow_ntc_tpu/ops/pallas/rb_chain.py:fused_rb_chain (without `keep_pad`,
-which no caller uses).
+w3 [C/2, C], b3) in the flax layout. With keep_pad the result is
+[B, H, W + 2N, C]: the chain's output in columns [N, N + W) and zeros in the
+N columns on each side (the Pallas kernel leaves those as they are, its
+dense route zero-pads; here they are zeros on every route). fused_rb_chain
+is keep_pad=False. They replace shallow_ntc_tpu/ops/pallas/rb_chain.py's
+fused_rb_chain_padded and fused_rb_chain; the activation is relu, the only
+one the models use, so there is no `act_name`.
 
 On a CUDA tensor the forward pass launches the hand-written kernel of
 csrc/rb_chain.cu once per block (one fused kernel per block: the whole
-chain does not fit one CTA's shared memory at these widths) or raises; on a
-CPU tensor it runs the plain version, dense_rb_chain (cuDNN's convs on the
-card). The backward pass recomputes through the plain version's autograd,
-as the JAX custom VJP goes through dense_rb_chain. STATS counts one launch
-per chain (its N block kernels).
+chain does not fit one CTA's shared memory at these widths) or raises; with
+keep_pad the last block stores its rows straight into the padded output,
+allocated by torch.zeros. On a CPU tensor it runs the plain version,
+dense_rb_chain (cuDNN's convs on the card), zero-padded for keep_pad. The
+backward pass recomputes through the plain version's autograd, as the JAX
+custom VJP goes through dense_rb_chain. STATS counts one launch per chain
+(its N block kernels).
 """
 
 import ctypes
@@ -38,7 +44,7 @@ BlockParams = Tuple[torch.Tensor, ...]  # (w1, b1, w2, b2, w3, b3)
 @functools.lru_cache(maxsize=None)
 def _kernel_fn(dtype):
   fn = getattr(cuda_build.load(SOURCE), _SYMBOLS[dtype])
-  fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+  fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
   fn.restype = ctypes.c_int
   return fn
 
@@ -112,9 +118,16 @@ def dense_rb_chain(x: torch.Tensor, params: Sequence[BlockParams]) -> torch.Tens
   return x
 
 
-def block_cuda(x: torch.Tensor, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
+def pad_width(y: torch.Tensor, pad: int) -> torch.Tensor:
+  """y [B, H, W, C] with `pad` zero columns on each side of W."""
+  return F.pad(y, (0, 0, pad, pad)) if pad else y
+
+
+def block_cuda(x: torch.Tensor, w1, b1, w2, b2, w3, b3, pad: int = 0) -> torch.Tensor:
   """Launch the one-block kernel on PyTorch's current stream; raise on what it
-  does not take. Counts nothing: the public wrappers count."""
+  does not take. With pad > 0 the result is [B, H, W + 2 pad, C], the block's
+  output in columns [pad, pad + W) and zeros elsewhere. Counts nothing: the
+  public wrappers count."""
   if not x.is_cuda:
     raise ValueError(f"the residual-block kernel needs a CUDA tensor, got {x.device}")
   if x.dtype not in _SYMBOLS:
@@ -135,22 +148,25 @@ def block_cuda(x: torch.Tensor, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
   # Weights rounded to x's dtype, biases kept in float32 (the Pallas contract).
   wp = pack_weights(w1, w2, w3, x.dtype)
   biases = [t.detach().float().contiguous() for t in (b1, b2, b3)]
-  out = torch.empty_like(x)
   b, h, wd, _ = x.shape
+  out = x.new_zeros(b, h, wd + 2 * pad, c) if pad else torch.empty_like(x)
   stream = torch.cuda.current_stream(x.device).cuda_stream
   rc = _kernel_fn(x.dtype)(x.data_ptr(), wp.data_ptr(), *(t.data_ptr() for t in biases),
-                           out.data_ptr(), b, h, wd, c, ch, stream)
+                           out.data_ptr(), b, h, wd, c, ch, out.shape[2], pad, stream)
   if rc != 0:
     raise RuntimeError(f"residual-block kernel launch failed: CUDA error {rc}")
   return out
 
 
-def rb_chain_cuda(x: torch.Tensor, params: Sequence[BlockParams]) -> torch.Tensor:
-  """The chain on the card: one kernel launch per block; counts one chain."""
+def rb_chain_cuda(x: torch.Tensor, params: Sequence[BlockParams],
+                  keep_pad: bool = False) -> torch.Tensor:
+  """The chain on the card: one kernel launch per block, the last one into
+  the padded output with keep_pad; counts one chain."""
   if not params:
     raise ValueError("fused_rb_chain needs at least one block")
-  for p in params:
-    x = block_cuda(x, *p)
+  n = len(params)
+  for i, p in enumerate(params):
+    x = block_cuda(x, *p, pad=n if keep_pad and i == n - 1 else 0)
   STATS.launches += 1
   return x
 
@@ -160,26 +176,30 @@ def _blocks(flat: Sequence[torch.Tensor]) -> Tuple[BlockParams, ...]:
 
 
 class FusedBlocks(torch.autograd.Function):
-  """Forward through `cuda_fn` on the card (the plain version on the CPU);
-  backward through the plain version's autograd. Gradients for x and for
-  every weight and bias."""
+  """Forward through `cuda_fn` on the card (the plain version on the CPU),
+  with `pad` zero columns on each side of W (cuda_fn writes them itself);
+  backward through the plain version's autograd, of g's interior columns.
+  Gradients for x and for every weight and bias."""
 
   @staticmethod
-  def forward(ctx, cuda_fn: Callable, x, *flat):
+  def forward(ctx, cuda_fn: Callable, pad: int, x, *flat):
     ctx.save_for_backward(x, *flat)
+    ctx.pad = pad
     if x.device.type == "cpu":
-      return dense_rb_chain(x, _blocks(flat))
+      return pad_width(dense_rb_chain(x, _blocks(flat)), pad)
     return cuda_fn(x, _blocks(flat))
 
   @staticmethod
   def backward(ctx, g):
+    if ctx.pad:
+      g = g[:, :, ctx.pad : g.shape[2] - ctx.pad]
     saved = [t.detach().requires_grad_(need)
-             for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad[1:])]
+             for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad[2:])]
     wanted = [t for t in saved if t.requires_grad]
     with torch.enable_grad():
       y = dense_rb_chain(saved[0], _blocks(saved[1:]))
       grads = iter(torch.autograd.grad(y, wanted, g) if wanted else ())
-    return (None,) + tuple(next(grads) if t.requires_grad else None for t in saved)
+    return (None, None) + tuple(next(grads) if t.requires_grad else None for t in saved)
 
 
 def flops(x_shape: Sequence[int], hidden: int, n_blocks: int = 1) -> int:
@@ -191,10 +211,19 @@ def flops(x_shape: Sequence[int], hidden: int, n_blocks: int = 1) -> int:
                      + profiling.conv_flops((b, h, w, hidden), hidden, 3, 1))
 
 
-def fused_rb_chain(x: torch.Tensor, params: Sequence[BlockParams]) -> torch.Tensor:
-  """x [B, H, W, C] through len(params) residual blocks; differentiable."""
+def fused_rb_chain_padded(x: torch.Tensor, params: Sequence[BlockParams],
+                          keep_pad: bool = False) -> torch.Tensor:
+  """x [B, H, W, C] through N = len(params) residual blocks; differentiable.
+  Returns [B, H, W, C], or with keep_pad [B, H, W + 2N, C] with zeros in the
+  N columns on each side of the chain's output."""
   flat = [t for p in params for t in p]
   if len(flat) != 6 * len(params) or not params:
     raise ValueError("params must be a non-empty sequence of (w1, b1, w2, b2, w3, b3)")
+  pad = len(params) if keep_pad else 0
   with profiling.counted(lambda: flops(x.shape, params[0][0].shape[-1], len(params))):
-    return FusedBlocks.apply(rb_chain_cuda, x, *flat)
+    return FusedBlocks.apply(functools.partial(rb_chain_cuda, keep_pad=keep_pad), pad, x, *flat)
+
+
+def fused_rb_chain(x: torch.Tensor, params: Sequence[BlockParams]) -> torch.Tensor:
+  """x [B, H, W, C] through len(params) residual blocks; differentiable."""
+  return fused_rb_chain_padded(x, params, False)

@@ -34,4 +34,4 @@ def _one_block(x, params):
 def fused_resblock(x: torch.Tensor, w1, b1, w2, b2, w3, b3) -> torch.Tensor:
   """x [B, H, W, C], w1 [C, C/2], w2 [3, 3, C/2, C/2], w3 [C/2, C]; differentiable."""
   with profiling.counted(lambda: rb_chain.flops(x.shape, w1.shape[-1])):
-    return rb_chain.FusedBlocks.apply(_one_block, x, w1, b1, w2, b2, w3, b3)
+    return rb_chain.FusedBlocks.apply(_one_block, 0, x, w1, b1, w2, b2, w3, b3)

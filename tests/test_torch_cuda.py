@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card, against their plain versions
-(final_deconv_phase; fused_rb_chain and fused_resblock; jpegl_synthesize),
+(final_deconv_phase; fused_rb_chain, its keep_pad form and fused_resblock;
+jpegl_synthesize),
 and the eval CLI on the card against the CPU.
 
 Tests marked gpu skip without an NVIDIA GPU. This file imports no JAX, so on
@@ -169,6 +170,65 @@ def test_rb_chain_kernel_gradients_match_plain(cuda_device, n):
     grads.append([x_l.grad] + [t.grad for block in p_l for t in block])
   for a, b_ in zip(*grads):
     torch.testing.assert_close(a, b_, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,w,c,n,dtype", [
+    (1, 16, 12, 8, 2, torch.float32), (2, 17, 9, 192, 2, torch.float32),
+    (2, 17, 9, 192, 2, torch.bfloat16), (2, 8, 8, 320, 3, torch.bfloat16)])
+def test_rb_chain_keep_pad_kernel(cuda_device, b, h, w, c, n, dtype):
+  """keep_pad: the last block stores into columns [N, N + W) of the
+  [B, H, W + 2N, C] output. Its interior is the dense kernel's output bit for
+  bit (the same sums; only the store's address moves), the pad columns are 0,
+  one launch is counted, and the gradient is the zero-padded plain chain's.
+  H != W and N > 1, so a residual read at the padded index would show."""
+  params = _rb_params(c + n + 7, n, c, cuda_device)
+  x = torch.randn(b, h, w, c, device=cuda_device).to(dtype)
+  launches = rb_chain.STATS.launches
+  out = rb_chain.rb_chain_cuda(x, params, keep_pad=True)
+  torch.cuda.synchronize()
+  assert rb_chain.STATS.launches == launches + 1
+  assert out.shape == (b, h, w + 2 * n, c) and out.dtype == dtype
+  assert torch.equal(out[:, :, n : n + w], rb_chain.rb_chain_cuda(x, params))
+  assert not out[:, :, :n].any() and not out[:, :, n + w :].any()
+  ref = rb_chain.dense_rb_chain(x, params)
+  err = (out[:, :, n : n + w].float() - ref.float()).abs().max().item()
+  assert err <= (1e-4 if dtype == torch.float32 else 2e-2) * ref.float().abs().max().item()
+  assert torch.equal(rb_chain.fused_rb_chain_padded(x, params, False),
+                     rb_chain.fused_rb_chain(x, params))
+  if dtype == torch.float32:
+    cot = torch.randn_like(out)
+    grads = []
+    for fn in (lambda xx, pp: rb_chain.fused_rb_chain_padded(xx, pp, True),
+               lambda xx, pp: rb_chain.pad_width(rb_chain.dense_rb_chain(xx, pp), n)):
+      x_l = x.clone().requires_grad_(True)
+      p_l = [tuple(t.clone().requires_grad_(True) for t in block) for block in params]
+      (fn(x_l, p_l) * cot).sum().backward()
+      grads.append([x_l.grad] + [t.grad for block in p_l for t in block])
+    # Both sides run the plain version's backward; cuDNN may sum in another
+    # order from call to call, so within 1e-5 of max(1, max|g|), as
+    # chip_smoke.py holds the chain's gradients.
+    for a, b_ in zip(*grads):
+      assert (a - b_).abs().max().item() <= 1e-5 * max(1.0, b_.abs().max().item())
+
+
+@pytest.mark.gpu
+def test_rb_chain_kernel_refuses_a_bad_output_pitch(cuda_device):
+  """The launcher refuses an output row shorter than W + offset, or a
+  negative offset, with cudaErrorInvalidValue (1), and writes nothing."""
+  (block,) = _rb_params(3, 1, 16, cuda_device)
+  x = torch.randn(1, 4, 6, 16, device=cuda_device)
+  wp = rb_chain.pack_weights(block[0], block[2], block[4], x.dtype)
+  biases = [t.float().contiguous() for t in (block[1], block[3], block[5])]
+  out = torch.zeros(1, 4, 8, 16, device=cuda_device)
+  stream = torch.cuda.current_stream().cuda_stream
+  for pitch, off in ((8, 3), (5, 0), (8, -1)):
+    rc = rb_chain._kernel_fn(x.dtype)(x.data_ptr(), wp.data_ptr(),
+                                      *(t.data_ptr() for t in biases), out.data_ptr(),
+                                      1, 4, 6, 16, 8, pitch, off, stream)
+    assert rc == 1, (pitch, off, rc)
+  torch.cuda.synchronize()
+  assert not out.any()
 
 
 @pytest.mark.gpu

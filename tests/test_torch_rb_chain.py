@@ -115,6 +115,58 @@ def test_bf16_plain_versions_match_jax(case):
                              atol=2.0**-8 * np.abs(ref).max())
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("keep_pad", [False, True])
+def test_padded_chain_matches_jax(keep_pad, dtype):
+  """fused_rb_chain_padded at test_pallas.py:138's size (x (1, 16, 12, 8),
+  N = 2) against JAX's in interpret mode. float32: the interior at rtol =
+  atol = 2e-5 and the gradients of sum(interior**2) for x and all 12 weights
+  and biases at rtol = atol = 1e-4 (JAX's tolerances, test_pallas.py:157-158).
+  bfloat16 x (the plain version's rounding): the interior at half a bf16 ulp
+  of max|y|, as test_bf16_plain_versions_match_jax. The port's pad columns
+  are exactly 0 (JAX's kernel leaves whatever it computed there), and
+  keep_pad=False is fused_rb_chain bit for bit."""
+  n, c = 2, 8
+  params = _chain_params(n, c, seed=9)
+  x = np.random.default_rng(3).normal(0, 1, (1, 16, 12, c)).astype(np.float32)
+  pad = n if keep_pad else 0
+  interior = lambda y: y[:, :, pad : y.shape[2] - pad]  # noqa: E731
+  if dtype == "bfloat16":
+    x = _bf16(x)
+    ref = jax_rb_chain.fused_rb_chain_padded(jnp.asarray(x, jnp.bfloat16), params, "relu",
+                                             keep_pad)
+    with torch.no_grad():
+      x_t = to_torch(x).bfloat16()
+      out = rb_chain.fused_rb_chain_padded(x_t, _torch_params(params), keep_pad)
+      dense = rb_chain.fused_rb_chain(x_t, _torch_params(params))
+    ref = np.asarray(ref.astype(jnp.float32))
+    got = to_numpy(out.float())
+    np.testing.assert_allclose(interior(got), interior(ref), rtol=0,
+                               atol=2.0**-8 * np.abs(interior(ref)).max())
+  else:
+    def jax_loss(xx, pp):
+      return jnp.sum(interior(jax_rb_chain.fused_rb_chain_padded(xx, pp, "relu", keep_pad)) ** 2)
+
+    ref = jax_rb_chain.fused_rb_chain_padded(jnp.asarray(x), params, "relu", keep_pad)
+    g_x, g_p = jax.grad(jax_loss, argnums=(0, 1))(jnp.asarray(x), params)
+    x_t = to_torch(x).requires_grad_(True)
+    p_t = _torch_params(params, requires_grad=True)
+    out = rb_chain.fused_rb_chain_padded(x_t, p_t, keep_pad)
+    (interior(out) ** 2).sum().backward()
+    with torch.no_grad():
+      dense = rb_chain.fused_rb_chain(x_t, p_t)
+    got = to_numpy(out.detach())
+    np.testing.assert_allclose(interior(got), interior(np.asarray(ref)), rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(to_numpy(x_t.grad), np.asarray(g_x), rtol=1e-4, atol=1e-4)
+    for block_t, block_j in zip(p_t, g_p):
+      for t, j in zip(block_t, block_j):
+        np.testing.assert_allclose(to_numpy(t.grad), np.asarray(j), rtol=1e-4, atol=1e-4)
+  assert out.shape == ((1, 16, 12 + 2 * n, c) if keep_pad else x.shape) == ref.shape
+  assert out.dtype == dense.dtype
+  assert not got[:, :, :pad].any() and not got[:, :, got.shape[2] - pad :].any()
+  assert torch.equal(interior(out.detach()), dense)
+
+
 @pytest.mark.parametrize("switch", ["SNTC_FUSED_RB_CHAIN", "SNTC_FUSED_RESBLOCK"])
 def test_elic_analysis_with_the_kernels_matches_jax(monkeypatch, switch):
   """ElicAnalysis (8, 10, 12, 14), 2 blocks per chain, 64x96, with the switch on

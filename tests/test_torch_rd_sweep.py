@@ -498,7 +498,8 @@ def test_aggregate_of_the_committed_jsons_is_the_committed_aggregate(tmp_path):
   """scripts/aggregate_results.py on results/torch_rd_deadleaves/json/
   rebuilds the committed aggregate.json and -detailed.json files bit for
   bit, the flagship's rows holding every λ trained on the card to step
-  30000 (a point cut short keeps its eval JSON beside its records)."""
+  30000 (a point cut short keeps its eval JSON beside its records): the
+  seven λ of the JAX run's mshyper row (results/rd_deadleaves/)."""
   proc = subprocess.run([sys.executable, os.path.join(REPO, "scripts", "aggregate_results.py"),
                          "--results_glob", os.path.join(COMMITTED, "json", "*.json"), "--out",
                          str(tmp_path)], capture_output=True, text=True, timeout=120)
@@ -519,5 +520,6 @@ def test_aggregate_of_the_committed_jsons_is_the_committed_aggregate(tmp_path):
                 for key, path in _load(os.path.join(COMMITTED, "runs.json")).items()
                 if key.startswith(prefix)
                 and _load(os.path.join(COMMITTED, path))["checkpoint_step"] == 30000)
-  assert 0.005 in full and 0.02 in full
+  jax_rows = _load(os.path.join(REPO, "results", "rd_deadleaves", "aggregate.json"))
+  assert full == sorted(jax_rows["mshyper"]["rd_lambda"]) and len(full) == 7
   assert agg["mshyper"]["rd_lambda"] == agg["mshyper+sga"]["rd_lambda"] == full
