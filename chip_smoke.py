@@ -261,8 +261,26 @@ says otherwise):
                forward), the chain 7 times a forward in the eval and int8
                passes, the records' hyper_ranges, its aggregate rows;
                within 305 s.
+ 25. graphs    the captured steps (shallow_ntc_tpu_torch/step_graph.py: one
+               CUDA graph a step, the train and SGA CLIs' default on the card)
+               against the eager loops, full width, seeded weights: SGA of
+               512x768 images, 200 steps of the flagship at B=1 in f32 and
+               with bf16 transforms, 50 at B=8, 200 of the factorized family;
+               10 flagship train steps at B=8 256x256 (TF32 on), the chain
+               kernel off and on. Under deterministic algorithms: latents, or
+               params and Adam's moments, bit for bit or within 1e-5; a
+               replay's launches (final_deconv_phase once, the chain 7 times
+               when on) and each run's counts equal to the eager run's. With
+               the default algorithms (the B=1 flagship SGA and the train step
+               without the chain): ms a step both ways by CUDA events, and how
+               far graph departs from eager and eager from eager. A capture
+               that cannot run (a .item() in the step) raises, in a process of
+               its own.
 Phase 11 also times the B=8 bf16 decodes of bls2017_rd, two_layer_syn2 and
-mbt2018.
+mbt2018. Every phase that trains or runs SGA through an entry point (7, 10,
+12-14, 17, 19, 22, 24) issues its steps as CUDA graphs, the entry points'
+default on the card; phase 18's DDP ranks and its one-process runs
+(--dispatch eager) issue them eagerly.
 Then one JSON line of kernels, the nvidia-smi line, and the last line
 {"ok": true, "device": {...}}. Any failed phase exits non-zero before that
 line. Without CUDA, or without the port beside this script, it exits 1.
@@ -2168,7 +2186,8 @@ RD_FLAGSHIP_STAGES = ["train", "eval", "codec_overhead", f"int8_quality_step={RD
 RD_SWEEP_PATH = ("rd-sweep: scripts/torch_rd_run.py --config two_layer_syn_rd --hids 2 "
                  "--keep_checkpoints at full width, each stage's process counted from 0 (train "
                  "without the chain kernel; eval, codec overhead, the int8 passes with the "
-                 "hyper-decoder's saves, SGA and its recompute with it)")
+                 "hyper-decoder's saves, SGA and its recompute with it; the train and SGA "
+                 "steps each a CUDA graph replayed a step, the CLIs' default)")
 
 
 def rd_sweep_phase(smi, tmp):
@@ -2584,39 +2603,22 @@ PAR_STEPS, NCCL_STEPS = 3, 2  # the DDP comparison's steps; the NCCL run's
 PAR_STATS_MODULES = ("twolayer_final", "rb_chain", "resblock", "jpegl_decode")
 
 
-@contextlib.contextmanager
-def _deterministic():
-  """torch.use_deterministic_algorithms with cuDNN deterministic and no
-  autotuning (coding_numerics' settings), restored after: run to run, two
-  processes then compute the same shapes with the same algorithms."""
-  import torch
-
-  cudnn = torch.backends.cudnn
-  saved = (cudnn.deterministic, cudnn.benchmark)
-  torch.use_deterministic_algorithms(True, warn_only=True)
-  cudnn.deterministic, cudnn.benchmark = True, False
-  try:
-    yield
-  finally:
-    torch.use_deterministic_algorithms(False)
-    cudnn.deterministic, cudnn.benchmark = saved
-
-
 def _counted_train_rank(rank, *args):
   """utils/cli.py's _train_rank, which run_train_main spawns for
-  --dp_devices N, under _deterministic(), with this rank's launch counts
+  --dp_devices N, under measure.deterministic(), with this rank's launch counts
   written beside the experiment at its end: phase 18 swaps it in for the
   spawn."""
   import importlib
 
   import torch
+  from shallow_ntc_tpu_torch import measure
   from shallow_ntc_tpu_torch.utils import cli
 
   stats = [importlib.import_module(f"shallow_ntc_tpu_torch.ops.{m}").STATS
            for m in PAR_STATS_MODULES]
   for st in stats:
     st.launches = 0
-  with _deterministic():
+  with measure.deterministic():
     out = cli._train_rank(rank, *args)
   torch.cuda.synchronize()
   with open(os.path.join(args[2].experiments_dir, f"launches_rank{rank}.json"), "w") as f:
@@ -2748,7 +2750,7 @@ def parallel_phase(image, zero_counts, read_counts, smi, eval_ms_per_image):
   import torch
   import torch.nn.functional as F
   from shallow_ntc_tpu_torch import compress as compress_cli
-  from shallow_ntc_tpu_torch import configs, data as data_lib, eval_lib, train_lib
+  from shallow_ntc_tpu_torch import configs, data as data_lib, eval_lib, measure, train_lib
   from shallow_ntc_tpu_torch.codec import api as codec_api
   from shallow_ntc_tpu_torch.models import base as models_base
   from shallow_ntc_tpu_torch.ops import metrics_ops
@@ -2953,7 +2955,7 @@ def parallel_phase(image, zero_counts, read_counts, smi, eval_ms_per_image):
 
     # 4. DDP: two gloo ranks on cuda:0, spawned by the train CLI
     # (--dp_devices 2 --dist_backend gloo), 3 steps at B=8 256x256 with the
-    # chain kernel, under _deterministic(); each rank reports its launch
+    # chain kernel, under measure.deterministic(); each rank reports its launch
     # counts. Then the control: the same run with each rank on its own
     # gradients.
     real_rank = cli._train_rank
@@ -2977,14 +2979,16 @@ def parallel_phase(image, zero_counts, read_counts, smi, eval_ms_per_image):
     ddp_dir, ddp_s, ranks = two_ranks("ddp", _counted_train_rank)
     ctl_dir, _, ctl_ranks = two_ranks("ctl", _unsynced_train_rank)
     # 5. The same 3 steps in one process (--dp_devices 1) under
-    # _deterministic(), on the same global batches and noise: at B=8, and
+    # measure.deterministic(), on the same global batches and noise: at B=8, and
     # the reference, each half batch's gradient taken apart and averaged.
+    # Both issue the eager step (--dispatch eager), as the DDP ranks do.
     def one_process(xid):
       os.environ["SLURM_ARRAY_JOB_ID"] = xid
       zero_counts()
       t = time.time()
-      with _deterministic():
-        _, workdir = cli.run_train_main("mshyper", argv(xid, PAR_STEPS) + ["--dp_devices", "1"])
+      with measure.deterministic():
+        _, workdir = cli.run_train_main("mshyper", argv(xid, PAR_STEPS)
+                                        + ["--dp_devices", "1", "--dispatch", "eager"])
       return workdir, time.time() - t, read_counts()
 
     one_dir, one_s, one_counts = one_process("one")
@@ -3621,6 +3625,140 @@ def tf_checkpoint_phase(image, zero_counts, read_counts, smi, reference):
   summary["seconds"] = time.time() - t_phase
   log(phase, f"done in {summary['seconds']:.1f} s")
   return summary
+
+
+GRAPH_SGA_CASES = (  # (name, itinf config, transforms dtype, B, steps, timed by default too)
+    ("flagship f32 B=1", "itinf", "float32", 1, 200, True),
+    ("flagship bf16 B=1", "itinf", "bfloat16", 1, 200, True),
+    ("flagship f32 B=8", "itinf", "float32", DECODE_BATCH, 50, False),
+    ("factorized f32 B=1", "itinf_factorized", "float32", 1, 200, False))
+GRAPH_TRAIN_STEPS = 10
+GRAPH_TOL = 1e-5
+
+
+def graphs_phase(smi):
+  """Phase 25: the captured steps (shallow_ntc_tpu_torch/step_graph.py)
+  against the eager loops on the card, at full width with seeded weights,
+  through measure.sga_dispatch_runs and train_dispatch_runs (each run's
+  launch counts start from its own snapshot): SGA of seeded 512x768 images
+  (GRAPH_SGA_CASES, TF32 off) and GRAPH_TRAIN_STEPS flagship train steps at
+  B=8 256x256 (TF32 on, the train CLI's setting), chain off and on.
+
+  Held under deterministic algorithms (measure.deterministic(): cuDNN's default
+  backward-data algorithms sum in any order, so two eager runs differ
+  too): the latents, or the params and Adam's moments, bit for bit or
+  within GRAPH_TOL; each graph's launches per replay (final_deconv_phase
+  once, the chain 7 times when on) and the run's counts equal to the eager
+  run's. Timed with the default algorithms, as the CLIs run (the flagship's
+  B=1 SGA and the train step without the chain; the others' times are under
+  deterministic algorithms): ms a step both ways by CUDA events, the first
+  3 steps (warm-up and capture among them) untimed, and the departure of
+  graph from eager and of eager from a second eager run. Then a capture
+  that cannot run (a .item() in the step) must raise, in a process of its
+  own. Returns the numbers."""
+  import torch
+  from shallow_ntc_tpu_torch import configs, eval_lib, measure, step_graph
+  from shallow_ntc_tpu_torch.itinf_lib import TRANSFORMS_DTYPES
+  from shallow_ntc_tpu_torch.ops import rb_chain as rb
+  from shallow_ntc_tpu_torch.ops import twolayer_final as tl
+
+  phase = "graphs"
+  rng = np.random.default_rng(25)
+  images = (rng.integers(0, 256, (DECODE_BATCH,) + EVAL_HW + (3,)) / 255.0 - 0.5).astype(
+      np.float32)
+  out = {"sga": {}, "train": {}}
+
+  def max_diff(a, b):
+    return max(float((x.float() - y.float()).abs().max()) for x, y in zip(a, b))
+
+  def held(name, state, runs, expected):
+    """Check the deterministic runs' graph against eager; their numbers."""
+    got, want = state(runs["graph"]), state(runs["eager"])
+    unequal = sum(int((a != b).sum()) for a, b in zip(got, want))
+    diff = max_diff(got, want)
+    g, e = runs["graph"], runs["eager"]
+    log(phase, f"{name}, deterministic algorithms: graph against eager, {unequal} of "
+        f"{sum(t.numel() for t in got)} elements differ, max|diff| {diff:.3e} (tol "
+        f"{GRAPH_TOL:g}); ms a step eager {e['ms']:.3f}, graph {g['ms']:.3f}; a replay "
+        f"launches {g['launches_per_replay']}; the run {g['launches']} (eager "
+        f"{e['launches']})  [{smi}]")
+    check(diff <= GRAPH_TOL, f"{name}: the captured step departs from the eager one by {diff}")
+    check(g["launches_per_replay"] == expected,
+          f"{name}: a replay launches {g['launches_per_replay']}, not {expected}")
+    check(g["launches"] == e["launches"], f"{name}: the graph run's launches "
+          f"{g['launches']} are not the eager run's {e['launches']}")
+    return dict(unequal=unequal, max_abs_diff=diff, det_eager_ms=e["ms"], det_graph_ms=g["ms"],
+                launches_per_replay=g["launches_per_replay"], launches=g["launches"])
+
+  def timed(name, state, runs):
+    """The default-algorithm runs: ms a step, and how far they depart."""
+    g, e, e2 = runs["graph"], runs["eager"], runs["eager again"]
+    res = dict(eager_ms=e["ms"], graph_ms=g["ms"],
+               default_graph_vs_eager=max_diff(state(g), state(e)),
+               default_eager_vs_eager=max_diff(state(e2), state(e)))
+    log(phase, f"{name}, default algorithms: ms a step eager {e['ms']:.3f}, graph "
+        f"{g['ms']:.3f} ({e['ms'] / g['ms']:.2f}x); max|diff| graph against eager "
+        f"{res['default_graph_vs_eager']:.3e}, eager against eager "
+        f"{res['default_eager_vs_eager']:.3e}  [{smi}]")
+    return res
+
+  def latents(r):
+    return r["latents"]
+
+  def trained(r):
+    return r["params"] + r["mu"] + r["nu"]
+
+  for name, cfg_name, dtype, b, steps, time_default in GRAPH_SGA_CASES:
+    config = configs.itinf_config(cfg_name)
+    model = eval_lib.build_model(
+        dict(config["model_config"], transforms_dtype=TRANSFORMS_DTYPES[dtype]), init_seed=0,
+        device="cuda", family=config["model_family"])
+    opt_cfg = config["model_config"]["optimizer_config"]
+    with measure.deterministic():
+      runs = measure.sga_dispatch_runs(model, images[:b], steps, opt_cfg)
+    expected = {} if config["model_family"] == "factorized" else {tl.STATS.name: 1}
+    label = f"SGA {name}, {steps} steps"
+    out["sga"][name] = dict(steps=steps, **held(label, latents, runs, expected))
+    if time_default:
+      runs = measure.sga_dispatch_runs(model, images[:b], steps, opt_cfg)
+      runs["eager again"] = measure.sga_dispatch_runs(model, images[:b], steps, opt_cfg,
+                                                      dispatches=("eager",))["eager"]
+      out["sga"][name].update(timed(label, latents, runs))
+    del model, runs
+    torch.cuda.empty_cache()
+
+  batch_rng = np.random.default_rng(26)
+  batches = [batch_rng.uniform(-0.5, 0.5, (TRAIN_BATCH, TRAIN_HW, TRAIN_HW, 3)).astype(np.float32)
+             for _ in range(GRAPH_TRAIN_STEPS)]
+  model_config = configs.TRAIN_CONFIGS["two_layer_syn_rd"]["model_config"]
+  tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+  torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+  try:
+    for chain in (False, True):
+      name = f"train chain {'on' if chain else 'off'}"
+      label = f"{name}, B={TRAIN_BATCH} {TRAIN_HW}x{TRAIN_HW}, TF32 on, {GRAPH_TRAIN_STEPS} steps"
+      expected = {tl.STATS.name: 1, **({rb.STATS.name: CHAINS_PER_FORWARD} if chain else {})}
+      with switch_on("SNTC_FUSED_RB_CHAIN") if chain else contextlib.nullcontext():
+        with measure.deterministic():
+          runs = measure.train_dispatch_runs(model_config, batches, "cuda")
+        out["train"][name] = dict(steps=GRAPH_TRAIN_STEPS, **held(label, trained, runs, expected))
+        if not chain:
+          runs = measure.train_dispatch_runs(model_config, batches, "cuda")
+          runs["eager again"] = measure.train_dispatch_runs(model_config, batches, "cuda",
+                                                            dispatches=("eager",))["eager"]
+          out["train"][name].update(timed(label, trained, runs))
+      del runs
+      torch.cuda.empty_cache()
+  finally:
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+
+  proc = step_graph.run_capture_failure(os.path.dirname(os.path.abspath(__file__)))
+  log(phase, f"a step that waits for the card (.item()) under capture: exit {proc.returncode}, "
+      f"{(proc.stdout.strip() or proc.stderr.strip()[-400:])}")
+  check(proc.returncode == 0 and proc.stdout.startswith("raised:"),
+        "a capture that cannot run did not raise")
+  out["capture_failure"] = proc.stdout.strip()
+  return out
 
 
 def main():
@@ -4516,6 +4654,9 @@ def main():
     sweep = rd_sweep_phase(smi, sweep_tmp)
   by_stage = sweep["flagship"]["launches_by_stage"]
 
+  # --- 25. graphs: the captured SGA and train steps against the eager ones -
+  graphs = graphs_phase(smi)
+
   codec_fd = sum(codec_counts[k][tl.STATS.name]
                  for k in ("flagship_compress", "flagship_decompress"))
   codec_k16 = sum(codec_counts[k][jd.STATS.name] for k in ("k16_compress", "k16_decompress"))
@@ -4579,7 +4720,9 @@ def main():
       "codec": codec_fd, "eval+decode": launches, "train": train_counts[tl.STATS.name],
       **{f"two_layer_syn2 {k}": v for k, v in fam_launches["two_layer_syn2"].items()},
       **{f"parallel {k}": v[tl.STATS.name] for k, v in parallel["launches"].items()},
-      **{f"reference {k}": v[tl.STATS.name] for k, v in parallel["reference_launches"].items()}}
+      **{f"reference {k}": v[tl.STATS.name] for k, v in parallel["reference_launches"].items()},
+      **{f"graphs {k}": v["launches"].get(tl.STATS.name, 0)
+         for k, v in {**graphs["sga"], **graphs["train"]}.items()}}
   kernels[0]["family_decodes"] = fam_decode
   kernels[0]["factorized"] = fact
   kernels[0]["int8"] = int8
@@ -4592,6 +4735,7 @@ def main():
   kernels[0]["rd_pipeline"] = rd
   kernels[0]["measure"] = meas
   kernels[0]["rd_sweep"] = sweep
+  kernels[0]["graphs"] = graphs
   kernels.append(dict(
       name=rb.STATS.name, route="cuda", source="shallow_ntc_tpu_torch/csrc/rb_chain.cu",
       replaces="shallow_ntc_tpu/ops/pallas/rb_chain.py:263",
@@ -4601,6 +4745,8 @@ def main():
                         **{f"measure {k}": v[rb.STATS.name]
                            for k, v in meas["launches_by_process"].items()},
                         "measure latents vs cpu": meas["latents_vs_cpu"]["chain_launches"],
+                        **{f"graphs {k}": v["launches"].get(rb.STATS.name, 0)
+                           for k, v in graphs["train"].items()},
                         **{f"rd-pipeline {k}": v[rb.STATS.name]
                            for k, v in rd["launches_by_process"].items()},
                         "tf-checkpoint flagship eval": tf_ckpt["launches"][rb.STATS.name],

@@ -58,9 +58,15 @@ codec_overhead.json, int8_quality.json (and int8_quality_step=<n>.json of
 each kept checkpoint), train_curves.json, basis.png and for SGA
 sga_metrics.json, each SGA batch's records and sga_recomputed.json. --out/runs.json names every
 point's run.json. The workdirs (checkpoints included) stay under --root.
-Dot overrides for the train and SGA CLIs (--train_override, --sga_override;
-repeatable) and --num_train/--num_eval cut a rehearsal short; --skip leaves
-out stages; --device cpu runs it on the CPU.
+--seed N (default 0) seeds the training's init, data and noise (the train
+CLI's --seed, JAX's train_and_eval seed); a seed other than 0 gives the
+point its own experiment ids (<xid>_seed<N>), so give it its own --out too.
+The SGA draws stay seeded 0, as the JAX run's. run.json also records how
+the train and SGA steps were issued (each CLI's step_dispatch.json: a CUDA
+graph a step on the card, by default). Dot overrides for the train and SGA
+CLIs (--train_override, --sga_override; repeatable) and
+--num_train/--num_eval cut a rehearsal short; --skip leaves out stages;
+--device cpu runs it on the CPU.
 """
 
 import argparse
@@ -158,12 +164,16 @@ class Point:
   """One work unit: config `name`, sweep entry `hid`, its resolved config
   (the train overrides applied), family, run name and experiment ids."""
 
-  def __init__(self, name, hid, train_override):
+  def __init__(self, name, hid, train_override, seed=0):
     from shallow_ntc_tpu_torch.utils import cli
     from shallow_ntc_tpu_torch.utils import config as config_lib
 
     self.name, self.hid = name, hid
     self.script, self.xid, self.sga_xid = CONFIGS[name]
+    self.seed = seed
+    if seed:
+      self.xid = f"{self.xid}_seed{seed}"
+      self.sga_xid = self.sga_xid and f"{self.sga_xid}_seed{seed}"
     _, overrides = config_lib.split_overrides([f"--config.{o}" for o in train_override])
     self.cfg = config_lib.resolve_config(self.script, overrides, hid)
     self.family = self.cfg["model_family"]
@@ -207,7 +217,7 @@ def train(runner, args, point, exp, env):
 
   cmd = runner.argv("train", families.TRAIN_MODULES[point.family],
                     ["--config", point.script, "--hid", str(point.hid), "--experiments_dir",
-                     os.path.dirname(exp), "--device", args.device,
+                     os.path.dirname(exp), "--device", args.device, "--seed", str(point.seed),
                      *(["--max_to_keep", "0"] if args.keep_checkpoints else []),
                      *(f"--config.{o}" for o in args.train_override)])
   kept = os.path.join(args.root, "kept", point.key) if args.keep_checkpoints else None
@@ -280,6 +290,14 @@ def departed_step(records):
   return None
 
 
+def read_json(path):
+  """The JSON at `path`, or None where there is no file."""
+  if not os.path.isfile(path):
+    return None
+  with open(path) as f:
+    return json.load(f)
+
+
 def read_train_eval(workdir):
   """The workdir's train_eval_config (its config.json)."""
   with open(os.path.join(workdir, "config.json")) as f:
@@ -322,7 +340,7 @@ def run_point(args, point, base_env, smi):
   chain = dict(SNTC_FUSED_RB_CHAIN="1") if point.family == "mshyper" else {}
   skipped = skipped_stages(args, point)
   run = dict(config=point.name, hid=point.hid, family=point.family, runname=point.runname,
-             xid=point.xid, card=smi, argv=args.argv, skipped=skipped)
+             xid=point.xid, seed=point.seed, card=smi, argv=args.argv, skipped=skipped)
 
   def save():
     run.update(steps=runner.steps, seconds=time.time() - t_point)
@@ -335,6 +353,7 @@ def run_point(args, point, base_env, smi):
   rows = read_jsonl(os.path.join(workdir, "train", "record.jsonl"))
   run.update(workdir=os.path.relpath(workdir, args.root), checkpoint_step=step,
              last_val_step=vals[-1]["step"] if vals else None, train_end=reason,
+             train_dispatch=read_json(os.path.join(workdir, "step_dispatch.json")),
              train_step_ms=[1e3 / r["steps_per_sec"] for r in rows])
   log(f"{point.key}: trained to the checkpoint of step {step} ({reason}); val rows at "
       f"{[v['step'] for v in vals]}")
@@ -424,6 +443,7 @@ def run_point(args, point, base_env, smi):
     (sga_wd,) = glob.glob(os.path.join(args.root, "itinf_xms", point.sga_xid,
                                        f"wid={point.hid}-*"))
     shutil.copy(os.path.join(sga_wd, "metrics.json"), os.path.join(dest, "sga_metrics.json"))
+    run.update(sga_dispatch=read_json(os.path.join(sga_wd, "step_dispatch.json")))
     for d in sorted(glob.glob(os.path.join(sga_wd, "batch_id=*"))):
       for name in ("train", "val"):
         shutil.copy(os.path.join(d, name, "record.jsonl"),
@@ -468,6 +488,8 @@ def main(argv=None):
   p.add_argument("--keep_checkpoints", action="store_true",
                  help="keep every checkpoint of the run and take int8 quality of each")
   p.add_argument("--device", default="cuda", help="the device of every CLI")
+  p.add_argument("--seed", type=int, default=0,
+                 help="seed of the training's init, data and noise (its own xids unless 0)")
   args = p.parse_args(argv)
   args.t0, args.argv = t0, sys.argv[1:] if argv is None else list(argv)
   args.skip = [s for s in args.skip.split(",") if s]
@@ -480,7 +502,8 @@ def main(argv=None):
   args.root, args.out = os.path.abspath(args.root), os.path.abspath(args.out)
   os.makedirs(args.root, exist_ok=True)
   os.makedirs(os.path.join(args.out, "json"), exist_ok=True)
-  points = [Point(args.config, hid, args.train_override) for hid in parse_hids(args.hids)]
+  points = [Point(args.config, hid, args.train_override, args.seed)
+            for hid in parse_hids(args.hids)]
   smi = smi_line()
   log(f"card: {smi}; {args.config} hids {[pt.hid for pt in points]}")
   env = dict(os.environ, PYTHONPATH=REPO, SHALLOW_NTC_PROJECT_DIR=args.root)

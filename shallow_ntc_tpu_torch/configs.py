@@ -39,8 +39,10 @@ model_config is TWO_LAYER_SYN_RD with itinf.py's overrides (the SGA
 relaxation, offset heuristic off, its optimizer), and train_eval_config its
 schedule and transforms dtype without the warm-start keys, which the
 fixed-name itinf CLI (itinf.py) takes as its weights flags. data_config
-names the synthetic source (the CLI takes --images). step_dispatch is a TPU
-dispatch tactic that the port accepts and ignores. ITINF_FACTORIZED is the
+names the synthetic source (the CLI takes --images). step_dispatch, the JAX
+package's choice among its compiled SGA step programs, is accepted: every
+value of it is the port's captured step on the card (step_graph.py).
+ITINF_FACTORIZED is the
 same file's overrides on BLS2017_RD, as the JAX factorized itinf reads it.
 """
 

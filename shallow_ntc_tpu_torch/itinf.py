@@ -7,7 +7,7 @@ bls2017_rd; both from mshyper/configs/itinf.py).
       --dataset synthetic
   python -m shallow_ntc_tpu_torch.itinf --workdir TRAIN_DIR --images 'imgs/*.npy' \\
       [--num_steps 3000] [--log_every 300] [--eval_every 3000] \\
-      [--transforms_dtype bfloat16] [--out ./itinf_xms/torch]
+      [--transforms_dtype bfloat16] [--out ./itinf_xms/torch] [--dispatch eager]
 
 Weights come from exactly one of --params (an .npz of flax parameter paths,
 as the eval CLI's), --init_seed (a seeded full-width init) or --workdir (the
@@ -20,7 +20,9 @@ the computation type of the frozen transforms (the latents and the entropy
 math stay float32). --config picks the configuration and with it the model
 family: itinf (the flagship, the default) or itinf_factorized. --matmul_precision default (the default, as the JAX
 itinf CLI's) leaves TF32 on for cuDNN convolutions and matmuls; highest
-turns it off. --seed seeds the SGA draws. Runs on CUDA unless --device
+turns it off. --seed seeds the SGA draws. --dispatch auto (the default)
+captures the SGA step once as a CUDA graph and replays it on the card, and
+runs it eagerly on the CPU; eager asks for the eager loop on the card. Runs on CUDA unless --device
 names another device. An int8 gate left on (SNTC_INT8_DECODE,
 SNTC_INT8_ENCODE) is an error: its quantizers have no gradient.
 """
@@ -59,6 +61,7 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict]:
   parser.add_argument("--seed", type=int, default=0, help="seed of the SGA draws")
   parser.add_argument("--out", default="./itinf_xms/torch")
   parser.add_argument("--device", default="cuda")
+  parser.add_argument("--dispatch", default="auto", choices=("auto", "eager"))
   args = parser.parse_args(argv)
   int8ops.assert_training_safe()
   # Process-wide, so set here and not in itinf_lib.
@@ -86,7 +89,8 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict]:
   os.makedirs(args.out, exist_ok=True)
   with open(os.path.join(args.out, "config.json"), "w") as f:
     json.dump(config, f, indent=2)
-  all_metrics = itinf_lib.itinf_eval(model, images, config, args.out, seed=args.seed)
+  all_metrics = itinf_lib.itinf_eval(model, images, config, args.out, seed=args.seed,
+                                     dispatch=args.dispatch)
   for m in all_metrics:
     print(f"image {m['batch_id']}: rd_loss {m['rd_loss']:.5f} bpp {m['bpp']:.5f} "
           f"psnr {m['psnr']:.4f}")

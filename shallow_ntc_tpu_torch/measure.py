@@ -15,6 +15,9 @@ scripts/torch_<name>.py):
   codec_e2e            codec_e2e_bench.py: per-image and batch compress /
                        decompress wall ms, batch checked against single
   sga_step_ms          itinf_bench.py: the marginal ms of an SGA step
+  sga_dispatch_runs, train_dispatch_runs
+                       SGA and train steps issued eagerly and as CUDA graphs
+                       (step_graph.py): final state, ms a step, launches
   bench_suite          bench_suite.py: decode and encode Mpx/s, train and
                        SGA steps/s, host rANS Msym/s
   encode_roofline      encode_roofline.py: each stage of the encoder timed
@@ -39,6 +42,7 @@ import torch
 from shallow_ntc_tpu_torch import configs
 from shallow_ntc_tpu_torch import eval_lib
 from shallow_ntc_tpu_torch import itinf_lib
+from shallow_ntc_tpu_torch import step_graph
 from shallow_ntc_tpu_torch import train_lib
 from shallow_ntc_tpu_torch.codec import api as codec_api
 from shallow_ntc_tpu_torch.codec import bindings
@@ -152,6 +156,24 @@ def switches(**values: Optional[str]):
         os.environ.pop(k, None)
       else:
         os.environ[k] = v
+
+
+@contextlib.contextmanager
+def deterministic():
+  """torch.use_deterministic_algorithms (warn only) with cuDNN deterministic
+  and no autotuning for a with-block, restored after: run to run, the same
+  shapes compute with the same algorithms and sum in the same order (the
+  default cuDNN backward-data algorithms, which the transposed convs'
+  forward and the SGA step's backward take, may sum in any order)."""
+  cudnn = torch.backends.cudnn
+  saved = (torch.are_deterministic_algorithms_enabled(), cudnn.deterministic, cudnn.benchmark)
+  torch.use_deterministic_algorithms(True, warn_only=True)
+  cudnn.deterministic, cudnn.benchmark = True, False
+  try:
+    yield
+  finally:
+    torch.use_deterministic_algorithms(saved[0])
+    cudnn.deterministic, cudnn.benchmark = saved[1:]
 
 
 def peak_memory_gb(device) -> Optional[float]:
@@ -477,6 +499,73 @@ def sga_step_ms(model, batch: np.ndarray, num_steps: int = 1000, n_lo: int = 64,
     fns.step(x, latents, optimizer, s, offset, generator=itinf_lib.seed_step(generator, seed, s))
 
   return marginal_ms(step, n_lo, n_hi, repeats=repeats, device=device)
+
+
+# ---------------------------------------------------------------------------
+# The captured steps against the eager loops (step_graph.py)
+# ---------------------------------------------------------------------------
+def _run_steps(run: Callable[[int], Dict], num_steps: int, timed_from: int, device) -> Dict:
+  """Steps 0..num_steps-1 of run(step): the ms a step of steps [timed_from,
+  num_steps) (loop_ms: CUDA events around the host's loop on the card) and
+  the kernel launches of all of them."""
+  before = step_graph.launch_counts()
+  steps = iter(range(num_steps))
+  for _ in range(timed_from):
+    run(next(steps))
+  ms = loop_ms(lambda: run(next(steps)), num_steps - timed_from, device)
+  counts = step_graph.launch_counts()
+  return {"ms": ms / (num_steps - timed_from),
+          "launches": {k: n - before.get(k, 0) for k, n in counts.items()
+                       if n != before.get(k, 0)}}
+
+
+def sga_dispatch_runs(model, batch: np.ndarray, num_steps: int,
+                      optimizer_config: Optional[Dict] = None,
+                      dispatches: Sequence[str] = ("eager", "graph"), seed: int = 0,
+                      timed_from: int = 3) -> Dict[str, Dict]:
+  """SGA of `batch` [B, H, W, 3] for num_steps steps from its init latents,
+  issued each way of `dispatches` (itinf_lib.sga_stepper; a graph is
+  captured once, after one eager warm-up step), the draws seeded by (seed,
+  step) as itinf_on_data_batch's: {dispatch: {"latents": the final latents,
+  "ms": ms a step, "launches": the run's kernel launches,
+  "launches_per_replay": the graph's, else None}}."""
+  device = next(model.parameters()).device
+  x = torch.as_tensor(np.asarray(batch, np.float32), device=device)
+  out = {}
+  for dispatch in dispatches:
+    fns = itinf_lib.make_itinf_functions(model, optimizer_config or SGA_OPTIMIZER, num_steps)
+    run, latents = itinf_lib.sga_stepper(model, fns, x, fns.frozen_offset(), dispatch, seed)
+    out[dispatch] = _run_steps(run, num_steps, timed_from, device)
+    graphs = [st.run for st in fns.statics.values()
+              if isinstance(st.run, step_graph.CapturedStep)]
+    out[dispatch].update(latents=[rv.loc.detach().clone() for rv in latents.uq],
+                         launches_per_replay=graphs[0].launches_per_replay if graphs else None)
+  return out
+
+
+def train_dispatch_runs(model_config: Dict, batches: Sequence[np.ndarray], device,
+                        dispatches: Sequence[str] = ("eager", "graph"), init_seed: int = 0,
+                        family: str = "mshyper", timed_from: int = 3) -> Dict[str, Dict]:
+  """len(batches) train steps of the `family` model of model_config (its
+  optimizer_config), each way of `dispatches` from the same seeded init and
+  noise generator (train_lib.train_stepper): {dispatch: {"params", "mu",
+  "nu": the final tensors, "ms": ms a step, "launches": the run's kernel
+  launches, "launches_per_replay": the graph's, else None}}."""
+  out = {}
+  for dispatch in dispatches:
+    model, opt_cfg = train_lib.build_model(model_config, init_seed, str(device), family)
+    state, lr_fn = train_lib.create_train_state(model, opt_cfg, init_seed)
+    step = train_lib.train_stepper(model, state.optimizer, lr_fn, dispatch)
+    out[dispatch] = _run_steps(lambda s: step(state, batches[s]), len(batches), timed_from,
+                               device)
+    replays = (list(step.launches_per_replay().values())
+               if isinstance(step, train_lib.StaticTrainStep) else [])
+    out[dispatch].update(
+        params=[p.detach().clone() for p in model.parameters()],
+        mu=[t.clone() for t in state.optimizer.mu], nu=[t.clone() for t in state.optimizer.nu],
+        launches_per_replay=replays[0] if replays else None)
+    del model, state, step
+  return out
 
 
 # ---------------------------------------------------------------------------

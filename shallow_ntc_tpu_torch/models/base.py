@@ -48,6 +48,35 @@ def resolve_uq_config(latent_config: Mapping, step: int = 0) -> Dict:
   return cfg
 
 
+def step_scalar_values(model, step: int, itinf: bool = False) -> Dict[str, np.float32]:
+  """The host values of the scalars a step of `model` reads: rd_lambda, the
+  scheduled lambda, and for uq method 'sga' tau (resolve_uq_config's). A
+  caller that issues the step from static tensors fills them into a
+  step_graph.StepScalars before each step and passes it as `scalars`."""
+  values = {"rd_lambda": np.float32(schedule.scheduled_rd_lambda(
+      model.rd_lambda, step, model.scheduled_num_steps, itinf=itinf))}
+  uq_cfg = resolve_uq_config(model.latent_config, step)
+  if uq_cfg.get("method") == "sga":
+    values["tau"] = np.float32(uq_cfg["tau"])
+  return values
+
+
+def host_step_metrics(values: Mapping[str, np.float32]) -> Dict[str, torch.Tensor]:
+  """The metrics sched_rd_lambda (and tau) of step_scalar_values' `values`,
+  as float32 CPU tensors: what assemble_rd_loss puts in a step's metrics."""
+  out = {"sched_rd_lambda": torch.tensor(values["rd_lambda"])}
+  if "tau" in values:
+    out["tau"] = torch.tensor(values["tau"])
+  return out
+
+
+def sampling_config(uq_cfg: Mapping, scalars: Optional[Mapping] = None) -> Mapping:
+  """uq_cfg with its tau taken from `scalars` (a 0-dim tensor) when given."""
+  if scalars is None or "tau" not in uq_cfg:
+    return uq_cfg
+  return dict(uq_cfg, tau=scalars["tau"])
+
+
 def effective_offset_heuristic(model_config: Mapping) -> bool:
   """mixedq training turns the offset heuristic off (models/base.py:123-138),
   with the JAX package's warning."""
@@ -78,19 +107,24 @@ def assemble_rd_loss(bpp_terms: Dict[str, torch.Tensor], mse: torch.Tensor,
                      psnr: torch.Tensor, rd_lambda_value: float, step: int,
                      scheduled_num_steps: int, itinf: bool = False,
                      uq_cfg: Optional[Mapping] = None,
-                     extra_metrics: Optional[Dict[str, torch.Tensor]] = None):
+                     extra_metrics: Optional[Dict[str, torch.Tensor]] = None,
+                     scalars: Optional[Mapping[str, torch.Tensor]] = None):
   """rd_loss = bpp + scheduled_lambda * mse, plus the reference's scalar set
   (and the SGA temperature `tau` for method 'sga').
 
-  The schedule's scalars are host values: lambda enters rd_loss as a Python
-  float (a float32 value, so the product is JAX's), and the metrics
-  sched_rd_lambda and tau are float32 CPU tensors, so that no step copies a
-  scalar to the device and waits for it.
+  Lambda enters rd_loss as a Python float (a float32 value, so the product
+  is JAX's), or, where `scalars` is given (the train and SGA steps), as its
+  0-dim float32 tensor "rd_lambda", which the host fills before each step
+  (step_scalar_values): a captured step reads it afresh at each replay. The
+  product is the same float32 multiply either way. The metrics
+  sched_rd_lambda and tau are float32 CPU tensors of the host values, so
+  that no step copies a scalar to the device and waits for it.
   """
   bpp = sum(bpp_terms.values())
   sched_lambda = np.float32(schedule.scheduled_rd_lambda(
       rd_lambda_value, step, scheduled_num_steps, itinf=itinf))
-  rd_loss = bpp + float(sched_lambda) * mse
+  lam = float(sched_lambda) if scalars is None else scalars["rd_lambda"]
+  rd_loss = bpp + lam * mse
   metrics = {
       "rd_loss": rd_loss,
       "bpp": bpp,

@@ -74,14 +74,16 @@ class Model(nn.Module):
                                   step: int = 0, noise: Optional[Tuple[torch.Tensor]] = None,
                                   generator: Optional[torch.Generator] = None,
                                   frozen_offset: Optional[torch.Tensor] = None,
-                                  itinf: bool = False):
+                                  itinf: bool = False,
+                                  scalars: Optional[Mapping[str, torch.Tensor]] = None):
     """Returns (rd_loss, metrics, reconstruction on the 255 scale).
 
     `frozen_offset` is prior_quantization_offset() computed once by a caller
     that holds the prior fixed, as in the mshyper model; the unoise branch in
-    training does not read the offset.
+    training does not read the offset. `scalars` are the mshyper model's.
     """
     uq_cfg = base.resolve_uq_config(self.latent_config, step)
+    sample_cfg = base.sampling_config(uq_cfg, scalars)
     method = uq_cfg.get("method", "unoise")
     (y_rv,) = latent_rvs.uq
     (n_y,) = noise if noise is not None else (None,)
@@ -97,7 +99,7 @@ class Model(nn.Module):
       if method == "mixedq":  # the bits of the noisy sample, the rounded latent onward
         y_hat = entropy.batched_em_quantize(y_rv.loc, offset)
     else:  # explicit sampling (sga, soft_round) for iterative inference
-      y_hat = y_rv.sample(training, offset=offset, noise=n_y, generator=generator, **uq_cfg)
+      y_hat = y_rv.sample(training, offset=offset, noise=n_y, generator=generator, **sample_cfg)
       y_bits = entropy.bits_from_log_prob(self._prior.log_prob_noisy(y_hat))
     reconstruction = metrics_ops.unpad_images(self.synthesize(y_hat), image_batch.shape)
 
@@ -106,12 +108,13 @@ class Model(nn.Module):
     mse, psnr, extra, rec255 = base.distortion_metrics(image_batch, reconstruction, training)
     rd_loss, metrics = base.assemble_rd_loss(
         bpp_terms, mse, psnr, self.rd_lambda, step, self.scheduled_num_steps, itinf, uq_cfg,
-        extra)
+        extra, scalars)
     return rd_loss, metrics, rec255
 
   def end_to_end_frame_loss(self, image_batch: torch.Tensor, training: bool = False,
                             step: int = 0, noise: Optional[Tuple[torch.Tensor]] = None,
-                            generator: Optional[torch.Generator] = None):
+                            generator: Optional[torch.Generator] = None,
+                            scalars: Optional[Mapping[str, torch.Tensor]] = None):
     latent_rvs = self.infer_latent_rvs(image_batch)
     return self.frame_loss_given_latent_rvs(image_batch, latent_rvs, training, step,
-                                            noise, generator)
+                                            noise, generator, scalars=scalars)

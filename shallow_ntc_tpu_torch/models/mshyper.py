@@ -117,7 +117,8 @@ class Model(nn.Module):
                                   noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                                   generator: Optional[torch.Generator] = None,
                                   frozen_offset: Optional[torch.Tensor] = None,
-                                  itinf: bool = False):
+                                  itinf: bool = False,
+                                  scalars: Optional[Mapping[str, torch.Tensor]] = None):
     """Returns (rd_loss, metrics, reconstruction on the 255 scale).
 
     The offset heuristic's grid is a function of the prior's parameters
@@ -125,9 +126,13 @@ class Model(nn.Module):
     iterative inference) computes it once with prior_quantization_offset()
     and passes it as `frozen_offset`. The unoise branch in training skips
     it: its noisy sample does not read it. The SGA sample is taken about it
-    in training too.
+    in training too. `scalars` (base.step_scalar_values' names, 0-dim
+    tensors on the model's device) replace the host values of the scheduled
+    lambda and of SGA's tau: the train and SGA steps pass them, so that a
+    captured step reads each step's own.
     """
     uq_cfg = base.resolve_uq_config(self.latent_config, step)
+    sample_cfg = base.sampling_config(uq_cfg, scalars)
     method = uq_cfg.get("method", "unoise")
     z_rv, y_rv = latent_rvs.uq
     n_z, n_y = noise if noise is not None else (None, None)
@@ -148,10 +153,10 @@ class Model(nn.Module):
       if method == "mixedq":
         y_hat = entropy.indexed_em_quantize(y_rv.loc, mu)
     else:  # explicit sampling (sga, soft_round) for iterative inference
-      z_hat = z_rv.sample(training, offset=offset, noise=n_z, generator=generator, **uq_cfg)
+      z_hat = z_rv.sample(training, offset=offset, noise=n_z, generator=generator, **sample_cfg)
       z_bits = entropy.bits_from_log_prob(self._prior.log_prob_noisy(z_hat))
       mu, indexes = self.hyper_synthesize(z_hat)
-      y_hat = y_rv.sample(training, offset=mu, noise=n_y, generator=generator, **uq_cfg)
+      y_hat = y_rv.sample(training, offset=mu, noise=n_y, generator=generator, **sample_cfg)
       y_bits = entropy.bits_from_log_prob(
           entropy.indexed_em_log_prob_centered(y_hat, indexes, mu))
     reconstruction = metrics_ops.unpad_images(self.synthesize(y_hat), image_batch.shape)
@@ -164,13 +169,14 @@ class Model(nn.Module):
     mse, psnr, extra, rec255 = base.distortion_metrics(image_batch, reconstruction, training)
     rd_loss, metrics = base.assemble_rd_loss(
         bpp_terms, mse, psnr, self.rd_lambda, step, self.scheduled_num_steps, itinf, uq_cfg,
-        extra)
+        extra, scalars)
     return rd_loss, metrics, rec255
 
   def end_to_end_frame_loss(self, image_batch: torch.Tensor, training: bool = False,
                             step: int = 0,
                             noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                            generator: Optional[torch.Generator] = None):
+                            generator: Optional[torch.Generator] = None,
+                            scalars: Optional[Mapping[str, torch.Tensor]] = None):
     latent_rvs = self.infer_latent_rvs(image_batch)
     return self.frame_loss_given_latent_rvs(image_batch, latent_rvs, training, step,
-                                            noise, generator)
+                                            noise, generator, scalars=scalars)

@@ -30,7 +30,8 @@ def get_config():
       # "none"); the entropy math and the optimized latents stay float32.
       transforms_dtype="bfloat16",
       # The JAX package's dispatch shape (one fused scan, or a stream of
-      # jitted steps): a TPU tactic that the port accepts and ignores.
+      # jitted steps). Every value is the port's captured step on the card
+      # (shallow_ntc_tpu_torch/step_graph.py).
       step_dispatch="auto",
   )
 

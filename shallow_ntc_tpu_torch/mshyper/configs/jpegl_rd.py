@@ -28,7 +28,7 @@ def get_config():
       checkpoint_every_steps=5_000,
       eval_every_steps=5_000,
       max_validation_steps=4,
-      steps_per_dispatch=25,  # a TPU scan window: read only by the JAX package
+      steps_per_dispatch=25,  # JAX's scan window; the port replays a graph a step
   )
 
   config["model_config"] = dict(

@@ -24,11 +24,16 @@ _lock = threading.Lock()
 
 
 class KernelStats:
-  """Launch count of one CUDA kernel wrapper: a plain integer, reset by the caller."""
+  """Launch count of one CUDA kernel wrapper: a plain integer, reset by the
+  caller. Every instance is in `registry`, which a captured step reads
+  (step_graph.CapturedStep)."""
+
+  registry = []
 
   def __init__(self, name: str):
     self.name = name
     self.launches = 0
+    KernelStats.registry.append(self)
 
 _loaded = {}
 

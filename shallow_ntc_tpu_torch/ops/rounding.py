@@ -80,7 +80,7 @@ def logistic(shape, generator: Optional[torch.Generator] = None, dtype=torch.flo
   return torch.log(u / (1 - u))
 
 
-def sga_round(mu: torch.Tensor, tau: float, offset: Optional[torch.Tensor] = None,
+def sga_round(mu: torch.Tensor, tau, offset: Optional[torch.Tensor] = None,
               noise: Optional[torch.Tensor] = None,
               generator: Optional[torch.Generator] = None,
               epsilon: float = 1e-5) -> torch.Tensor:
@@ -92,9 +92,13 @@ def sga_round(mu: torch.Tensor, tau: float, offset: Optional[torch.Tensor] = Non
   categories it collapses to a sigmoid of the logit difference plus one
   standard logistic draw per element (`noise`, or drawn from `generator`).
   As in the reference, tau divides the logit difference and then the sum
-  again.
+  again. tau is a number or a 0-dim float32 tensor on mu's device (the SGA
+  step's, filled by the host before each step): a CUDA division by a host
+  number multiplies by its reciprocal, and by a device tensor divides, so
+  the last bit of the two can differ on the card; on the CPU both divide.
   """
-  tau = float(tau)
+  if not isinstance(tau, torch.Tensor):
+    tau = float(tau)
   if noise is None:
     noise = logistic(mu.shape, generator, mu.dtype, mu.device)
   noise = _check_noise(noise, mu)

@@ -2,7 +2,7 @@
 
   python -m shallow_ntc_tpu_torch.train --config two_layer_syn_rd \\
       --workdir /tmp/train_flagship [--num_steps 3] [--init_seed 0] \\
-      [--images 'imgs/*.npy'] [--device cuda]
+      [--images 'imgs/*.npy'] [--device cuda] [--dispatch eager]
 
 --config names an entry of configs.TRAIN_CONFIGS: two_layer_syn_rd (the
 flagship), jpegl_rd, two_layer_syn2, mbt2018, the factorized family's
@@ -11,7 +11,10 @@ val/record.jsonl (the JAX package's metric keys, steps_per_sec included)
 and train/checkpoints/ckpt_<step>.pt, and resumes from the newest
 checkpoint there. Runs on CUDA unless --device names another device; the
 residual-block kernels are chosen by SNTC_FUSED_RB_CHAIN=1 or
-SNTC_FUSED_RESBLOCK=1, as in the JAX package. An int8 gate left on
+SNTC_FUSED_RESBLOCK=1, as in the JAX package. --dispatch auto (the
+default) captures the train step once as a CUDA graph and replays it on the
+card, and runs it eagerly on the CPU; eager asks for the eager loop on the
+card (step_graph.py). An int8 gate left on
 (SNTC_INT8_DECODE, SNTC_INT8_ENCODE) is an error: its quantizers have no
 gradient.
 """
@@ -33,11 +36,13 @@ def main(argv: Optional[Sequence[str]] = None) -> train_lib.TrainState:
                       help="seed of the init, the data and the training noise")
   parser.add_argument("--images", help="glob of .npy images to crop, instead of synthetic")
   parser.add_argument("--device", default="cuda")
+  parser.add_argument("--dispatch", default="auto", choices=("auto", "eager"))
   args = parser.parse_args(argv)
   int8ops.assert_training_safe()
   state = train_lib.train_and_eval(configs.TRAIN_CONFIGS[args.config], args.workdir,
                                    device=args.device, init_seed=args.init_seed,
-                                   num_steps=args.num_steps, images=args.images)
+                                   num_steps=args.num_steps, images=args.images,
+                                   dispatch=args.dispatch)
   print(f"trained to step {state.step}; records and checkpoints under {args.workdir}")
   return state
 

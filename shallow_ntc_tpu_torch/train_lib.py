@@ -30,7 +30,12 @@ The writers are utils/writers.create_default_writer's (<workdir>/train/ and
 <workdir>/val/: record.jsonl, and TensorBoard when tensorboardX imports);
 each val pass also writes a grid of the first val batch's reconstruction
 (center crops of at most 256x256) as the image "reconstruction".
-Not ported: steps_per_dispatch (a TPU scan window, accepted and ignored).
+On the card each train step is one CUDA graph, captured once and replayed
+(StaticTrainStep, step_graph.CapturedStep): the counterpart of JAX's jitted
+train step. The CPU, and a process group, issue the step eagerly
+(make_train_step); a caller can ask for either (`dispatch`). JAX's
+steps_per_dispatch, a lax.scan window of steps a dispatch, is accepted and
+not ported: each step is one replay.
 """
 
 import dataclasses
@@ -51,6 +56,8 @@ from torch import nn
 from shallow_ntc_tpu_torch import data as data_lib
 from shallow_ntc_tpu_torch import eval_lib
 from shallow_ntc_tpu_torch import schedule as schedule_lib
+from shallow_ntc_tpu_torch import step_graph
+from shallow_ntc_tpu_torch.models import base as models_base
 from shallow_ntc_tpu_torch.models import families
 from shallow_ntc_tpu_torch.ops import metrics_ops
 from shallow_ntc_tpu_torch.parallel import distributed
@@ -99,6 +106,12 @@ class Adam:
   (torch's clip_grad_norm_ adds 1e-6 to the norm and differs). Moments and
   bias corrections follow optax's scale_by_adam; the step is -lr_fn(count)
   times the Adam direction, with count the number of earlier updates.
+
+  An update is host work, prepare() (the count, and the learning rate and
+  bias corrections as float32 values filled into 0-dim tensors on the
+  params' device, `scalars`), then device work, apply(grads), which reads
+  those tensors and waits for nothing: a captured step replays apply().
+  update() is the two in turn.
   """
 
   def __init__(self, params: Sequence[torch.Tensor], lr_fn: Callable[[int], float],
@@ -111,10 +124,47 @@ class Adam:
     self.count = 0
     self.mu = [torch.zeros_like(p) for p in self.params]
     self.nu = [torch.zeros_like(p) for p in self.params]
+    self.scalars = step_graph.StepScalars(self.params[0].device if self.params else "cpu")
+    self._fill_scalars(np.float32(0), np.float32(1), np.float32(1))
+
+  def update(self, grads: Sequence[torch.Tensor]) -> None:
+    """Apply one update to the params from `grads` (one per param)."""
+    self.prepare()
+    self.apply(grads)
+
+  def prepare(self) -> None:
+    """The host half of an update: fill the scalars of update count + 1.
+
+    The bias corrections divide as PyTorch divides by a host number: on the
+    card a multiply by its float32 reciprocal ("inv_bc1", "inv_bc2"), on the
+    CPU a division ("bc1", "bc2"), so the update is the one it was with host
+    floats, bit for bit, on either. That CUDA lowering is PyTorch's, not a
+    documented contract, so it is checked, not assumed: chip_smoke.py's
+    adam_check (phase 8) holds this update against the per-parameter loop
+    with host floats, unclipped bit for bit, and fails if a PyTorch upgrade
+    moves it. sga_round (ops/rounding.py) takes the other way: it divides
+    truly on both devices, so eager SGA on the card differs in the last bit
+    from a host-float tau."""
+    lr = np.float32(self.lr_fn(self.count))
+    self.count += 1
+    self._fill_scalars(lr, np.float32(1) - np.power(np.float32(self.b1), np.float32(self.count)),
+                       np.float32(1) - np.power(np.float32(self.b2), np.float32(self.count)))
+
+  def _fill_scalars(self, lr: np.float32, bc1: np.float32, bc2: np.float32) -> None:
+    if self.scalars.device.type == "cuda":
+      self.scalars.fill({"neg_lr": -lr, "inv_bc1": np.float32(1) / bc1,
+                         "inv_bc2": np.float32(1) / bc2})
+    else:
+      self.scalars.fill({"neg_lr": -lr, "bc1": bc1, "bc2": bc2})
+
+  def _unbias(self, tensors: List[torch.Tensor], name: str) -> List[torch.Tensor]:
+    if self.scalars.device.type == "cuda":
+      return torch._foreach_mul(tensors, self.scalars["inv_" + name])
+    return torch._foreach_div(tensors, self.scalars[name])
 
   @torch.no_grad()
-  def update(self, grads: Sequence[torch.Tensor]) -> None:
-    """Apply one update to the params from `grads` (one per param).
+  def apply(self, grads: Sequence[torch.Tensor]) -> None:
+    """The device half of an update, with the scalars prepare() filled.
 
     Multi-tensor: torch._foreach_* ops over all the tensors at once, so the
     host dispatches the same 25 ops whatever their number. Per element the
@@ -131,10 +181,6 @@ class Adam:
       grads = torch._foreach_div(grads, torch.where(keep, 1.0, norm))
       clipnorm = torch.full_like(norm, self.global_clipnorm)
       torch._foreach_mul_(grads, torch.where(keep, 1.0, clipnorm))
-    lr = float(self.lr_fn(self.count))
-    self.count += 1
-    bc1 = float(np.float32(1) - np.power(np.float32(self.b1), np.float32(self.count)))
-    bc2 = float(np.float32(1) - np.power(np.float32(self.b2), np.float32(self.count)))
     step = torch._foreach_mul(grads, 1 - self.b1)
     torch._foreach_mul_(self.mu, self.b1)
     torch._foreach_add_(self.mu, step)
@@ -142,13 +188,19 @@ class Adam:
     torch._foreach_mul_(step, 1 - self.b2)
     torch._foreach_mul_(self.nu, self.b2)
     torch._foreach_add_(self.nu, step)
-    denom = torch._foreach_div(self.nu, bc2)
+    denom = self._unbias(self.nu, "bc2")
     torch._foreach_sqrt_(denom)
     torch._foreach_add_(denom, self.eps)
-    step = torch._foreach_div(self.mu, bc1)
+    step = self._unbias(self.mu, "bc1")
     torch._foreach_div_(step, denom)
-    torch._foreach_mul_(step, -lr)
+    torch._foreach_mul_(step, self.scalars["neg_lr"])
     torch._foreach_add_(self.params, step)
+
+  def reset(self) -> None:
+    """Back to no update: count 0, the moments zeroed in place."""
+    self.count = 0
+    with torch.no_grad():
+      torch._foreach_zero_(self.mu + self.nu)
 
   def state_dict(self) -> Dict[str, Any]:
     return {"count": self.count, "mu": [t.clone() for t in self.mu],
@@ -209,41 +261,140 @@ def create_train_state(model: nn.Module, optimizer_config: Mapping[str, Any],
   return TrainState(model=model, optimizer=optimizer, step=0, generator=generator), lr_fn
 
 
+def _train_host_metrics(model: nn.Module, scalars: step_graph.StepScalars, step: int,
+                        lr_fn: Callable[[int], float]) -> Dict[str, torch.Tensor]:
+  """Fill the model scalars of train step `step`; return its host metrics."""
+  values = models_base.step_scalar_values(model, step)
+  scalars.fill(values)
+  return {**models_base.host_step_metrics(values),
+          "scheduled_lr": torch.tensor(float(lr_fn(step)))}
+
+
+def _loss_and_grads(model: nn.Module, params: List[torch.Tensor], batch: torch.Tensor,
+                    step: int, scalars: step_graph.StepScalars, noise=None, generator=None):
+  """(metrics, one gradient per param) of the training loss: the device half
+  of a train step before Adam's update. The gradients go to p.grad, laid
+  out as their params (autograd.grad's could be laid out otherwise, and the
+  clip's norm sums in the order of the layout); in a captured step they
+  live in the graph's pool, and no code outside it resets them."""
+  for p in params:
+    p.grad = None
+  loss, metrics, _ = model.end_to_end_frame_loss(batch, training=True, step=step, noise=noise,
+                                                 generator=generator, scalars=scalars)
+  loss.backward()
+  return ({k: v.detach() for k, v in metrics.items()},
+          [torch.zeros_like(p) if p.grad is None else p.grad for p in params])
+
+
 def make_train_step(model: nn.Module, optimizer: Adam, lr_fn: Callable[[int], float]):
-  """(state, batch, noise=None) -> metrics; updates the state in place.
+  """(state, batch, noise=None) -> metrics; updates the state in place,
+  issued eagerly.
 
   `noise`, one uniform draw per latent ((u_z, u_y) for mshyper, (u_y,) for
   factorized) of the global batch, replaces the draws from the state's
   generator. In a process group the batch is this rank's rows of the global
   batch, the step takes its rows of the noise (drawn for the global batch
   when not given) and DDP averages the gradients; the metrics are this
-  rank's.
+  rank's. Outside one, the step reads the scheduled lambda from a 0-dim
+  tensor as StaticTrainStep does, so the two take the same steps.
   """
   params = list(model.parameters())
   ddp = mesh_lib.data_parallel(model) if distributed.in_group() else None
+  scalars = step_graph.StepScalars(params[0].device)
 
   def train_step(state: TrainState, batch: torch.Tensor,
                  noise: Optional[Tuple[torch.Tensor, ...]] = None):
-    for p in params:
-      p.grad = None
     if ddp is None:
-      loss, metrics, _ = model.end_to_end_frame_loss(
-          batch, training=True, step=state.step, noise=noise,
+      host = _train_host_metrics(model, scalars, state.step, lr_fn)
+      metrics, grads = _loss_and_grads(
+          model, params, batch, state.step, scalars, noise,
           generator=None if noise is not None else state.generator)
+      optimizer.update(grads)
+      metrics = {**metrics, **host}
     else:
+      for p in params:
+        p.grad = None
       global_shape = (batch.shape[0] * distributed.process_count(),) + tuple(batch.shape[1:])
       if noise is None:
         noise = model.training_noise(global_shape, state.generator)
       start, stop = distributed.local_batch_slice(global_shape[0])
       loss, metrics, _ = ddp(batch, state.step, tuple(n[start:stop] for n in noise))
-    loss.backward()
-    optimizer.update([p.grad if p.grad is not None else torch.zeros_like(p) for p in params])
-    metrics = {k: v.detach() for k, v in metrics.items()}
-    metrics["scheduled_lr"] = torch.tensor(float(lr_fn(state.step)))
+      loss.backward()
+      optimizer.update([p.grad if p.grad is not None else torch.zeros_like(p) for p in params])
+      metrics = {k: v.detach() for k, v in metrics.items()}
+      metrics["scheduled_lr"] = torch.tensor(float(lr_fn(state.step)))
     state.step += 1
     return metrics
 
   return train_step
+
+
+class StaticTrainStep:
+  """(state, host batch) -> metrics: the train step on static tensors, the
+  function that a CUDA graph captures (capture=True: step_graph.CapturedStep,
+  one capture per batch shape) or that runs eagerly (capture=False), with
+  make_train_step's arithmetic.
+
+  Before each step the host stages the batch into the static batch (pinned
+  memory, a non_blocking copy: step_graph.BatchStager), draws the unoise
+  noise from state.generator into static buffers (model.training_noise:
+  the draws the eager step takes, in its order, so checkpoints resume as
+  theirs), fills the scheduled lambda and Adam's scalars (Adam.prepare) and
+  then runs the device work: the forward, the gradients (p.grad, in the
+  graph's pool) and Adam.apply on the parameters and moments in place. The
+  noise is uniform: the step of a unoise or mixedq model.
+  """
+
+  def __init__(self, model: nn.Module, optimizer: Adam, lr_fn: Callable[[int], float],
+               capture: bool):
+    method = model.latent_config.get("uq", {}).get("method", "unoise")
+    if method not in ("unoise", "mixedq"):
+      raise ValueError(f"the static train step draws uniform noise; uq method {method!r}")
+    self.model, self.optimizer, self.lr_fn, self.capture = model, optimizer, lr_fn, capture
+    self.params = list(model.parameters())
+    self.device = self.params[0].device
+    self.scalars = step_graph.StepScalars(self.device)
+    self.stager = step_graph.BatchStager(self.device)
+    self.shapes: Dict[tuple, Tuple[torch.Tensor, Tuple[torch.Tensor, ...], Callable]] = {}
+    self._step = 0
+
+  def _static(self, shape, dtype):
+    key = (tuple(shape), dtype)
+    if key not in self.shapes:
+      batch = torch.empty(shape, dtype=dtype, device=self.device)
+      noise = tuple(torch.zeros_like(n) for n in self.model.training_noise(
+          shape, torch.Generator(device=self.device)))
+
+      def body():
+        metrics, grads = _loss_and_grads(self.model, self.params, batch, self._step,
+                                         self.scalars, noise)
+        self.optimizer.apply(grads)
+        return metrics
+
+      run = step_graph.CapturedStep(body, self.device) if self.capture else body
+      self.shapes[key] = (batch, noise, run)
+    return self.shapes[key]
+
+  def __call__(self, state: TrainState, array) -> Dict[str, torch.Tensor]:
+    array = np.asarray(array)
+    batch, noise, run = self._static(array.shape,
+                                     torch.from_numpy(np.empty(0, array.dtype)).dtype)
+    self.stager(array, out=batch)
+    host = _train_host_metrics(self.model, self.scalars, state.step, self.lr_fn)
+    with torch.no_grad():
+      for buf, draw in zip(noise, self.model.training_noise(array.shape, state.generator)):
+        buf.copy_(draw)
+    self.optimizer.prepare()
+    self._step = state.step
+    metrics = {**run(), **host}
+    state.step += 1
+    return metrics
+
+  def launches_per_replay(self) -> Dict[str, Dict[str, int]]:
+    """{batch shape: the kernel launches of one replay} of each capture."""
+    return {"x".join(map(str, key[0])): dict(run.launches_per_replay)
+            for key, (_, _, run) in self.shapes.items()
+            if isinstance(run, step_graph.CapturedStep)}
 
 
 def make_eval_step(model: nn.Module):
@@ -255,6 +406,18 @@ def make_eval_step(model: nn.Module):
     return metrics, rec255
 
   return eval_step
+
+
+def train_stepper(model: nn.Module, optimizer: Adam, lr_fn: Callable[[int], float],
+                  dispatch: str) -> Callable[[TrainState, Any], Dict[str, torch.Tensor]]:
+  """(state, host batch) -> metrics: a train step issued as `dispatch`
+  ("eager": make_train_step's, its batch staged through pinned memory;
+  "static" or "graph": a StaticTrainStep)."""
+  if dispatch != "eager":
+    return StaticTrainStep(model, optimizer, lr_fn, capture=dispatch == "graph")
+  eager_step = make_train_step(model, optimizer, lr_fn)
+  stager = step_graph.BatchStager(next(model.parameters()).device)
+  return lambda state, array: eager_step(state, stager(array))
 
 
 # ---------------------------------------------------------------------------
@@ -403,11 +566,18 @@ def evaluate_model(eval_step, state: TrainState, val_iter: Iterable,
 def simple_train_eval_loop(train_eval_config: Mapping[str, Any], workdir: str, model: nn.Module,
                            optimizer_config: Mapping[str, Any], train_iter: Iterable,
                            val_iter_factory: Callable[[], Iterable],
-                           seed: int = 0) -> TrainState:
+                           seed: int = 0, dispatch: str = "auto") -> TrainState:
   """Train with periodic logging, checkpoints and eval (train_lib.py:331-460);
   resumes from the newest checkpoint under `workdir`, or else warm-starts
   from train_eval_config's warm_start (and warm_start_wid). In a process
-  group (see the module docstring) only rank 0 writes. Returns the state."""
+  group (see the module docstring) only rank 0 writes. Returns the state.
+
+  `dispatch` (step_graph.DISPATCHES) issues the steps: by default on the
+  card a CUDA graph of StaticTrainStep replayed a step, on the CPU and in
+  a process group make_train_step's eager step. Each step is one replay:
+  train_eval_config's steps_per_dispatch (JAX's lax.scan window) is
+  accepted and not ported. <workdir>/step_dispatch.json says how the steps
+  were issued and, at the end, each graph's kernel launches per replay."""
   cfg = dict(train_eval_config)
   num_steps = cfg.get("num_steps", 100)
   log_every = cfg.get("log_metrics_every_steps", 100)
@@ -428,14 +598,17 @@ def simple_train_eval_loop(train_eval_config: Mapping[str, Any], workdir: str, m
   elif cfg.get("warm_start"):
     restore_params_from_dir(resolve_warm_start_dir(cfg["warm_start"], cfg.get("warm_start_wid")),
                             state)
-  train_step = make_train_step(model, state.optimizer, lr_fn)
+  dispatch = step_graph.resolve_dispatch(dispatch, device, distributed.in_group())
+  record_path = os.path.join(workdir, "step_dispatch.json")
+  train_step = train_stepper(model, state.optimizer, lr_fn, dispatch)
+  if primary:
+    step_graph.write_dispatch_record(record_path, dispatch)
   eval_step = make_eval_step(model)
 
   train_it = iter(distributed.shard_batches(iter(train_iter)))
   t_last, steps_since_log = time.time(), 0
   while state.step < num_steps:
-    batch = torch.as_tensor(np.asarray(next(train_it)), device=device)
-    metrics = train_step(state, batch)
+    metrics = train_step(state, next(train_it))
     steps_since_log += 1
     step = state.step
     if step % log_every == 0 or step == num_steps:
@@ -454,6 +627,9 @@ def simple_train_eval_loop(train_eval_config: Mapping[str, Any], workdir: str, m
         logging.warning("Skipping image grid: %s", e)
   train_writer.close()
   val_writer.close()
+  if primary and isinstance(train_step, StaticTrainStep):
+    step_graph.write_dispatch_record(record_path, dispatch,
+                                     launches_per_replay=train_step.launches_per_replay())
   distributed.barrier()  # the last checkpoint is written
   return state
 
@@ -467,10 +643,10 @@ def build_model(model_config: Mapping[str, Any], init_seed: int, device: Optiona
 
 
 def _train(cfg: Dict[str, Any], family: str, workdir: str, device: Optional[str],
-           init_seed: int) -> TrainState:
+           init_seed: int, dispatch: str = "auto") -> TrainState:
   """Build the `family` model of cfg["model_config"] and run the loop in
   `workdir` on cfg's data (train_lib.py:529-583), data-parallel in a
-  process group."""
+  process group; `init_seed` seeds the init, the data and the noise."""
   model, optimizer_config = build_model(cfg["model_config"], init_seed, device, family)
   train_cfg = cfg["train_data_config"]
   val_cfg = cfg.get("val_data_config") or train_cfg
@@ -482,7 +658,7 @@ def _train(cfg: Dict[str, Any], family: str, workdir: str, device: Optional[str]
                                 val_cfg.get("patchsize"))
 
   return simple_train_eval_loop(cfg["train_eval_config"], workdir, model, optimizer_config,
-                                train_iter, val_iter_factory, seed=init_seed)
+                                train_iter, val_iter_factory, seed=init_seed, dispatch=dispatch)
 
 
 def _plain(config: Mapping[str, Any]) -> Dict[str, Any]:
@@ -491,14 +667,14 @@ def _plain(config: Mapping[str, Any]) -> Dict[str, Any]:
 
 def train_and_eval(config: Mapping[str, Any], workdir: str, device: Optional[str] = "cuda",
                    init_seed: int = 0, num_steps: Optional[int] = None,
-                   images: Optional[str] = None) -> TrainState:
+                   images: Optional[str] = None, dispatch: str = "auto") -> TrainState:
   """The fixed-name train CLI's entry (train.py): build the model of
   config["model_family"] (mshyper when absent), train, checkpoint and
   evaluate in `workdir`.
 
   `images` (a glob of .npy images) replaces the config's synthetic data;
   `num_steps` cuts the loop, not the schedules (as a JAX dot-override of
-  train_eval_config.num_steps does).
+  train_eval_config.num_steps does); `dispatch` is simple_train_eval_loop's.
   """
   cfg = _plain(config)
   if num_steps is not None:
@@ -510,7 +686,7 @@ def train_and_eval(config: Mapping[str, Any], workdir: str, device: Optional[str
   os.makedirs(workdir, exist_ok=True)
   with open(os.path.join(workdir, "config.json"), "w") as f:
     json.dump(cfg, f, indent=2, default=list)
-  return _train(cfg, cfg.get("model_family", "mshyper"), workdir, device, init_seed)
+  return _train(cfg, cfg.get("model_family", "mshyper"), workdir, device, init_seed, dispatch)
 
 
 def setup_workdir(config: Mapping[str, Any], experiments_dir: str, runname: str,
@@ -538,15 +714,18 @@ def setup_workdir(config: Mapping[str, Any], experiments_dir: str, runname: str,
 def train_and_eval_experiment(config: Mapping[str, Any], model_family: str,
                               experiments_dir: str, runname: str,
                               config_script: Optional[str] = None,
-                              device: Optional[str] = "cuda") -> Tuple[TrainState, str]:
+                              device: Optional[str] = "cuda", seed: int = 0,
+                              dispatch: str = "auto") -> Tuple[TrainState, str]:
   """The experiment CLIs' entry (train_lib.py:529-583): set up the workdir
   (rank 0 of a process group, which sends its path to the others: a
   timestamp xid is rank 0's), then train the `model_family` model of the
-  resolved `config` on its datasets, seeded 0 as the JAX package,
-  data-parallel in a process group. Returns (state, workdir)."""
+  resolved `config` on its datasets, data-parallel in a process group.
+  `seed` seeds the init, the data and the training noise, 0 as the JAX
+  package's train_and_eval by default; `dispatch` is
+  simple_train_eval_loop's. Returns (state, workdir)."""
   cfg = _plain(config)
   workdir = None
   if distributed.is_primary():
     workdir = setup_workdir(cfg, experiments_dir, runname, config_script)
   workdir = distributed.broadcast_from_primary(workdir)
-  return _train(cfg, model_family, workdir, device, init_seed=0), workdir
+  return _train(cfg, model_family, workdir, device, seed, dispatch), workdir

@@ -12,7 +12,12 @@ entry N of its get_hyper() sweep after the overrides. The run is named
 <experiments_dir>/<xid>/[wid=<wid>-]<run name>/ (train_lib.setup_workdir).
 --matmul_precision default (the default, as the JAX train CLI's) leaves
 TF32 on for cuDNN convolutions and matmuls; highest turns it off. Runs on
-CUDA unless --device names another device. An int8 gate left on
+CUDA unless --device names another device. --dispatch issues the train or
+SGA steps (step_graph.py): auto, the default, captures each step once as a
+CUDA graph and replays it on the card, and runs it eagerly on the CPU and
+in a process group; eager asks for the eager loop on the card.
+--seed (train) seeds the init, the data and the training noise (0, as the
+JAX package's). An int8 gate left on
 (SNTC_INT8_DECODE, SNTC_INT8_ENCODE) is an error: its quantizers have no
 gradient.
 
@@ -58,7 +63,11 @@ def parse_args(argv: Optional[Sequence[str]], default_experiments_dir: str,
   parser.add_argument("--matmul_precision", default="default", choices=("default", "highest"),
                       help="default: TF32 on for cuDNN and matmuls; highest: TF32 off")
   parser.add_argument("--device", default="cuda")
+  parser.add_argument("--dispatch", default="auto", choices=("auto", "eager"),
+                      help="auto: a CUDA graph a step on the card, eager elsewhere")
   if parallel:
+    parser.add_argument("--seed", type=int, default=0,
+                        help="seed of the init, the data and the training noise")
     parser.add_argument("--dp_devices", type=int,
                         help="number of devices for data-parallel training (default: all)")
     parser.add_argument("--coordinator", help="host:port of rank 0; joins a process group")
@@ -105,7 +114,7 @@ def _train(args: argparse.Namespace, cfg: Dict, family: str, device: str):
   return train_lib.train_and_eval_experiment(
       cfg, model_family=family, experiments_dir=args.experiments_dir,
       runname=get_runname(cfg, args.config, family), config_script=args.config,
-      device=device)
+      device=device, seed=args.seed, dispatch=args.dispatch)
 
 
 def _train_rank(rank: int, world: int, coordinator: str, args: argparse.Namespace, cfg: Dict,
@@ -176,6 +185,6 @@ def run_itinf_main(family: str, argv: Optional[Sequence[str]] = None,
   workdir, metrics = itinf_lib.itinf_eval_experiment(
       cfg, model_family=family, experiments_dir=args.experiments_dir,
       runname=get_runname(cfg, args.config, family), config_script=args.config,
-      device=args.device)
+      device=args.device, dispatch=args.dispatch)
   print(f"SGA of {len(metrics)} batches; workdir {workdir}")
   return workdir, metrics

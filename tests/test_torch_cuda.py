@@ -714,3 +714,90 @@ def test_msssim_filters_ignore_tf32(cuda_device, monkeypatch):
         f"CPU {cpu.tolist()}")
   assert torch.equal(values[True], values[False])
   np.testing.assert_allclose(values[True].numpy(), cpu.numpy(), rtol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# The captured steps (step_graph.py) against the eager loops
+# ---------------------------------------------------------------------------
+def _max_diff(a, b):
+  return max(float((x.float() - y.float()).abs().max()) for x, y in zip(a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["flagship f32 B=1", "flagship bf16 B=1", "flagship f32 B=8",
+                                  "factorized f32 B=1"])
+def test_captured_sga_step_equals_the_eager_loop(cuda_device, case):
+  """SGA of 512x768 images at full width (configs.ITINF / ITINF_FACTORIZED,
+  seeded weights): 200 steps (50 at B=8) as one CUDA graph replayed a step
+  against the eager loop, the same draws, under deterministic algorithms
+  (measure.deterministic: cuDNN's default backward-data algorithms sum in
+  any order, so two eager runs differ too): the latents bit for bit, or
+  within 1e-5 (printed); the graph launches final_deconv_phase once a
+  replay (the factorized family none), and the run's counts are the eager
+  run's."""
+  from shallow_ntc_tpu_torch import configs, eval_lib, measure
+  from shallow_ntc_tpu_torch.itinf_lib import TRANSFORMS_DTYPES
+
+  family, dtype, b = {"flagship f32 B=1": ("itinf", "float32", 1),
+                      "flagship bf16 B=1": ("itinf", "bfloat16", 1),
+                      "flagship f32 B=8": ("itinf", "float32", 8),
+                      "factorized f32 B=1": ("itinf_factorized", "float32", 1)}[case]
+  config = configs.itinf_config(family)
+  model_config = dict(config["model_config"], transforms_dtype=TRANSFORMS_DTYPES[dtype])
+  model = eval_lib.build_model(model_config, init_seed=0, device=cuda_device,
+                               family=config["model_family"])
+  x = np.stack([_codec_image(30 + i, 512, 768) for i in range(b)])
+  steps = 50 if b == 8 else 200
+  with measure.deterministic():
+    runs = measure.sga_dispatch_runs(model, x, steps, config["model_config"]["optimizer_config"])
+  diff = _max_diff(runs["graph"]["latents"], runs["eager"]["latents"])
+  print(case, "max|latents diff|", diff, {d: r["ms"] for d, r in runs.items()},
+        runs["graph"]["launches_per_replay"])
+  assert diff <= 1e-5
+  want = {} if family == "itinf_factorized" else {tl.STATS.name: 1}
+  assert runs["graph"]["launches_per_replay"] == want
+  assert runs["graph"]["launches"] == runs["eager"]["launches"]
+  assert runs["eager"]["launches"].get(tl.STATS.name, 0) == (0 if want == {} else steps)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chain", [False, True])
+def test_captured_train_step_equals_the_eager_loop(cuda_device, monkeypatch, chain):
+  """10 train steps of the full-width flagship (two_layer_syn_rd, seeded) at
+  B=8 256x256, as one CUDA graph replayed a step against the eager step,
+  from the same init and noise generator, under deterministic algorithms:
+  params and Adam's moments bit for bit, or within 1e-5 (printed); a replay
+  launches final_deconv_phase once (and the chain kernel 7 times with
+  SNTC_FUSED_RB_CHAIN=1)."""
+  from shallow_ntc_tpu_torch import configs, measure
+
+  if chain:
+    monkeypatch.setenv("SNTC_FUSED_RB_CHAIN", "1")
+  rng = np.random.default_rng(4)
+  batches = [rng.uniform(-0.5, 0.5, (8, 256, 256, 3)).astype(np.float32) for _ in range(10)]
+  with measure.deterministic():
+    runs = measure.train_dispatch_runs(
+        configs.TRAIN_CONFIGS["two_layer_syn_rd"]["model_config"], batches, cuda_device)
+  g, e = runs["graph"], runs["eager"]
+  diff = _max_diff(g["params"] + g["mu"] + g["nu"], e["params"] + e["mu"] + e["nu"])
+  print("chain" if chain else "no chain", "max|diff|", diff, {d: r["ms"] for d, r in runs.items()},
+        g["launches_per_replay"])
+  assert diff <= 1e-5
+  want = {tl.STATS.name: 1, **({rb_chain.STATS.name: 7} if chain else {})}
+  assert g["launches_per_replay"] == want and g["launches"] == e["launches"]
+
+
+
+
+@pytest.mark.gpu
+def test_a_capture_that_cannot_run_raises(cuda_device):
+  """A step whose body waits for the card (.item()) cannot be captured: the
+  capture raises RuntimeError (in a process of its own, whose CUDA context
+  the failed capture may leave unusable)."""
+  import os
+
+  from shallow_ntc_tpu_torch import step_graph
+
+  proc = step_graph.run_capture_failure(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+  print(proc.stdout, proc.stderr[-2000:])
+  assert proc.returncode == 0 and proc.stdout.startswith("raised:")

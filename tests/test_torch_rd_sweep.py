@@ -207,7 +207,7 @@ def test_aggregate_holds_the_points_that_ran(sweep):
   for lmbda in (0.00125, 0.01):
     images[lmbda] = images.get(lmbda, 0) + 2
   agg = _load(sweep["out"] / "aggregate.json")
-  assert set(agg) == {"mshyper", "mshyper+sga", "factorized"}
+  assert set(agg) == {"mshyper", "mshyper+sga", "factorized", "mshyper-synthesis=jpegl"}
   assert dict(zip(agg["factorized"]["rd_lambda"], agg["factorized"]["num_images"])) == images
   flagship = _load(sweep["flagship_out"] / "aggregate.json")
   assert set(flagship) == {"mshyper", "mshyper+sga"}
@@ -497,16 +497,17 @@ def test_a_run_stopped_before_num_steps_is_kept_out_of_the_aggregate(tmp_path):
 def test_aggregate_of_the_committed_jsons_is_the_committed_aggregate(tmp_path):
   """scripts/aggregate_results.py on results/torch_rd_deadleaves/json/
   rebuilds the committed aggregate.json and -detailed.json files bit for
-  bit, the flagship's rows holding every λ trained on the card to step
-  30000 (a point cut short keeps its eval JSON beside its records): the
-  seven λ of the JAX run's mshyper row (results/rd_deadleaves/)."""
+  bit (the factorized family's, the flagship's with and without SGA, and
+  jpegl_rd's), the flagship's rows holding every λ trained on the card to
+  step 30000 (a point cut short keeps its eval JSON beside its records):
+  the seven λ of the JAX run's mshyper row (results/rd_deadleaves/)."""
   proc = subprocess.run([sys.executable, os.path.join(REPO, "scripts", "aggregate_results.py"),
                          "--results_glob", os.path.join(COMMITTED, "json", "*.json"), "--out",
                          str(tmp_path)], capture_output=True, text=True, timeout=120)
   assert proc.returncode == 0, proc.stderr
   names = {p.name for p in tmp_path.iterdir()}
   assert names == {"aggregate.json", "factorized-detailed.json", "mshyper-detailed.json",
-                   "mshyper+sga-detailed.json"}
+                   "mshyper+sga-detailed.json", "mshyper-synthesis=jpegl-detailed.json"}
   for name in names:
     with open(tmp_path / name, "rb") as a, open(os.path.join(COMMITTED, name), "rb") as b:
       assert a.read() == b.read(), name
